@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed on flushed lines with the seconds since start:
+
+1. device   the card's name, count, power limit, torch and CUDA versions;
+            exits non-zero without a CUDA device.
+2. build    the nvcc build of sctl_tpu_torch/csrc/*.cu for sm_90a, with
+            its wall time and the ptxas register / shared-memory / spill
+            lines.
+3. setup    KIFMM(Laplace3D_FxU, p=6, depth=6, float32) on 1e7 uniform
+            points from numpy.random.default_rng(0), as bench.py's
+            bench_fmm.
+4. kernels  each CUDA kernel against its plain PyTorch version on the
+            card, at the widths of that KIFMM with a reduced count
+            (sctl_tpu_torch/kernel_cases.py).  Bar: 1e-5 of the maximum,
+            since the kernels sum in another order than the plain
+            versions and rsqrtf is not torch.rsqrt.  Kernel time from
+            CUDA events over 20 launches after a warm-up.
+5. main     the KIFMM's evaluation: one warm and three timed
+            evaluations with fresh densities, per-stage CUDA-event
+            times, peak device memory, one profiled evaluation (device
+            time by kernel, busy share), and the relative error at 1000
+            sampled targets against a float64 direct sum on the card
+            (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
+            Every kernel's launch count in the four evaluations must be
+            > 0.  Then each kernel alone on the run's own tensors.
+
+Then one JSON line with each kernel's numbers, the card's name and power
+limit, the run's wall time, and the closing JSON line.  Any failed check
+raises, so the script exits non-zero and prints no closing line.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+
+N_POINTS = 10_000_000
+DEPTH = 6
+P = 6
+N_SAMPLE = 1000
+KERNEL_BAR = 1e-5
+FMM_BAR = 2e-4
+
+# H100 SXM peaks (NVIDIA H100 data sheet):
+# device memory 3.35 TB/s, f32 on the CUDA cores 67 TFLOP/s; rsqrt on
+# the special-function units 16 per SM per clock (NVIDIA's arithmetic
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz.
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+RSQRT_PER_S = 16 * 132 * 1.98e9
+# f32 operations per pair of the pair kernels: 3 differences, r2 as one
+# multiply and two FMAs, the density FMA (an FMA counts 2)
+PAIR_FLOPS = 10
+
+ROUTES = {
+    "surface_pair": ("sctl_tpu_torch/csrc/surface_pair.cu",
+                     "sctl_tpu/ops/pallas_sl.py:254"),
+    "l2t_surface": ("sctl_tpu_torch/csrc/l2t_surface.cu",
+                    "sctl_tpu/ops/pallas_sl.py:354"),
+    "m2l_grid_blocked": ("sctl_tpu_torch/csrc/m2l_blocked.cu",
+                         "sctl_tpu/ops/pallas_m2l.py:272"),
+    "p2p_stencil9": ("sctl_tpu_torch/csrc/p2p_stencil9.cu",
+                     "sctl_tpu/ops/pallas_p2p.py:425"),
+}
+
+
+def log(msg):
+    print(f"[{time.perf_counter() - T0:8.1f} s] {msg}", flush=True)
+
+
+def bound(work):
+    """(bound_ms, bound_by) of a kernel's counted work."""
+    t_bytes = work["bytes"] / HBM_BPS
+    if "pairs" in work:
+        t_ops = max(work["pairs"] * PAIR_FLOPS / F32_FLOPS,
+                    work["pairs"] / RSQRT_PER_S)
+    else:
+        t_ops = work["flops"] / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds of fn() on the card over `reps` calls, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device "
+                         "(torch.cuda.is_available() is false)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)}, count "
+        f"{torch.cuda.device_count()}, nvidia-smi '{smi}', torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    return smi
+
+
+def phase_build():
+    from sctl_tpu_torch.ops import _build
+    _build.build(force=True)
+    _build.library()
+    log("build: done")
+
+
+def phase_kernels(torch, kf):
+    from sctl_tpu_torch.kernel_cases import kernel_cases, rel_max_err
+    cases = kernel_cases(kf)
+    rows = {}
+    for name, (run, plain, library, work) in cases.items():
+        out = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = rel_max_err(out, ref)
+        abs_err = float((out.double() - ref.double()).abs().max())
+        ms = cuda_ms(torch, run, 20)
+        plain_ms = cuda_ms(torch, plain, 3)
+        lib_ms = None if library is None else cuda_ms(torch, library, 20)
+        b_ms, b_by = bound(work)
+        shape = "x".join(str(s) for s in out.shape)
+        log(f"kernel {name}: out {shape}, max rel err {err:.3e} "
+            f"(bar {KERNEL_BAR:g}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if not err < KERNEL_BAR:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its "
+                             f"plain version: {err:.3e}")
+        rows[name] = dict(case=shape, max_abs_err=abs_err,
+                          max_rel_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
+def profile_eval(torch, kf, fp, fo, eval_s):
+    """One evaluation under torch.profiler: device time by kernel and
+    the card's busy share against the unprofiled median eval time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kf._eval_impl(fp, fo)
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    # device activity only (kernels, copies, sets): entries with device
+    # time and no host time; operator entries repeat their kernels' time
+    events = sorted((e for e in prof.key_averages()
+                     if dev_us(e) > 0 and e.self_cpu_time_total == 0),
+                    key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if busy_ms == 0:
+        log("profile: the profiler recorded no device time: busy share "
+            "not measured")
+        return
+    log(f"profile: device busy {busy_ms:.3f} ms of the {1e3 * eval_s:.3f}"
+        f" ms median eval ({busy_ms / (1e3 * eval_s):.3f}; the eval also"
+        f" gathers densities and unsorts)")
+    for e in events[:14]:
+        log(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d} calls  "
+            f"{e.key[:90]}")
+
+
+def phase_setup(torch):
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    rng = np.random.default_rng(0)
+    xs = rng.random((N_POINTS, 3))
+    f = rng.normal(size=(N_POINTS, 1))
+    t = time.perf_counter()
+    kf = KIFMM(Laplace3D_FxU, p=P, depth=DEPTH,
+               device=torch.device("cuda"),
+               dtype=torch.float32).setup(xs, xs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    log(f"setup: {setup_s:.2f} s (boxes {kf.src_tree.n_boxes}, "
+        f"cap_s {kf.cap_s}, cap_t {kf.cap_t}, SL {kf.SL}, overflow "
+        f"sources {kf.n_ovf_s} targets {kf.n_ovf_t}, M2L ranks "
+        f"{kf._ops.blk_r}/{kf._ops.blk_r2})")
+    return kf, xs, f, rng
+
+
+def phase_main(torch, kf, xs, f, rng, counters):
+    import numpy as np
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    dev = kf.device
+    f_dev = torch.as_tensor(f, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    u = kf.eval_tensor(f_dev)                       # warm
+    torch.cuda.synchronize()
+    times = []
+    for rep in range(3):
+        f2 = f_dev * (1.0 + 1e-6 * (rep + 1))       # fresh densities
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kf.eval_tensor(f2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {k: c.launches for k, c in counters.items()}
+    med = sorted(times)[1]
+    log(f"main: eval s {['%.4f' % s for s in times]}, median "
+        f"{med:.4f} s, {N_POINTS / med / 1e6:.2f} Mpts/s; launches in "
+        f"4 evals {launches}")
+
+    fp, fo = kf.pad_density(f_dev)
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    kf._eval_impl(fp, fo, marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    log("main: stage ms " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in stages.items()))
+    profile_eval(torch, kf, fp, fo, med)
+    log(f"main: peak device memory of the evaluations "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    idx = rng.choice(N_POINTS, N_SAMPLE, replace=False)
+    x64 = torch.as_tensor(xs, device=dev)
+    u_ref = direct_eval_blocked(Laplace3D_FxU, x64[idx], x64,
+                                torch.as_tensor(f, device=dev),
+                                block_t=N_SAMPLE, block_s=1 << 17)
+    u_s = u[torch.as_tensor(idx, device=dev)].double()
+    err = float((u_s - u_ref).abs().max() / u_ref.abs().max())
+    log(f"main: rel err at {N_SAMPLE} sampled targets vs f64 direct sum "
+        f"{err:.3e} (bar {FMM_BAR:g})")
+    if not np.isfinite(err) or not err < FMM_BAR:
+        raise SystemExit(f"chip_smoke: KIFMM error {err:.3e}")
+    if not all(v > 0 for v in launches.values()):
+        raise SystemExit(f"chip_smoke: a kernel was not launched on the "
+                         f"main path: {launches}")
+
+    # each kernel alone at the main path's shapes (after the counts
+    # were read)
+    from sctl_tpu_torch.kernel_cases import main_path_work
+    from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, to_slab
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    ops = kf._ops
+    ns, B = ops.n_surf, kf.src_tree.n_boxes
+    n = 1 << DEPTH
+    q_cm = torch.randn((1, ns, B), device=dev)
+    h = n // 2
+    qbp = torch.zeros((h + 2,) * 3 + (8 * ops.blk_r2,), device=dev)
+    qbp[1:-1, 1:-1, 1:-1] = torch.randn((h, h, h, 8 * ops.blk_r2),
+                                        device=dev)
+    f_s = to_slab(fp, kf.rast_to_mort, n, kf.SL)
+    full = {
+        "surface_pair": lambda: surface_pair(
+            Laplace3D_FxU, kf.surf_out_L, kf.xs_sl, fp.reshape(1, -1),
+            kf.cap_s),
+        "l2t_surface": lambda: l2t_surface(
+            Laplace3D_FxU, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t),
+        "m2l_grid_blocked": lambda: m2l_grid_blocked(qbp, ops.m2l_blk),
+        "p2p_stencil9": lambda: p2p_stencil9(
+            Laplace3D_FxU, n, kf.SL, kf.cap_t, kf.xt_rast, kf.xs_slab,
+            f_s),
+    }
+    work = main_path_work(kf)
+    main_rows = {}
+    for name, fn in full.items():
+        ms = cuda_ms(torch, fn, 5)
+        b_ms, b_by = bound(work[name])
+        main_rows[name] = dict(launches=launches[name], main_path_ms=ms,
+                               main_path_bound_ms=b_ms,
+                               main_path_bound_by=b_by)
+        log(f"main: {name} alone at the main path's shapes (M2L: level "
+            f"{DEPTH}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), work "
+            f"{work[name]}")
+    return main_rows
+
+
+def main():
+    import torch
+    smi = phase_device(torch)
+    phase_build()
+    from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    from sctl_tpu_torch.config import set_precision
+    set_precision()
+    counters = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
+                "m2l_grid_blocked": m2l_grid_blocked,
+                "p2p_stencil9": p2p_stencil9}
+    kf, xs, f, rng = phase_setup(torch)
+    rows = phase_kernels(torch, kf)
+    main_rows = phase_main(torch, kf, xs, f, rng, counters)
+    log("kernels: " + ", ".join(f"{k} {v['launches']} launches"
+                                for k, v in main_rows.items()))
+    out = []
+    for name, (src, tpu) in ROUTES.items():
+        r, m = rows[name], main_rows[name]
+        out.append(dict(name=name, route="cuda", source=src, replaces=tpu,
+                        launches=m["launches"], max_abs_err=r["max_abs_err"],
+                        ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"], case=r["case"],
+                        max_rel_err=r["max_rel_err"],
+                        main_path_ms=m["main_path_ms"],
+                        main_path_bound_ms=m["main_path_bound_ms"],
+                        main_path_bound_by=m["main_path_bound_by"]))
+    print(json.dumps({"kernels": out}), flush=True)
+    print(smi, flush=True)
+    log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""sctl_tpu_torch: the PyTorch / CUDA (NVIDIA Hopper) port of sctl_tpu.
+
+The first slice holds the uniform-tree Laplace KIFMM: the kernel
+layer, direct sums, the uniform Morton tree, the KIFMM operators,
+setup and evaluation, and the `ParticleFMM` facade.  The four TPU
+kernels on that path are hand-written CUDA under `csrc/`.
+"""
+
+from .config import set_precision
+
+set_precision()

@@ -1,0 +1,647 @@
+"""Kernel-independent FMM on a uniform Morton tree, in PyTorch
+(counterpart of sctl_tpu/fmm/kifmm.py).
+
+The evaluation follows the JAX package's TPU route stage by stage:
+
+  S2M  shared-surface check potentials (ops/sl.py `surface_pair`),
+       then q_up = uc2e q_check
+  M2M  one concatenated matrix product per level
+  M2L  levels >= 3: sibling-blocked V list on the parent grid
+       (ops/m2l.py `m2l_grid_blocked`); level 2: the per-parity sweep
+       in plain torch, as the JAX package runs it outside Pallas
+  L2L  one concatenated matrix product per level
+  L2T  shared-surface evaluation at the leaf targets (ops/sl.py
+       `l2t_surface`)
+  P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`)
+
+Box capacities are quantiles of the box counts; the points beyond them
+travel in overflow sidebands evaluated in plain torch.  Tensors on the
+card go through the CUDA kernels, tensors on the CPU through their
+plain versions.  The operator tables are built cold on the host in
+float64 at every setup (no disk cache).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import resolve_device
+from ..ops._launch_checks import CHUNK_PAIRS
+from ..ops.kernels import KernelSpec, Laplace3D_FxU
+from ..ops.kernels_np import full_matrix_np
+from ..ops.m2l import blocked_m2l_mats, m2l_grid_blocked
+from ..ops.p2p import p2p_stencil9, to_slab
+from ..ops.sl import l2t_surface, surface_pair
+from ..ops.uker import check_supported
+from ..tree import morton as mt
+from ..tree.tree import UniformTree
+
+# KIFMM surface radii (surface half-side over box half-side)
+RAD_IN = 1.05   # upward-equivalent / downward-check surface
+RAD_OUT = 2.95  # upward-check / downward-equivalent surface
+
+# The slab stencil, the shared-surface kernels and the blocked M2L need
+# at least this depth on the card (B a multiple of 128 boxes).
+MIN_CUDA_DEPTH = 3
+
+
+def cube_surface(p: int) -> np.ndarray:
+    """(n_surf, 3) points on the surface of [-1,1]^3: a p^3 grid minus
+    its interior, n_surf = 6p^2 - 12p + 8."""
+    g = np.linspace(-1, 1, p)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    return pts[(np.abs(pts) == 1).any(axis=1)]
+
+
+def _kmat(ker: KernelSpec, xt: np.ndarray, xs: np.ndarray) -> np.ndarray:
+    """(Nt*k1, Ns*k0) host kernel matrix u = M f, scale included."""
+    return full_matrix_np(ker, xt, xs).T
+
+
+def _pinv(a: np.ndarray, rcond: float = 1e-9) -> np.ndarray:
+    u, s, vt = np.linalg.svd(a, full_matrices=False)
+    cut = rcond * s[0]
+    sinv = np.where(s > cut, 1 / np.where(s > cut, s, 1), 0.0)
+    return (vt.T * sinv) @ u.T
+
+
+def _vlist_offsets():
+    """The 316 same-level offsets d with |d|_inf in {2, 3} and the
+    (8 parities, 316) table: d is in the V list of a child of parity c
+    iff the parents are neighbours, |floor((c + d) / 2)|_inf <= 1."""
+    rng = np.arange(-3, 4)
+    d = np.stack(np.meshgrid(rng, rng, rng, indexing="ij"),
+                 -1).reshape(-1, 3)
+    d = d[np.abs(d).max(axis=1) >= 2]
+    par = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                   -1).reshape(-1, 3)
+    pd = np.floor((par[:, None, :] + d[None, :, :]) / 2).astype(int)
+    return d, np.abs(pd).max(axis=2) <= 1
+
+
+def _outer_scale(mat: np.ndarray, lam: float, row_exp, col_exp):
+    """mat * outer(lam^row_exp, lam^col_exp), exponents tiled over the
+    surface points (point-major layout)."""
+    row_exp = np.asarray(row_exp, np.float64)
+    col_exp = np.asarray(col_exp, np.float64)
+    rv = np.power(lam, np.tile(row_exp, mat.shape[0] // len(row_exp)))
+    cv = np.power(lam, np.tile(col_exp, mat.shape[1] // len(col_exp)))
+    return mat * rv[:, None] * cv[None, :]
+
+
+def _rand_colbasis(A: np.ndarray, tol: float = 1e-10,
+                   exact_below: int = 2048) -> np.ndarray:
+    """Orthonormal column basis of A to relative tolerance `tol`: exact
+    SVD for small row counts, else a randomized range finder with power
+    iteration (seeded, so repeatable)."""
+    m, n = A.shape
+    if m <= exact_below:
+        U, s, _ = np.linalg.svd(A, full_matrices=False)
+        r = int(np.searchsorted(-(s / max(s[0], 1e-300)), -tol))
+        return U[:, :max(r, 1)]
+    rng = np.random.default_rng(0)
+    k = min(m, 128)
+    while True:
+        Y = A @ rng.standard_normal((n, k + 16))
+        for _ in range(2):
+            Y = A @ (A.T @ Y)
+        Q, _ = np.linalg.qr(Y)
+        U, s, _ = np.linalg.svd(Q.T @ A, full_matrices=False)
+        r = int(np.searchsorted(-(s / max(s[0], 1e-300)), -tol))
+        if r < k or k >= m:
+            return Q @ U[:, :max(r, 1)]
+        k = min(m, 2 * k)
+
+
+def _tensor(a, device, dtype):
+    """Host array -> contiguous tensor of `dtype` on `device`."""
+    return torch.as_tensor(np.asarray(a), dtype=dtype,
+                           device=device).contiguous()
+
+
+class KIFMMOperators:
+    """Unit-box operator tables of one (translation kernel, p, rcond),
+    built on the host in float64, and their device copies.
+
+    For a homogeneous kernel every level's operators follow from the
+    unit tables by scaling; for the single-exponent Laplace kernel the
+    M2M, L2L and M2L tables are the same at every level, and only uc2e
+    and the surfaces scale (done per tree in `KIFMM.setup`)."""
+
+    TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
+              "cb_unit", "vb_unit", "ca_unit")
+
+    def __init__(self, ker_trans: KernelSpec, p: int, rcond: float,
+                 device, dtype: torch.dtype,
+                 tables: Optional[dict] = None):
+        check_supported(ker_trans.name)
+        self.ker_trans = ker_trans
+        self.p = p
+        self.rcond = rcond
+        self.surf = cube_surface(p)
+        self.n_surf = len(self.surf)
+        self.offsets, self.parity_valid = _vlist_offsets()
+        if tables is None:
+            self._build_unit(ker_trans, self.surf, rcond)
+            self._compress_m2l_unit()
+        else:
+            for name in self.TABLES:
+                setattr(self, name, np.asarray(tables[name], np.float64))
+        self._to_device(torch.device(device), dtype)
+
+    def _build_unit(self, ker_trans, surf, rcond):
+        """Unit-box tables: parent side 1 (children 1/2), M2L at side 1.
+        Child corners in Morton child order c = x + 2y + 4z."""
+        child_pos = np.array([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
+                              for c in range(8)])
+        s_exp = np.asarray(ker_trans.src_scal, np.float64)
+        t_exp = np.asarray(ker_trans.trg_scal, np.float64)
+        s_in = surf * (RAD_IN / 2)
+        s_out = surf * (RAD_OUT / 2)
+        self.uc2e_unit = _pinv(_kmat(ker_trans, s_out, s_in), rcond)
+        self.dc2e_unit = _pinv(_kmat(ker_trans, s_in, s_out), rcond)
+        dc2e_half = _outer_scale(self.dc2e_unit, 0.5, s_exp, t_exp)
+        cc = (child_pos - 0.5) * 0.5
+        m2m, l2l = [], []
+        for c in range(8):
+            k = _kmat(ker_trans, s_out, surf * (RAD_IN / 4) + cc[c])
+            m2m.append(self.uc2e_unit @ k)
+            k2 = _kmat(ker_trans, surf * (RAD_IN / 4) + cc[c], s_out)
+            l2l.append(dc2e_half @ k2)
+        self.m2m_unit = np.stack(m2m)
+        self.l2l_unit = np.stack(l2l)
+        self.m2l_unit = np.stack([
+            self.dc2e_unit @ _kmat(ker_trans, s_in, s_in + d * 1.0)
+            for d in self.offsets])
+
+    def _compress_m2l_unit(self):
+        """Joint two-sided factorization M_d = U A_d V^T of the unit M2L
+        family, lossless to about 1e-12; ranks rounded up to 8."""
+        ctol = 1e-10
+        M = self.m2l_unit
+        ns_ = M.shape[1]
+        A = np.transpose(M, (1, 0, 2)).reshape(ns_, -1)
+        U = _rand_colbasis(A, ctol)
+        r = min(max(8, -(-U.shape[1] // 8) * 8), ns_)
+        if U.shape[1] < r:
+            U2, _, _ = np.linalg.svd(A - U @ (U.T @ A),
+                                     full_matrices=False)
+            U = np.concatenate([U, U2[:, :r - U.shape[1]]], axis=1)
+        self.cb_unit = np.ascontiguousarray(U[:, :r])
+        C = np.einsum("nm,omk->onk", self.cb_unit.T, M, optimize=True)
+        B = np.transpose(C, (2, 0, 1)).reshape(ns_, -1)
+        V = _rand_colbasis(B, ctol)
+        r2 = min(max(8, -(-V.shape[1] // 8) * 8), ns_)
+        if V.shape[1] < r2:
+            V2, _, _ = np.linalg.svd(B - V @ (V.T @ B),
+                                     full_matrices=False)
+            V = np.concatenate([V, V2[:, :r2 - V.shape[1]]], axis=1)
+        self.vb_unit = np.ascontiguousarray(V[:, :r2])
+        self.ca_unit = np.einsum("ork,kn->orn", C, self.vb_unit,
+                                 optimize=True)
+        self.m2l_unit = None          # build input only
+
+    def _to_device(self, device, dtype):
+        ns = self.n_surf
+        t = lambda a: _tensor(a, device, dtype)
+        self.m2m_cat = t(np.transpose(self.m2m_unit, (0, 2, 1)).reshape(
+            8 * ns, ns))
+        self.l2l_cat = t(np.transpose(self.l2l_unit, (2, 0, 1)).reshape(
+            ns, 8 * ns))
+        self.m2l_u = t(self.cb_unit)                  # (ns, r)
+        self.m2l_v = t(self.vb_unit)                  # (ns, r2)
+        self.m2l_a = t(self.ca_unit)                  # (316, r, r2)
+        # Rank caps of the f32 route (kifmm.py:423-435): the smallest
+        # 128-multiples whose dropped Frobenius tail of the compressed
+        # family stays below max(rcond^2, 1e-5) of its mass.
+        ca = self.ca_unit
+        cap_tol2 = max(self.rcond ** 2, 1e-5)
+
+        def _cap(axis):
+            other = tuple(i for i in range(3) if i != axis)
+            nrm2 = (ca ** 2).sum(axis=other)
+            c = 128
+            while c < len(nrm2) and nrm2[c:].sum() > cap_tol2 * nrm2.sum():
+                c += 128
+            return int(min(c, len(nrm2)))
+
+        self.m2l_cap_r, self.m2l_cap_r2 = _cap(1), _cap(2)
+        # float32 runs the capped ranks, as the JAX package's Pallas
+        # route does; float64 keeps the exact ranks of its scan route.
+        if dtype == torch.float32:
+            self.blk_r, self.blk_r2 = self.m2l_cap_r, self.m2l_cap_r2
+        else:
+            self.blk_r, self.blk_r2 = ca.shape[1], ca.shape[2]
+        self.m2l_blk = t(blocked_m2l_mats(ca, self.offsets,
+                                          self.parity_valid, self.blk_r,
+                                          self.blk_r2))
+        # level-2 per-parity sweep tables: for child parity c
+        # (4x + 2y + z) its 189 offsets d, c + d = 2 eb + ep
+        vidx, ebs, eps = [], [], []
+        for c in range(8):
+            cvec = np.array([(c >> 2) & 1, (c >> 1) & 1, c & 1])
+            oi = np.where(self.parity_valid[c])[0]
+            e = cvec[None, :] + self.offsets[oi]
+            eb = np.floor_divide(e, 2)
+            vidx.append(oi)
+            ebs.append(eb)
+            eps.append(e - 2 * eb)
+        self.par_vidx = torch.as_tensor(np.stack(vidx), device=device)
+        self.par_ebs = np.stack(ebs)
+        self.par_eps = np.stack(eps)
+
+
+def operators_from_numpy(tables: dict, device, dtype: torch.dtype
+                         ) -> KIFMMOperators:
+    """The port's operators from unit tables computed elsewhere, e.g.
+    by the JAX package's KIFMMOperators: `tables` maps each name of
+    `KIFMMOperators.TABLES` to its numpy array, "p" to the order and
+    "rcond" to the pinv cutoff the tables were built with."""
+    return KIFMMOperators(Laplace3D_FxU, int(tables["p"]),
+                          float(tables["rcond"]), device, dtype,
+                          tables=tables)
+
+
+def _quantile_cap(box_cnt: np.ndarray, q: float = 97.0) -> int:
+    """Per-box capacity at the q-th percentile of occupied boxes'
+    counts, rounded up to 8 (the packed-slab route's rule)."""
+    occ = box_cnt[box_cnt > 0]
+    if len(occ) == 0:
+        return 8
+    cap = min(int(np.percentile(occ, q)), int(box_cnt.max()))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _overflow_slots(tree: UniformTree, cap: int):
+    """Sideband for boxes with more than `cap` points: (boxes (Bo,),
+    cap2, idx (Bo, cap2) sorted-point indices (clipped), valid)."""
+    cnt, dsp = tree.box_cnt, tree.box_dsp
+    boxes = np.where(cnt > cap)[0]
+    if len(boxes) == 0:
+        return (np.zeros(0, np.int64), 8, np.zeros((0, 8), np.int64),
+                np.zeros((0, 8), bool))
+    cap2 = max(8, -(-int((cnt[boxes] - cap).max()) // 8) * 8)
+    idx = dsp[boxes][:, None] + cap + np.arange(cap2)[None, :]
+    valid = idx < dsp[boxes + 1][:, None]
+    return boxes, cap2, np.clip(idx, 0, len(tree.X_sorted) - 1), valid
+
+
+def _pad_index(tree: UniformTree, cap: int):
+    """(B, cap) sorted-point index of each box slot (clipped) and its
+    validity: the first min(count, cap) points of every box."""
+    idx = tree.box_dsp[:-1, None] + np.arange(cap)[None, :]
+    valid = idx < tree.box_dsp[1:, None]
+    return np.clip(idx, 0, max(len(tree.X_sorted) - 1, 0)), valid
+
+
+# Pair budget of one chunk of the overflow-sideband sums on the card:
+# their (..., T, S) float32 temporaries (a few per pair) stay near
+# 1 GiB of the card's 80 GB, and the 1e7-point run needs tens of
+# chunks, not hundreds.  The CPU keeps the plain versions' budget.
+SIDEBAND_CHUNK_PAIRS_CUDA = 1 << 26
+
+
+def _chunk_pairs(device: torch.device) -> int:
+    return SIDEBAND_CHUNK_PAIRS_CUDA if device.type == "cuda" \
+        else CHUNK_PAIRS
+
+
+def _apply_groups(ker: KernelSpec, xt, xs, f):
+    """Batched plain pair sums over groups, in chunks:
+    xt (G, T, 3), xs (G, S, 3), f (G, S, k0) -> (G, T, k1), unscaled."""
+    G, T, S = xt.shape[0], xt.shape[1], xs.shape[1]
+    step = max(1, _chunk_pairs(xt.device) // max(1, T * S))
+    return torch.cat([ker.apply_pairwise(xt[g:g + step], xs[g:g + step],
+                                         f[g:g + step])
+                      for g in range(0, G, step)]) if G else \
+        xt.new_zeros((0, T, ker.kdim1))
+
+
+def _mark(marks, name: str) -> None:
+    """Record a CUDA event after a stage when `marks` collects them."""
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+
+class KIFMM:
+    """Uniform-tree KIFMM evaluator for Laplace3D-FxU.
+
+    device : "cuda" (default) runs the CUDA kernels, "cpu" their plain
+             versions.
+    dtype  : torch.float32 (the card's only type) or torch.float64
+             (CPU only).
+    """
+
+    def __init__(self, ker_s2t: KernelSpec, p: int = 6,
+                 depth: Optional[int] = None, pts_per_leaf: int = 256,
+                 device=None, dtype: torch.dtype = torch.float32,
+                 rcond: Optional[float] = None,
+                 operators: Optional[KIFMMOperators] = None):
+        check_supported(ker_s2t.name)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and dtype != torch.float32:
+            raise NotImplementedError(
+                f"KIFMM on the card runs float32 only, not {dtype}")
+        if dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(f"KIFMM dtype {dtype}")
+        self.ker_s2t = self.ker_s2m = self.ker_l2t = ker_s2t
+        self.ker_trans = Laplace3D_FxU
+        self.p = p
+        self.depth = depth
+        self.pts_per_leaf = pts_per_leaf
+        self.dtype = dtype
+        # pinv cutoff: f32 loses accuracy to rounding below ~3e-5
+        self.rcond = rcond if rcond is not None else (
+            3e-5 if dtype == torch.float32 else 1e-9)
+        self._ops = operators
+
+    # -- setup -----------------------------------------------------------
+    def setup(self, x_src: np.ndarray, x_trg: np.ndarray):
+        x_src = np.asarray(x_src, np.float64)
+        x_trg = np.asarray(x_trg, np.float64)
+        bbox = (np.minimum(x_src.min(0), x_trg.min(0)),
+                np.maximum(x_src.max(0), x_trg.max(0)))
+        if self.depth is None:
+            self.depth = max(2, int(np.round(np.log(
+                max(len(x_src) / self.pts_per_leaf, 1)) / np.log(8))))
+        L = self.depth
+        if self.device.type == "cuda" and L < MIN_CUDA_DEPTH:
+            raise NotImplementedError(
+                f"KIFMM on the card needs depth >= {MIN_CUDA_DEPTH} "
+                f"(box count a multiple of 128); got depth {L}")
+        dev, dt = self.device, self.dtype
+        t = lambda a: _tensor(a, dev, dt)
+        ti = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        self.src_tree = src = UniformTree(x_src, L, bbox=bbox)
+        self.trg_tree = trg = UniformTree(x_trg, L, bbox=bbox)
+        self.scale = src.scale
+        if self._ops is None or self._ops.p != self.p:
+            self._ops = KIFMMOperators(self.ker_trans, self.p, self.rcond,
+                                       dev, dt)
+        ops = self._ops
+        lam = self.scale / (1 << L)
+        s_exp, t_exp = self.ker_trans.src_scal, self.ker_trans.trg_scal
+        self.uc2e_L = t(_outer_scale(ops.uc2e_unit, lam, s_exp, t_exp))
+        self.surf_out_L = t(ops.surf * (RAD_OUT * lam / 2))
+        self.cap_s = _quantile_cap(src.box_cnt)
+        self.cap_t = _quantile_cap(trg.box_cnt, q=85.0)
+        (sov_boxes, self.sov_cap, sov_idx,
+         sov_valid) = _overflow_slots(src, self.cap_s)
+        (tov_boxes, self.tov_cap, tov_idx,
+         tov_valid) = _overflow_slots(trg, self.cap_t)
+        self.n_ovf_s = int(sov_valid.sum())
+        self.n_ovf_t = int(tov_valid.sum())
+        s_idx, s_valid = _pad_index(src, self.cap_s)
+        t_idx, t_valid = _pad_index(trg, self.cap_t)
+        xs_p = src.X_sorted[s_idx]                     # (B, cap_s, 3)
+        xt_p = trg.X_sorted[t_idx]                     # (B, cap_t, 3)
+        ctr = src.box_centers()
+        self.ctr = t(ctr)
+        self.nb = ti(src.neighbor_boxes())             # (B, 27)
+        self.xs_pad = t(xs_p)
+        self.xt_pad = t(xt_p)
+        # box-local slot coordinates for the shared-surface kernels,
+        # localized in f64 on the host (exact differences in f32)
+        self.xs_sl = t((xs_p - ctr[:, None, :]).transpose(2, 0, 1)
+                       .reshape(3, -1))
+        self.xt_sl = t((xt_p - ctr[:, None, :]).transpose(2, 0, 1)
+                       .reshape(3, -1))
+        # raster layout of the slab stencil
+        n = 1 << L
+        gidx = mt.raster_index(L)                      # morton -> raster
+        inv = np.empty_like(gidx)
+        inv[gidx] = np.arange(len(gidx))               # raster -> morton
+        self.gidx = {lvl: ti(mt.raster_index(lvl))
+                     for lvl in range(2, L + 1)}
+        self.rast_to_mort = ti(inv)
+        self.xt_rast = t(xt_p[inv].reshape(n, n, n, self.cap_t, 3)
+                         .transpose(0, 1, 2, 4, 3))
+        self.SL = -(-9 * self.cap_s // 128) * 128
+        self.xs_slab = to_slab(self.xs_pad, self.rast_to_mort, n,
+                               self.SL).contiguous()
+        # density gather and result scatter indices
+        self.src_perm = ti(src.perm)
+        self.trg_perm = ti(trg.perm)
+        self.pad_idx = ti(s_idx)
+        self.pad_valid = t(s_valid)
+        take = np.minimum(trg.box_cnt, self.cap_t)
+        first = np.repeat(trg.box_dsp[:-1], take)
+        off = np.arange(take.sum()) - np.repeat(np.cumsum(take) - take,
+                                                take)
+        self.unsort_pos = ti(first + off)
+        self.pad_take = ti(np.nonzero(t_valid.reshape(-1))[0])
+        # overflow sidebands
+        self.sov_boxes = ti(sov_boxes)
+        self.sov_idx = ti(sov_idx)
+        self.sov_valid = t(sov_valid)
+        self.xs_ov2 = t(src.X_sorted[sov_idx])
+        slot_of_box = np.full(src.n_boxes + 1, -1, np.int64)
+        slot_of_box[sov_boxes] = np.arange(len(sov_boxes))
+        self.sov_slot_of_box = ti(slot_of_box)
+        self.tov_boxes = ti(tov_boxes)
+        self.xt_ov2 = t(trg.X_sorted[tov_idx])
+        self.tov_pos = ti(tov_idx.reshape(-1)[tov_valid.reshape(-1)])
+        self.tov_take = ti(np.nonzero(tov_valid.reshape(-1))[0])
+        return self
+
+    # -- evaluation ---------------------------------------------------------
+    def eval(self, f) -> np.ndarray:
+        """u[trg] = sum_src K(trg, src) f[src]; f (n_src, k0) in input
+        order -> (n_trg, k1) numpy array in input target order."""
+        f = torch.as_tensor(np.asarray(f), device=self.device,
+                            dtype=self.dtype)
+        return self.eval_tensor(f).cpu().numpy()
+
+    def eval_tensor(self, f: torch.Tensor) -> torch.Tensor:
+        """Device-resident evaluation: f (n_src, k0) tensor in input
+        order -> (n_trg, k1) tensor in input target order."""
+        fp, fo = self.pad_density(f)
+        u_pad, u_ovf = self._eval_impl(fp, fo)
+        return self.unsort(u_pad, u_ovf)
+
+    def pad_density(self, f: torch.Tensor):
+        """Input-order densities -> (fp (B, cap_s, k0), fo (Bo, cap2,
+        k0)): box slots, zero in padding, and the overflow sideband."""
+        k0 = self.ker_s2t.kdim0
+        fs = f.to(self.device, self.dtype).reshape(-1, k0)[self.src_perm]
+        fp = fs[self.pad_idx] * self.pad_valid[..., None]
+        fo = fs[self.sov_idx] * self.sov_valid[..., None]
+        return fp, fo
+
+    def unsort(self, u_pad: torch.Tensor, u_ovf: torch.Tensor):
+        """Padded box-slot results and the target sideband -> input
+        target order."""
+        k1 = self.ker_l2t.kdim1
+        nt = len(self.trg_tree.perm)
+        u_sorted = u_pad.new_zeros((nt, k1))
+        u_sorted[self.unsort_pos] = u_pad.reshape(-1, k1)[self.pad_take]
+        if self.n_ovf_t:
+            u_sorted[self.tov_pos] = u_ovf.reshape(-1, k1)[self.tov_take]
+        out = torch.empty_like(u_sorted)
+        out[self.trg_perm] = u_sorted
+        return out
+
+    def _eval_impl(self, fp, fp_ovf, marks: Optional[list] = None):
+        """Padded densities -> (u_pad (B, cap_t, k1), u_ovf (Bt, cap2t,
+        k1)).  With `marks` a list, a CUDA event is recorded after each
+        stage: S2M, M2M, M2L, L2L, L2T, P2P."""
+        ops = self._ops
+        L = self.depth
+        ns = ops.n_surf
+        B = self.src_tree.n_boxes
+        sf = self.ker_s2m.scale_factor
+
+        # ---- S2M: leaf check potentials -> upward equivalents ----
+        out_sl = surface_pair(self.ker_s2m, self.surf_out_L, self.xs_sl,
+                              fp.reshape(1, -1), self.cap_s)
+        u_check = out_sl.permute(2, 1, 0).reshape(B, ns) * sf
+        if self.n_ovf_s:
+            sb = self.sov_boxes
+            xck = self.surf_out_L[None] + self.ctr[sb][:, None, :]
+            uo = _apply_groups(self.ker_s2m, xck, self.xs_ov2, fp_ovf)
+            u_check.index_add_(0, sb, uo.reshape(len(sb), -1) * sf)
+        q_up = u_check @ self.uc2e_L.T
+        _mark(marks, "S2M")
+
+        # ---- M2M: Morton order is parent-major ----
+        q_levels = {L: q_up}
+        for lvl in range(L, 2, -1):
+            q_levels[lvl - 1] = q_levels[lvl].reshape(-1, 8 * ns) \
+                @ ops.m2m_cat
+        _mark(marks, "M2M")
+
+        v_dn = self._m2l_sweep(q_levels)
+        _mark(marks, "M2L")
+
+        # ---- L2L (dc2e is folded into the M2L and L2L tables) ----
+        q_dn = v_dn[2]
+        for lvl in range(3, L + 1):
+            q_dn = (q_dn @ ops.l2l_cat).reshape(-1, ns) + v_dn[lvl]
+        _mark(marks, "L2L")
+        return self._downward_tail(q_dn, fp, fp_ovf, marks)
+
+    def _m2l_sweep(self, q_levels):
+        """V-list translations per level: the blocked kernel for levels
+        >= 3, the per-parity sweep at level 2."""
+        ops = self._ops
+        ns = ops.n_surf
+        v_dn = {}
+        for lvl in range(2, self.depth + 1):
+            nside = 1 << lvl
+            h = nside // 2
+            gidx = self.gidx[lvl]
+            q_grid = q_levels[lvl].new_zeros((nside ** 3, ns))
+            q_grid[gidx] = q_levels[lvl]
+            q_grid = q_grid.reshape(nside, nside, nside, ns)
+            if lvl >= 3:
+                r, r2 = ops.blk_r, ops.blk_r2
+                qr2 = q_grid @ ops.m2l_v[:, :r2]
+                qb = qr2.reshape(h, 2, h, 2, h, 2, r2).permute(
+                    0, 2, 4, 1, 3, 5, 6).reshape(h, h, h, 8 * r2)
+                qbp = F.pad(qb, (0, 0, 1, 1, 1, 1, 1, 1)).contiguous()
+                accb = m2l_grid_blocked(qbp, ops.m2l_blk)
+                acc = accb.reshape(h, h, h, 2, 2, 2, r).permute(
+                    0, 3, 1, 4, 2, 5, 6).reshape(nside ** 3, r)
+                out = acc @ ops.m2l_u[:, :r].T
+            else:
+                out = self._m2l_parity_sweep(q_grid, h).reshape(-1, ns)
+            v_dn[lvl] = out[gidx]
+        return v_dn
+
+    def _m2l_parity_sweep(self, q_grid, h):
+        """Per child parity c, the 189 valid offsets as contiguous
+        shifts of the parity-major grid (kifmm.py:1245-1286), exact
+        ranks.  Each parity's 189 products run as one batch."""
+        ops = self._ops
+        ns = ops.n_surf
+        qr = q_grid.reshape(h, 2, h, 2, h, 2, ns).permute(
+            1, 3, 5, 0, 2, 4, 6) @ ops.m2l_v              # (2,2,2,h,h,h,r2)
+        qrp = F.pad(qr, (0, 0, 2, 2, 2, 2, 2, 2))
+        outs = []
+        for c in range(8):
+            sl = torch.stack([
+                qrp[ep[0], ep[1], ep[2], 2 + eb[0]:2 + eb[0] + h,
+                    2 + eb[1]:2 + eb[1] + h, 2 + eb[2]:2 + eb[2] + h]
+                for eb, ep in zip(ops.par_ebs[c], ops.par_eps[c])])
+            mats = ops.m2l_a[ops.par_vidx[c]]
+            acc = torch.einsum("oxyzn,orn->xyzr", sl, mats)
+            outs.append(acc @ ops.m2l_u.T)
+        out = torch.stack(outs).reshape(2, 2, 2, h, h, h, ns)
+        return out.permute(3, 0, 4, 1, 5, 2, 6).reshape(
+            2 * h, 2 * h, 2 * h, ns)
+
+    def _downward_tail(self, q_dn, fp, fp_ovf, marks=None):
+        """L2T, near-field P2P and the overflow sidebands."""
+        ops = self._ops
+        ns = ops.n_surf
+        B = self.src_tree.n_boxes
+        ker, kl = self.ker_s2t, self.ker_l2t
+        ct = self.cap_t
+
+        # ---- L2T ----
+        q_cm = q_dn.reshape(B, ns, kl.kdim0).permute(2, 1, 0).contiguous()
+        out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct)
+        u_far = out_sl.reshape(kl.kdim1, B, ct).permute(1, 2, 0) \
+            * kl.scale_factor
+        if self.n_ovf_t:
+            tb = self.tov_boxes
+            xeq = self.surf_out_L[None] + self.ctr[tb][:, None, :]
+            u_ovf = _apply_groups(kl, self.xt_ov2, xeq,
+                                  q_dn[tb].reshape(len(tb), ns, -1)) \
+                * kl.scale_factor
+        else:
+            u_ovf = q_dn.new_zeros((1, self.tov_cap, kl.kdim1))
+        _mark(marks, "L2T")
+
+        # ---- P2P near field ----
+        u_near = self._p2p_stencil(fp)
+        nb = self.nb
+        if self.n_ovf_s:
+            # sideband sources -> padded targets of their 27 neighbours
+            sb = self.sov_boxes
+            tb_all = nb[sb].T.reshape(-1)                  # (27*Bo,)
+            ok = tb_all >= 0
+            u_all = _apply_groups(
+                ker, self.xt_pad[tb_all[ok]],
+                self.xs_ov2.repeat(27, 1, 1)[ok],
+                fp_ovf.repeat(27, 1, 1)[ok])
+            u_near.index_add_(0, tb_all[ok], u_all)
+        u_total = u_far + u_near * ker.scale_factor
+        if self.n_ovf_t:
+            # sideband targets: padded and sideband sources of the 27
+            # neighbours
+            tb = self.tov_boxes
+            u_on = torch.zeros_like(u_ovf)
+            slot_of = self.sov_slot_of_box
+            for j in range(27):
+                sb2 = nb[tb, j]
+                okj = sb2 >= 0
+                sbs = torch.where(okj, sb2, 0)
+                u_on += _apply_groups(ker, self.xt_ov2, self.xs_pad[sbs],
+                                      fp[sbs] * okj[:, None, None])
+                if self.n_ovf_s:
+                    so = slot_of[torch.where(okj, sb2, B)]
+                    oks = so >= 0
+                    sos = torch.where(oks, so, 0)
+                    u_on += _apply_groups(
+                        ker, self.xt_ov2, self.xs_ov2[sos],
+                        fp_ovf[sos] * oks[:, None, None])
+            u_ovf = u_ovf + u_on * ker.scale_factor
+        _mark(marks, "P2P")
+        return u_total, u_ovf
+
+    def _p2p_stencil(self, fp):
+        """Near field through the slab stencil: one raster gather of the
+        densities into the slab, one gather of the result back to
+        Morton order -> (B, cap_t, k1), unscaled."""
+        n = 1 << self.depth
+        f_s = to_slab(fp, self.rast_to_mort, n, self.SL)
+        u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
+                           self.xt_rast, self.xs_slab, f_s)
+        return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]

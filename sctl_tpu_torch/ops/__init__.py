@@ -1,0 +1,5 @@
+from .kernels import KERNELS, KernelSpec, Laplace3D_FxU
+from .direct import direct_eval_blocked
+
+__all__ = ["KERNELS", "KernelSpec", "Laplace3D_FxU",
+           "direct_eval_blocked"]

@@ -1,0 +1,33 @@
+"""Argument checks shared by the kernel wrappers: a CUDA kernel takes
+contiguous float32 tensors on one card and nothing else."""
+
+from __future__ import annotations
+
+import torch
+
+# Pair budget of one chunk of a plain version: bounds the memory of
+# the (..., T, S) pairwise intermediates.
+CHUNK_PAIRS = 1 << 22
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a card (the kernel runs), False
+    when they lie on the CPU (the plain version runs).  Mixed devices
+    and other device types raise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"tensors on devices {[t.device for t in tensors]}"
+                         ": expected all on the CPU or all on one card")
+    return True
+
+
+def check_kernel_args(name: str, **tensors: torch.Tensor) -> None:
+    for key, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name}: {key} is {t.dtype}; the CUDA kernel takes "
+                "float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")

@@ -1,0 +1,29 @@
+"""Numpy f64 host forms of the kernels (counterpart of
+sctl_tpu/ops/kernels_np.py:26-70), used by the operator precompute:
+the precompute makes hundreds of small matrix builds, which stay on the
+host in float64."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .kernels import KernelSpec
+from .uker import uker_matrix
+
+
+def block_matrix_np(ker: KernelSpec, xt, xs) -> np.ndarray:
+    """(T, S, k0, k1) kernel blocks, scale factor included."""
+    xt = np.atleast_2d(np.asarray(xt, np.float64))
+    xs = np.atleast_2d(np.asarray(xs, np.float64))
+    d = xt[:, None, :] - xs[None, :, :]
+    r2 = (d * d).sum(-1)
+    rinv = np.where(r2 > 0, 1.0 / np.sqrt(np.where(r2 > 0, r2, 1.0)),
+                    0.0)
+    return uker_matrix(ker.name, d, rinv) * ker.scale_factor
+
+
+def full_matrix_np(ker: KernelSpec, xt, xs) -> np.ndarray:
+    """(Ns*k0, Nt*k1) matrix, scale factor included."""
+    m = block_matrix_np(ker, xt, xs)
+    T, S = m.shape[:2]
+    return m.transpose(1, 2, 0, 3).reshape(S * ker.kdim0, T * ker.kdim1)
