@@ -27,10 +27,33 @@ Phases, each printed on flushed lines with the seconds since start:
             (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
             Every kernel's launch count in the four evaluations must be
             > 0.  Then each kernel alone on the run's own tensors.
+4b. depth 2 ParticleFMM(Laplace3D_FxU) on 45,000 uniform points from
+            numpy.random.default_rng(1): the tree path at automatic depth
+            2, whose 64 boxes take S2M, L2T and the near field through the
+            U-list kernel; error at 1000 sampled targets against a float64
+            direct sum on the card (bar 2e-4, as phase 4).
+5.  bie      the Stokes BIE solve of bench.py's bench_bie at its size:
+            BoundaryIntegralOp(Stokes3D_DxU) at tolerance 1e-6 on
+            torus_patches(nu=48, nv=20, q=6, R=2, r=0.5), 103,680
+            unknowns, float32, far field through the adaptive FMM.
+            Setup seconds by stage; the U-list kernel against its plain
+            version at the far FMM's widths on 32 boxes for each of its
+            three kernel formulas (bar 1e-5, as phase 3); the operator
+            apply (median of 5, and by stage from CUDA events), and how
+            far two applies of one density differ; the
+            U-list kernel's own time per apply against its bound; the
+            GMRES solve to 1e-6 (median of 2 after a warm solve).  Fails
+            unless the residual recomputed with one more apply is at most
+            1.5e-6, the error at 16 interior points against the exact
+            Stokeslet at most 1e-4 (tests/test_bie.py:244) and the solve
+            takes fewer than 120 iterations.
 
-Then one JSON line with each kernel's numbers, the card's name and power
-limit, the run's wall time, and the closing JSON line.  Any failed check
-raises, so the script exits non-zero and prints no closing line.
+Each phase sets the launch counts to 0 before it drives its path and
+reads them after; every kernel of the path must have launched.  Then
+one JSON line with each kernel's numbers (launches summed over phases
+4, 4b and 5), the card's name and power limit, the run's wall time, and
+the closing JSON line.  Any failed check raises, so the script exits
+non-zero and prints no closing line.
 """
 
 import json
@@ -67,7 +90,14 @@ ROUTES = {
                          "sctl_tpu/ops/pallas_m2l.py:272"),
     "p2p_stencil9": ("sctl_tpu_torch/csrc/p2p_stencil9.cu",
                      "sctl_tpu/ops/pallas_p2p.py:425"),
+    "p2p_ulist": ("sctl_tpu_torch/csrc/p2p_ulist.cu",
+                  "sctl_tpu/ops/pallas_p2p.py:496"),
 }
+PARTICLE_N = 45_000
+BIE_TOL = 1e-6
+BIE_RESID_BAR = 1.5e-6
+BIE_INTERIOR_BAR = 1e-4
+BIE_MAX_ITER = 120
 
 
 def log(msg):
@@ -78,12 +108,19 @@ def bound(work):
     """(bound_ms, bound_by) of a kernel's counted work."""
     t_bytes = work["bytes"] / HBM_BPS
     if "pairs" in work:
-        t_ops = max(work["pairs"] * PAIR_FLOPS / F32_FLOPS,
-                    work["pairs"] / RSQRT_PER_S)
+        t_ops = max(work["pairs"] * work.get("pair_flops", PAIR_FLOPS)
+                    / F32_FLOPS, work["pairs"] / RSQRT_PER_S)
     else:
         t_ops = work["flops"] / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
+
+
+def ops_limit(work):
+    """Which operations set a pair kernel's bound: the FMA pipes or the
+    rsqrt units."""
+    fma = work["pairs"] * work.get("pair_flops", PAIR_FLOPS) / F32_FLOPS
+    return "fma" if fma > work["pairs"] / RSQRT_PER_S else "rsqrt"
 
 
 def cuda_ms(torch, fn, reps):
@@ -122,9 +159,9 @@ def phase_build():
     log("build: done")
 
 
-def phase_kernels(torch, kf):
+def phase_kernels(torch, kf, cases=None):
     from sctl_tpu_torch.kernel_cases import kernel_cases, rel_max_err
-    cases = kernel_cases(kf)
+    cases = kernel_cases(kf) if cases is None else cases
     rows = {}
     for name, (run, plain, library, work) in cases.items():
         out = run()
@@ -293,23 +330,250 @@ def phase_main(torch, kf, xs, f, rng, counters):
     return main_rows
 
 
+def reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def read(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def phase_particle(torch, counters):
+    """ParticleFMM at automatic depth 2 through the U-list kernel."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import ParticleFMM
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    rng = np.random.default_rng(1)
+    x = rng.random((PARTICLE_N, 3))
+    f = rng.normal(size=(PARTICLE_N, 1))
+    fmm = ParticleFMM(accuracy=P, device="cuda", dtype=torch.float32)
+    fmm.set_kernel_s2t("src", "trg", Laplace3D_FxU)
+    fmm.set_src_coord("src", x)
+    fmm.set_src_density("src", f)
+    fmm.set_trg_coord("trg", x)
+    reset(counters)
+    t = time.perf_counter()
+    u = fmm.eval("trg")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read(counters)
+    kf = next(iter(fmm._kifmm_cache.values()))
+    log(f"particle: {PARTICLE_N} points, depth {kf.depth}, boxes "
+        f"{kf.src_tree.n_boxes}, cap_s {kf.cap_s}, cap_t {kf.cap_t}, "
+        f"S2M/L2T route "
+        f"{'surface kernels' if kf.surface_route else 'p2p_ulist'}, near "
+        f"route {'p2p_stencil9' if kf.stencil_route else 'p2p_ulist'}; "
+        f"setup and eval {secs:.2f} s; launches {launches}")
+    idx = rng.choice(PARTICLE_N, N_SAMPLE, replace=False)
+    xd = torch.as_tensor(x, device="cuda")
+    u_ref = direct_eval_blocked(Laplace3D_FxU, xd[idx], xd,
+                                torch.as_tensor(f, device="cuda"))
+    u_ref = u_ref.cpu().numpy()
+    err = float(np.abs(u[idx] - u_ref).max() / np.abs(u_ref).max())
+    log(f"particle: rel err at {N_SAMPLE} sampled targets vs f64 direct "
+        f"sum {err:.3e} (bar {FMM_BAR:g})")
+    if kf.depth != 2 or not np.isfinite(err) or not err < FMM_BAR:
+        raise SystemExit(f"chip_smoke: depth-2 ParticleFMM failed: depth "
+                         f"{kf.depth}, error {err:.3e}")
+    if not launches["p2p_ulist"] > 0:
+        raise SystemExit("chip_smoke: the depth-2 path did not launch "
+                         "p2p_ulist")
+    return launches
+
+
+def _bie_setup(torch):
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.ops import Stokes3D_DxU
+    t = time.perf_counter()
+    lst = torus_patches(nu=48, nv=20, q=6, R=2.0, r=0.5)
+    op = BoundaryIntegralOp(Stokes3D_DxU, device="cuda",
+                            dtype=torch.float32)
+    op.set_accuracy(BIE_TOL)
+    op.add_elem_list(lst)
+    op.setup()
+    secs = time.perf_counter() - t
+    af = op._far_fmm
+    if af is None:
+        raise SystemExit("chip_smoke: the BIE far field did not take the "
+                         "adaptive FMM")
+    log(f"bie setup: {secs:.2f} s; by stage s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in op.setup_times.items()))
+    log(f"bie setup: unknowns {op.dim(0)}, far nodes {len(op.Xf)}, leaves "
+        f"{af.n_leaf}, levels {af.L}, cap_s {af.cap_s}, cap_t "
+        f"{af.cap_t}, rcond {af.rcond:g}, U list {af.u_cap} leaves x "
+        f"{af.cap_s} = S "
+        f"{af.ul_S}, {af.ul_chunk} leaves per launch, W/X pairs "
+        f"{sum(len(w[0]) for w in af.wpairs.values())}, V pairs "
+        f"{sum(int((v[0] >= 0).sum()) for v in af.vtab.values())}; "
+        f"near pairs "
+        f"{len(op.near_pairs)}, near matrices "
+        f"{op._near_mats.numel() * 4 / 2 ** 20:.1f} MiB; near engine s "
+        + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in op._near_prof.items()))
+    return lst, op
+
+
+def _median_time(torch, fn, reps):
+    times = []
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(rep)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_bie(torch, counters):
+    import numpy as np
+    from sctl_tpu_torch.kernel_cases import ulist_cases, ulist_main_work
+    from sctl_tpu_torch.linalg import gmres_device
+    from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
+                                    direct_eval_blocked)
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    torch.cuda.reset_peak_memory_stats()
+    lst, op = _bie_setup(torch)
+    af = op._far_fmm
+
+    # the fifth kernel case: p2p_ulist at the far FMM's widths
+    cases = ulist_cases(af)
+    crows = phase_kernels(torch, None, cases)
+
+    X, _, _ = lst.get_node_coord()
+    src = np.array([[6.0, 0.0, 0.0]])
+    qs = np.array([[1.0, -0.5, 0.8]])
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    b = direct_eval_blocked(Stokes3D_FxU, c64(X), c64(src), c64(qs)) \
+        .reshape(-1).float()
+
+    def A(sig, marks=None):
+        return (op.compute_potential_tensor(sig, marks).reshape(-1)
+                - 0.5 * sig)
+
+    reset(counters)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sig0 = torch.randn(b.shape, generator=gen, device="cuda")
+    A(sig0)                                                 # warm
+    apply_s, apply_all = _median_time(
+        torch, lambda rep: A(sig0 * (1.0 + 1e-6 * (rep + 1))), 5)
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    A(sig0, marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    log(f"bie apply: s {['%.4f' % x for x in apply_all]}, median "
+        f"{apply_s:.4f} s; stage ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+    a1, a2 = A(sig0), A(sig0)
+    spread = float((a1 - a2).abs().max() / a1.abs().max())
+    log(f"bie apply: two applies of one density differ by {spread:.3e} "
+        f"of the max (the order of the card's atomic scatters)")
+    n_apply = 9
+
+    x, iters, err = gmres_device(A, b, tol=BIE_TOL, max_iter=BIE_MAX_ITER)
+    n_apply += int(iters) + 1
+    solves = []
+
+    def solve(rep):
+        r = gmres_device(A, b * (1.0 + 1e-6 * (rep + 1)), tol=BIE_TOL,
+                         max_iter=BIE_MAX_ITER)
+        solves.append(r)
+    solve_s, solve_all = _median_time(torch, solve, 2)
+    n_apply += sum(int(r[1]) + 1 for r in solves)
+    resid_est = float(err) / float(torch.linalg.vector_norm(b))
+    resid = float(torch.linalg.vector_norm(A(x) - b)
+                  / torch.linalg.vector_norm(b))
+    n_apply += 1
+    launches = read(counters)
+    log(f"bie solve: s {['%.3f' % t for t in solve_all]}, median "
+        f"{solve_s:.3f} s; iterations {iters} (repeats "
+        f"{[int(r[1]) for r in solves]}), residual {resid_est:.3e} as "
+        f"returned, {resid:.3e} recomputed (bar {BIE_RESID_BAR:g})")
+
+    th = np.linspace(0, 2 * np.pi, 17)[:-1]
+    xt_int = np.stack([(2.0 + 0.15 * np.cos(7 * th)) * np.cos(th),
+                       (2.0 + 0.15 * np.cos(7 * th)) * np.sin(th),
+                       0.15 * np.sin(7 * th)], 1)
+    sigma = x.double().reshape(-1, 3).cpu().numpy()
+    Ff = lst.get_far_field_density(sigma) * op.wf[:, None]
+    u_num = direct_eval_blocked(Stokes3D_DxU, c64(xt_int), c64(op.Xf),
+                                c64(Ff), ns=c64(op.Xnf)).cpu().numpy()
+    u_ex = direct_eval_blocked(Stokes3D_FxU, c64(xt_int), c64(src),
+                               c64(qs)).cpu().numpy()
+    interior = float(np.abs(u_num - u_ex).max() / np.abs(u_ex).max())
+    log(f"bie check: interior rel err vs exact Stokeslet {interior:.3e} "
+        f"(bar {BIE_INTERIOR_BAR:g}); peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # the U-list kernel alone, on one apply's inputs, chunk by chunk
+    fp = af.pad_density(torch.randn((len(op.Xf), 3), generator=gen,
+                                    device="cuda"))
+    chunks = list(af.ulist_chunks(fp))
+    ul_ms = cuda_ms(torch, lambda: [p2p_ulist(af.ker_s2t, *c)
+                                    for c in chunks], 5)
+    work = ulist_main_work(af)
+    b_ms, b_by = bound(work)
+    per_apply = len(chunks)
+    log(f"bie U list: p2p_ulist {ul_ms:.4f} ms per apply over {per_apply} "
+        f"launches, bound {b_ms:.4f} ms ({b_by}, {ops_limit(work)}), "
+        f"needed pairs {work['pairs']}, padded slots "
+        f"{af.n_leaf * af.ul_T * af.ul_S}, work {work} (bytes "
+        f"{1e3 * work['bytes'] / HBM_BPS:.4f} ms, operations "
+        f"{1e3 * work['pairs'] * work['pair_flops'] / F32_FLOPS:.4f} ms); "
+        f"launches in the "
+        f"phase {launches['p2p_ulist']} over {n_apply} applies")
+    if not (np.isfinite(resid) and resid <= BIE_RESID_BAR
+            and np.isfinite(interior) and interior <= BIE_INTERIOR_BAR
+            and int(iters) < BIE_MAX_ITER):
+        raise SystemExit(f"chip_smoke: BIE solve failed: residual "
+                         f"{resid:.3e}, interior {interior:.3e}, "
+                         f"iterations {iters}")
+    if not launches["p2p_ulist"] > 0:
+        raise SystemExit("chip_smoke: the BIE path did not launch "
+                         "p2p_ulist")
+    row = dict(crows["Stokes3D-DxU"])
+    row.update(main_path_ms=ul_ms, main_path_bound_ms=b_ms,
+               main_path_bound_by=b_by, main_path_ops_limit=ops_limit(work),
+               launches_per_apply=per_apply,
+               cases={k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
+                              plain_ms=v["plain_ms"],
+                              bound_ms=v["bound_ms"])
+                      for k, v in crows.items()})
+    return launches, row
+
+
 def main():
     import torch
     smi = phase_device(torch)
     phase_build()
     from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
-    from sctl_tpu_torch.ops.p2p import p2p_stencil9
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, p2p_ulist
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     from sctl_tpu_torch.config import set_precision
     set_precision()
     counters = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
                 "m2l_grid_blocked": m2l_grid_blocked,
                 "p2p_stencil9": p2p_stencil9}
+    all_counters = dict(counters, p2p_ulist=p2p_ulist)
     kf, xs, f, rng = phase_setup(torch)
     rows = phase_kernels(torch, kf)
     main_rows = phase_main(torch, kf, xs, f, rng, counters)
-    log("kernels: " + ", ".join(f"{k} {v['launches']} launches"
-                                for k, v in main_rows.items()))
+    del kf, xs, f
+    torch.cuda.empty_cache()
+    l4b = phase_particle(torch, all_counters)
+    l5, rows["p2p_ulist"] = phase_bie(torch, all_counters)
+    main_rows["p2p_ulist"] = dict(rows["p2p_ulist"], launches=0)
+    for name in ROUTES:
+        main_rows[name]["launches"] += l4b[name] + l5[name]
+    log("kernels: launches over phases 4, 4b and 5: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in main_rows.items()))
+    if not all(v["launches"] > 0 for v in main_rows.values()):
+        raise SystemExit("chip_smoke: a kernel was never launched")
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -321,7 +585,10 @@ def main():
                         max_rel_err=r["max_rel_err"],
                         main_path_ms=m["main_path_ms"],
                         main_path_bound_ms=m["main_path_bound_ms"],
-                        main_path_bound_by=m["main_path_bound_by"]))
+                        main_path_bound_by=m["main_path_bound_by"],
+                        **{k: r[k] for k in ("cases", "launches_per_apply",
+                                             "main_path_ops_limit")
+                           if k in r}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -2,8 +2,11 @@
 
 The first slice holds the uniform-tree Laplace KIFMM: the kernel
 layer, direct sums, the uniform Morton tree, the KIFMM operators,
-setup and evaluation, and the `ParticleFMM` facade.  The four TPU
-kernels on that path are hand-written CUDA under `csrc/`.
+setup and evaluation, and the `ParticleFMM` facade.  The second holds
+the Stokes BIE solve: the Stokes kernels, the adaptive-tree FMM, the
+patch geometry and device near quadrature, the boundary integral
+operator and GMRES.  The five TPU kernels on these paths are
+hand-written CUDA under `csrc/`.
 """
 
 from .config import set_precision

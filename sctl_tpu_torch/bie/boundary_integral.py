@@ -1,0 +1,339 @@
+"""Boundary integral operator u = int K(x, y) sigma(y) dS(y) on one
+device (counterpart of sctl_tpu/bie/boundary_integral.py:62-719).
+
+  ElementListBase     the geometry protocol an element list implements.
+  BoundaryIntegralOp  setup: concatenate the element lists, collect the
+                      far-field quadrature, set up the far field (the
+                      adaptive FMM above `far_fmm_cutoff` far nodes, a
+                      direct sum below), find the near (target,
+                      element) pairs on the host and assemble their
+                      corrected operators K_near - K_far on the device
+                      (near_device.py); apply: far-field density
+                      interpolation, the far field, the near
+                      corrections as one batched product and scatter.
+
+Device tensors in and out: `compute_potential_tensor` is the
+counterpart of `compute_potential_jnp`.  The distributed apply and the
+near cache of the JAX package are not ported.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..ops.direct import direct_eval_blocked
+from ..ops.kernels import KernelSpec
+
+
+class ElementListBase(abc.ABC):
+    """Geometry protocol (sctl_tpu ElementListBase)."""
+
+    @abc.abstractmethod
+    def size(self) -> int:
+        """Number of elements."""
+
+    @abc.abstractmethod
+    def get_node_coord(self):
+        """-> (X (N, 3), Xn (N, 3), node_cnt (n_elem,))."""
+
+    @abc.abstractmethod
+    def get_far_field_nodes(self, tol: float):
+        """-> (X (M, 3), Xn (M, 3), wts (M,), dist_far (M,),
+        cnt (n_elem,)): upsampled smooth quadrature; a target closer
+        than dist_far to a node needs a near correction."""
+
+    @abc.abstractmethod
+    def get_far_field_density(self, F):
+        """Density at the nodes (N, k) -> at the far nodes (M, k),
+        weights not applied."""
+
+    @abc.abstractmethod
+    def far_field_density_matrix(self, elem: int) -> np.ndarray:
+        """(n_nodes_e, n_far_e) interpolation matrix of one element."""
+
+    def node_weights(self) -> np.ndarray:
+        """(N,) surface quadrature weight of each node: the far weights
+        lumped through the interpolation transpose."""
+        _, _, wf, _, fcnt = self.get_far_field_nodes(1e-8)
+        fdsp = np.concatenate([[0], np.cumsum(fcnt)])
+        return np.concatenate([
+            self.far_field_density_matrix(e) @ wf[fdsp[e]:fdsp[e + 1]]
+            for e in range(self.size())])
+
+
+class BoundaryIntegralOp:
+    """op = BoundaryIntegralOp(Stokes3D_DxU, device="cuda")
+    op.set_accuracy(1e-6)
+    op.add_elem_list(elem_lst)
+    op.set_target_coord(Xt)            # optional; default the nodes
+    U = op.compute_potential(sigma)    # numpy in and out
+    U = op.compute_potential_tensor(sigma)   # device tensors
+
+    device: "cuda" (default) or "cpu"; dtype: torch.float32 (the card)
+    or torch.float64.  Settable before setup: `far_fmm_cutoff` (far
+    nodes from which the adaptive FMM takes the far field), `far_fmm_p`
+    (its order) and `far_fmm_operators` (its KIFMMOperators, built cold
+    when None).
+    """
+
+    def __init__(self, kernel: KernelSpec, device=None,
+                 dtype: torch.dtype = torch.float32):
+        from ..fmm.fmm import DIRECT_CUTOFF
+        self.kernel = kernel
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and dtype != torch.float32:
+            raise NotImplementedError(
+                f"the BIE operator on the card runs float32, not {dtype}")
+        self.dtype = dtype
+        self.tol = 1e-8
+        self.elem_lists: List[ElementListBase] = []
+        self.Xt: Optional[np.ndarray] = None
+        self._setup_done = False
+        self.far_fmm_cutoff = DIRECT_CUTOFF
+        self.far_fmm_p = 6
+        self.far_fmm_operators = None
+        self._node_w_cache = None
+
+    def set_accuracy(self, tol: float):
+        self.tol = tol
+        self._setup_done = False
+
+    def add_elem_list(self, elem_lst: ElementListBase):
+        self.elem_lists.append(elem_lst)
+        self._setup_done = False
+
+    def set_target_coord(self, Xt):
+        self.Xt = None if Xt is None else np.asarray(Xt, np.float64)
+        self._setup_done = False
+
+    def dim(self, i: int) -> int:
+        """0: input (density) size, 1: output size."""
+        n_nodes = sum(lst.get_node_coord()[0].shape[0]
+                      for lst in self.elem_lists)
+        if i == 0:
+            return n_nodes * self.kernel.kdim0
+        nt = self.Xt.shape[0] if self.Xt is not None else n_nodes
+        return nt * self.kernel.kdim1
+
+    def _node_w(self):
+        if self._node_w_cache is None:
+            self._node_w_cache = np.concatenate(
+                [lst.node_weights() for lst in self.elem_lists])
+        return self._node_w_cache
+
+    def sqrt_scaling(self, v):
+        """Nodal vector times sqrt(w), w the node quadrature weights."""
+        w = np.sqrt(np.abs(self._node_w()))
+        return np.asarray(v).reshape(len(w), -1) * w[:, None]
+
+    # -- setup ------------------------------------------------------------
+    def setup(self):
+        """Far field, near pairs, near operators and the apply tables.
+        Host seconds of each stage (the device fenced after each) go to
+        `setup_times`."""
+        if self._setup_done:
+            return self
+        import time
+        from ..fmm.adaptive import AdaptiveFMM
+        from ..fmm.fmm import _TREE_L2T
+        from .near_device import assemble_near_device
+        times = {}
+        t0 = [time.perf_counter()]
+
+        def tick(name):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t = time.perf_counter()
+            times[name] = t - t0[0]
+            t0[0] = t
+
+        Xs, Ns, cnts, far = [], [], [], []
+        self._elem_of = []
+        for li, lst in enumerate(self.elem_lists):
+            X, Xn, cnt = lst.get_node_coord()
+            Xs.append(X)
+            Ns.append(Xn)
+            cnts.append(cnt)
+            far.append(lst.get_far_field_nodes(self.tol))
+            self._elem_of += [(li, e) for e in range(lst.size())]
+        self.X = np.concatenate(Xs)
+        self.Xn = np.concatenate(Ns)
+        self.node_cnt = np.concatenate(cnts)
+        self.node_dsp = np.concatenate([[0], np.cumsum(self.node_cnt)])
+        self.Xf = np.concatenate([f[0] for f in far])
+        self.Xnf = np.concatenate([f[1] for f in far])
+        self.wf = np.concatenate([f[2] for f in far])
+        self.df = np.concatenate([f[3] for f in far])
+        self.far_cnt = np.concatenate([f[4] for f in far])
+        self.far_dsp = np.concatenate([[0], np.cumsum(self.far_cnt)])
+        self.Xt_eff = self.X if self.Xt is None else self.Xt
+        tick("geometry")
+
+        # far field: the adaptive FMM above the cutoff (the far nodes lie
+        # on the surface, the distribution the adaptive tree is for)
+        self._far_fmm = None
+        if (len(self.Xf) >= self.far_fmm_cutoff
+                and self.kernel.name in _TREE_L2T):
+            fmm = AdaptiveFMM(self.kernel, p=self.far_fmm_p,
+                              ker_l2t=_TREE_L2T[self.kernel.name],
+                              device=self.device, dtype=self.dtype,
+                              operators=self.far_fmm_operators)
+            if fmm._ops is None:
+                fmm._ops = fmm.build_operators()
+            tick("operators")
+            self._far_fmm = fmm.setup(self.Xf, self.Xt_eff, n_src=self.Xnf)
+            tick("far_fmm_tree")
+        self._build_near_list()
+        tick("near_list")
+        self._near_mats = assemble_near_device(self)
+        tick("near_assembly")
+        self._setup_device_apply()
+        tick("apply_tables")
+        self.setup_times = times
+        self._setup_done = True
+        return self
+
+    def _build_near_list(self):
+        """Near pairs (target, element): targets closer than dist_far to
+        a far node of the element (sctl_tpu boundary_integral.py:421).
+        Candidates come from a target grid queried per element bounding
+        sphere; the exact per-far-node filter runs on the survivors."""
+        Xt, Xf, df = self.Xt_eff, self.Xf, self.df
+        E = len(self.far_cnt)
+        self.near_pairs = []
+        if E == 0 or len(Xt) == 0:
+            return
+        s, t = self.far_dsp[:-1], self.far_dsp[1:]
+        ctr = np.add.reduceat(Xf, s) / self.far_cnt[:, None]
+        seg = np.repeat(np.arange(E), self.far_cnt)
+        rad2 = np.zeros(E)
+        np.maximum.at(rad2, seg, ((Xf - ctr[seg]) ** 2).sum(1))
+        df_max = np.zeros(E)
+        np.maximum.at(df_max, seg, df)
+        reach = np.sqrt(rad2) + df_max
+
+        lo = Xt.min(0) - 1e-12
+        side = max(float(reach.max()), 1e-300)
+        cellt = ((Xt - lo) / side).astype(np.int64)
+        nside = int(cellt.max()) + 1
+        key_t = (cellt[:, 0] * nside + cellt[:, 1]) * nside + cellt[:, 2]
+        order_t = np.argsort(key_t, kind="stable")
+        key_ts = key_t[order_t]
+        ce = ((ctr - lo) / side).astype(np.int64)
+        offs = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
+                                    indexing="ij"), -1).reshape(-1, 3)
+        nc = ce[:, None, :] + offs[None, :, :]
+        nk = ((nc[..., 0] * nside + nc[..., 1]) * nside
+              + nc[..., 2]).reshape(-1)
+        ok = np.all((nc >= 0) & (nc <= cellt.max(0)), axis=2).reshape(-1)
+        lo_i = np.where(ok, np.searchsorted(key_ts, nk), 0)
+        hi_i = np.where(ok, np.searchsorted(key_ts, nk + 1), 0)
+        cnt = hi_i - lo_i
+        tot = int(cnt.sum())
+        if tot == 0:
+            return
+        ei = np.repeat(np.arange(E * 27) // 27, cnt)
+        pos = np.arange(tot) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        ti = order_t[np.repeat(lo_i, cnt) + pos]
+        keep = ((Xt[ti] - ctr[ei]) ** 2).sum(1) < reach[ei] ** 2
+        ti, ei = ti[keep], ei[keep]
+        out_t, out_e = [], []
+        nf_max = int(self.far_cnt.max())
+        for c0 in range(0, len(ti), 40_000):
+            tc, ec = ti[c0:c0 + 40_000], ei[c0:c0 + 40_000]
+            idx = s[ec][:, None] + np.arange(nf_max)[None, :]
+            valid = idx < t[ec][:, None]
+            idx = np.minimum(idx, len(Xf) - 1)
+            d2 = ((Xt[tc][:, None, :] - Xf[idx]) ** 2).sum(-1)
+            near = ((d2 < df[idx] ** 2) & valid).any(1)
+            out_t.append(tc[near])
+            out_e.append(ec[near])
+        te = np.unique(np.stack([np.concatenate(out_t),
+                                 np.concatenate(out_e)], 1), axis=0)
+        self.near_pairs = [(int(a), int(b)) for a, b in te]
+
+    def _setup_device_apply(self):
+        """Padded device tables of the apply: per-element far-field
+        interpolation as one batched product, the near corrections as
+        one batched product and scatter."""
+        ker = self.kernel
+        E = len(self._elem_of)
+        k0 = ker.kdim0
+        max_ne = int(self.node_cnt.max())
+        max_nf = int(self.far_cnt.max())
+        interp = np.zeros((E, max_nf, max_ne))
+        nidx = np.zeros((E, max_ne), np.int64)
+        fidx = np.zeros((E, max_nf), np.int64)
+        fval = np.zeros((E, max_nf), bool)
+        for e, (li, le) in enumerate(self._elem_of):
+            ne, nf = self.node_cnt[e], self.far_cnt[e]
+            interp[e, :nf, :ne] = \
+                self.elem_lists[li].far_field_density_matrix(le).T
+            nidx[e, :ne] = np.arange(self.node_dsp[e],
+                                     self.node_dsp[e] + ne)
+            fidx[e, :nf] = np.arange(self.far_dsp[e], self.far_dsp[e] + nf)
+            fval[e, :nf] = True
+        dev, dt = self.device, self.dtype
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        ti = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        self._dev = {
+            "interp": t(interp), "nidx": ti(nidx),
+            "fidx": ti(np.where(fval, fidx, 0).reshape(-1)),
+            "fval": t(fval), "wf": t(self.wf), "Xt": t(self.Xt_eff),
+            "Xf": t(self.Xf), "Xnf": t(self.Xnf),
+        }
+        self._n_near = P = len(self.near_pairs)
+        if P:
+            R = self._near_mats.shape[1]
+            pe = np.array([e for (_, e) in self.near_pairs])
+            self._dev.update({
+                "near_mats": self._near_mats,
+                "near_sidx": ti((self.node_dsp[pe] * k0)[:, None]
+                                + np.arange(R)),
+                "near_ti": ti([t_ for (t_, _) in self.near_pairs]),
+            })
+
+    # -- evaluation ---------------------------------------------------------
+    def compute_potential_tensor(self, sigma: torch.Tensor,
+                                 marks: Optional[list] = None):
+        """sigma (N*k0,) or (N, k0) tensor -> (Nt, k1) tensor on the op's
+        device: far field plus near corrections.  With `marks` a list,
+        CUDA events are recorded after the far-field interpolation
+        ("interp"), each far-FMM stage, the FMM's density gather and
+        unsort ("fmm_io") and the near corrections ("near")."""
+        from ..fmm.kifmm import _mark
+        self.setup()
+        ker, dev = self.kernel, self._dev
+        k0 = ker.kdim0
+        sigma = sigma.to(self.device, self.dtype).reshape(-1, k0)
+        ff = torch.einsum("efn,enk->efk", dev["interp"], sigma[dev["nidx"]])
+        Ff = sigma.new_zeros((len(self.Xf), k0))
+        Ff.index_add_(0, dev["fidx"],
+                      (ff * dev["fval"][..., None]).reshape(-1, k0))
+        Ff = Ff * dev["wf"][:, None]
+        _mark(marks, "interp")
+        if self._far_fmm is not None:
+            fmm = self._far_fmm
+            U = fmm.unsort(fmm._eval_impl(fmm.pad_density(Ff), marks))
+            _mark(marks, "fmm_io")
+        else:
+            U = direct_eval_blocked(ker, dev["Xt"], dev["Xf"], Ff,
+                                    ns=dev["Xnf"])
+        if self._n_near:
+            sig_p = sigma.reshape(-1)[dev["near_sidx"]]          # (P, R)
+            U.index_add_(0, dev["near_ti"],
+                         torch.einsum("pr,prk->pk", sig_p,
+                                      dev["near_mats"]))
+        _mark(marks, "near")
+        return U
+
+    def compute_potential(self, sigma) -> np.ndarray:
+        """numpy sigma -> numpy (Nt, k1) potential."""
+        s = torch.as_tensor(np.asarray(sigma), dtype=self.dtype,
+                            device=self.device)
+        return self.compute_potential_tensor(s).cpu().numpy()

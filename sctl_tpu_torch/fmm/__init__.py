@@ -1,5 +1,6 @@
 from .kifmm import KIFMM, KIFMMOperators, operators_from_numpy
+from .adaptive import AdaptiveFMM
 from .fmm import DIRECT_CUTOFF, ParticleFMM
 
 __all__ = ["KIFMM", "KIFMMOperators", "operators_from_numpy",
-           "DIRECT_CUTOFF", "ParticleFMM"]
+           "AdaptiveFMM", "DIRECT_CUTOFF", "ParticleFMM"]

@@ -15,11 +15,20 @@ import torch
 
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
-from ..ops.kernels import KernelSpec
-from ..ops.uker import check_supported
+from ..ops.kernels import KernelSpec, Laplace3D_FxU, Stokes3D_FSxU
+from ..ops.uker import LAPLACE_ONLY, check_supported
 from .kifmm import KIFMM
 
 DIRECT_CUTOFF = 40_000   # below this, direct evaluation
+
+# kernels with a tree path and their L2T companion (sctl_tpu/fmm/fmm.py:
+# 35-42, the entries of the ported kernels)
+_TREE_L2T = {
+    "Laplace3D-FxU": Laplace3D_FxU,
+    "Stokes3D-FxU": Stokes3D_FSxU,
+    "Stokes3D-DxU": Stokes3D_FSxU,
+    "Stokes3D-FSxU": Stokes3D_FSxU,
+}
 
 
 class _Group:
@@ -48,7 +57,7 @@ class ParticleFMM:
         self._kifmm_cache: Dict[tuple, KIFMM] = {}
 
     def set_kernel_s2t(self, src: str, trg: str, kernel: KernelSpec):
-        check_supported(kernel.name)
+        check_supported(kernel.name, LAPLACE_ONLY)
         self.src.setdefault(src, _Group())
         self.trg.setdefault(trg, _Group())
         self.s2t_kernels[(src, trg)] = kernel

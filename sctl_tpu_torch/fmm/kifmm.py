@@ -14,6 +14,15 @@ The evaluation follows the JAX package's TPU route stage by stage:
        `l2t_surface`)
   P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`)
 
+The shared-surface kernels need a box count that is a multiple of 128
+(depth >= 3); below it S2M and L2T go through the per-box U-list kernel
+(ops/p2p.py `p2p_ulist`), as the JAX package does
+(sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The near field takes
+the U-list kernel too, over each box's 27 neighbours, when the
+stencil kernel's block cannot hold the box capacities (more than 256
+target slots or a slab group over 2,400 slots: a few hundred points a
+leaf).
+
 Box capacities are quantiles of the box counts; the points beyond them
 travel in overflow sidebands evaluated in plain torch.  Tensors on the
 card go through the CUDA kernels, tensors on the CPU through their
@@ -31,12 +40,12 @@ import torch.nn.functional as F
 
 from ..config import resolve_device
 from ..ops._launch_checks import CHUNK_PAIRS
-from ..ops.kernels import KernelSpec, Laplace3D_FxU
+from ..ops.kernels import KernelSpec, Laplace3D_FxU, Stokes3D_FSxU
 from ..ops.kernels_np import full_matrix_np
 from ..ops.m2l import blocked_m2l_mats, m2l_grid_blocked
-from ..ops.p2p import p2p_stencil9, to_slab
+from ..ops.p2p import p2p_stencil9, p2p_ulist, stencil9_fits, to_slab
 from ..ops.sl import l2t_surface, surface_pair
-from ..ops.uker import check_supported
+from ..ops.uker import LAPLACE_ONLY, check_supported
 from ..tree import morton as mt
 from ..tree.tree import UniformTree
 
@@ -44,9 +53,24 @@ from ..tree.tree import UniformTree
 RAD_IN = 1.05   # upward-equivalent / downward-check surface
 RAD_OUT = 2.95  # upward-check / downward-equivalent surface
 
-# The slab stencil, the shared-surface kernels and the blocked M2L need
-# at least this depth on the card (B a multiple of 128 boxes).
-MIN_CUDA_DEPTH = 3
+
+def kernel_roles(ker_s2t: KernelSpec, ker_l2t: Optional[KernelSpec] = None,
+                 ker_s2m: Optional[KernelSpec] = None):
+    """(ker_trans, ker_l2t, ker_s2m) for a source-to-target kernel, the
+    deduction of sctl_tpu/fmm/kifmm.py:619-665: a Stokes kernel
+    translates with Stokes3D-FSxU (Stokeslet plus source, k0 = 4 ->
+    k1 = 3), which also serves L2T; Laplace3D-FxU translates with
+    itself.  S2M uses ker_s2t unless given."""
+    check_supported(ker_s2t.name)
+    if ker_s2t.name.startswith("Stokes"):
+        trans, l2t = Stokes3D_FSxU, ker_l2t or Stokes3D_FSxU
+    else:
+        trans, l2t = Laplace3D_FxU, ker_l2t or Laplace3D_FxU
+    s2m = ker_s2m or ker_s2t
+    if s2m.kdim0 != ker_s2t.kdim0 or s2m.kdim1 != trans.kdim1:
+        raise ValueError(f"ker_s2m {s2m.name} does not fit ker_s2t "
+                         f"{ker_s2t.name} and ker_trans {trans.name}")
+    return trans, l2t, s2m
 
 
 def cube_surface(p: int) -> np.ndarray:
@@ -125,21 +149,25 @@ def _tensor(a, device, dtype):
 
 class KIFMMOperators:
     """Unit-box operator tables of one (translation kernel, p, rcond),
-    built on the host in float64, and their device copies.
+    built on the host in float64, and the uniform tree's device copies.
 
     For a homogeneous kernel every level's operators follow from the
-    unit tables by scaling; for the single-exponent Laplace kernel the
-    M2M, L2L and M2L tables are the same at every level, and only uc2e
-    and the surfaces scale (done per tree in `KIFMM.setup`)."""
+    unit tables by scaling (`level_tables`); for a single-exponent
+    kernel (Laplace) the M2M, L2L and M2L tables are the same at every
+    level, and only uc2e and the surfaces scale (done per tree in
+    `KIFMM.setup`).  Translations with Stokes3D-FSxU carry k0t = 4
+    equivalent and k1t = 3 check values per surface point."""
 
     TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
-              "cb_unit", "vb_unit", "ca_unit")
+              "cb_unit", "cc_unit", "vb_unit", "ca_unit")
 
     def __init__(self, ker_trans: KernelSpec, p: int, rcond: float,
                  device, dtype: torch.dtype,
                  tables: Optional[dict] = None):
-        check_supported(ker_trans.name)
+        check_supported(ker_trans.name, (Laplace3D_FxU.name,
+                                         Stokes3D_FSxU.name))
         self.ker_trans = ker_trans
+        self.k0t, self.k1t = ker_trans.kdim0, ker_trans.kdim1
         self.p = p
         self.rcond = rcond
         self.surf = cube_surface(p)
@@ -151,7 +179,41 @@ class KIFMMOperators:
         else:
             for name in self.TABLES:
                 setattr(self, name, np.asarray(tables[name], np.float64))
-        self._to_device(torch.device(device), dtype)
+        if ker_trans.name in LAPLACE_ONLY:
+            self._to_device(torch.device(device), dtype)
+
+    def level_tables(self, depth: int, scale: float) -> dict:
+        """Host float64 operators of levels 0..depth of a tree whose
+        root box has side `scale` (sctl_tpu/fmm/kifmm.py `_derive_levels`):
+        surfaces, uc2e and dc2e per level, M2M and L2L per child level
+        (list index level - 1), and the M2L row scaling `m2l_s` per
+        level: the level's M2L reads cc_unit on the sources scaled by
+        1 / m2l_s and expands through cb_unit scaled by m2l_s (for a
+        single-exponent kernel m2l_s is all ones)."""
+        s_exp = np.asarray(self.ker_trans.src_scal, np.float64)
+        t_exp = np.asarray(self.ker_trans.trg_scal, np.float64)
+        flat = len(set(s_exp)) == 1
+        lam = [scale / (1 << lvl) for lvl in range(depth + 1)]
+
+        def conj3(stack, lm):              # diag(lm^s) m diag(lm^-s)
+            return stack if flat else np.stack(
+                [_outer_scale(m, lm, s_exp, -s_exp) for m in stack])
+
+        nrow = self.cb_unit.shape[0]
+        return {
+            "surf_in": [self.surf * (RAD_IN * lm / 2) for lm in lam],
+            "surf_out": [self.surf * (RAD_OUT * lm / 2) for lm in lam],
+            "uc2e": [_outer_scale(self.uc2e_unit, lm, s_exp, t_exp)
+                     for lm in lam],
+            "dc2e": [_outer_scale(self.dc2e_unit, lm, s_exp, t_exp)
+                     for lm in lam],
+            "m2m": [conj3(self.m2m_unit, lam[lvl - 1])
+                    for lvl in range(1, depth + 1)],
+            "l2l": [conj3(self.l2l_unit, lam[lvl - 1])
+                    for lvl in range(1, depth + 1)],
+            "m2l_s": [np.ones(nrow) if flat else np.power(
+                lm, np.tile(s_exp, nrow // len(s_exp))) for lm in lam],
+        }
 
     def _build_unit(self, ker_trans, surf, rcond):
         """Unit-box tables: parent side 1 (children 1/2), M2L at side 1.
@@ -201,6 +263,7 @@ class KIFMMOperators:
                                      full_matrices=False)
             V = np.concatenate([V, V2[:, :r2 - V.shape[1]]], axis=1)
         self.vb_unit = np.ascontiguousarray(V[:, :r2])
+        self.cc_unit = C
         self.ca_unit = np.einsum("ork,kn->orn", C, self.vb_unit,
                                  optimize=True)
         self.m2l_unit = None          # build input only
@@ -255,13 +318,15 @@ class KIFMMOperators:
         self.par_eps = np.stack(eps)
 
 
-def operators_from_numpy(tables: dict, device, dtype: torch.dtype
+def operators_from_numpy(tables: dict, device, dtype: torch.dtype,
+                         ker_trans: KernelSpec = Laplace3D_FxU
                          ) -> KIFMMOperators:
     """The port's operators from unit tables computed elsewhere, e.g.
     by the JAX package's KIFMMOperators: `tables` maps each name of
     `KIFMMOperators.TABLES` to its numpy array, "p" to the order and
-    "rcond" to the pinv cutoff the tables were built with."""
-    return KIFMMOperators(Laplace3D_FxU, int(tables["p"]),
+    "rcond" to the pinv cutoff the tables were built with; `ker_trans`
+    is their translation kernel (Stokes3D_FSxU for Stokes)."""
+    return KIFMMOperators(ker_trans, int(tables["p"]),
                           float(tables["rcond"]), device, dtype,
                           tables=tables)
 
@@ -310,15 +375,29 @@ def _chunk_pairs(device: torch.device) -> int:
         else CHUNK_PAIRS
 
 
-def _apply_groups(ker: KernelSpec, xt, xs, f):
+def _apply_groups(ker: KernelSpec, xt, xs, f, ns=None):
     """Batched plain pair sums over groups, in chunks:
-    xt (G, T, 3), xs (G, S, 3), f (G, S, k0) -> (G, T, k1), unscaled."""
+    xt (G, T, 3), xs (G, S, 3), f (G, S, k0), ns (G, S, 3) source
+    normals or None -> (G, T, k1), unscaled.  The chunk's pair budget
+    shrinks with k0, which sets the pairwise temporaries per pair."""
     G, T, S = xt.shape[0], xt.shape[1], xs.shape[1]
-    step = max(1, _chunk_pairs(xt.device) // max(1, T * S))
-    return torch.cat([ker.apply_pairwise(xt[g:g + step], xs[g:g + step],
-                                         f[g:g + step])
-                      for g in range(0, G, step)]) if G else \
-        xt.new_zeros((0, T, ker.kdim1))
+    if G == 0:
+        return xt.new_zeros((0, T, ker.kdim1))
+    step = max(1, _chunk_pairs(xt.device) // max(1, T * S * ker.kdim0))
+    return torch.cat([
+        ker.apply_pairwise(xt[g:g + step], xs[g:g + step],
+                           None if ns is None else ns[g:g + step],
+                           f[g:g + step])
+        for g in range(0, G, step)])
+
+
+def _pad_to(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the last axis of `a` to length n, contiguous."""
+    return F.pad(a, (0, n - a.shape[-1])).contiguous()
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _mark(marks, name: str) -> None:
@@ -343,15 +422,15 @@ class KIFMM:
                  device=None, dtype: torch.dtype = torch.float32,
                  rcond: Optional[float] = None,
                  operators: Optional[KIFMMOperators] = None):
-        check_supported(ker_s2t.name)
+        check_supported(ker_s2t.name, LAPLACE_ONLY)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(
                 f"KIFMM on the card runs float32 only, not {dtype}")
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(f"KIFMM dtype {dtype}")
-        self.ker_s2t = self.ker_s2m = self.ker_l2t = ker_s2t
-        self.ker_trans = Laplace3D_FxU
+        self.ker_s2t = ker_s2t
+        self.ker_trans, self.ker_l2t, self.ker_s2m = kernel_roles(ker_s2t)
         self.p = p
         self.depth = depth
         self.pts_per_leaf = pts_per_leaf
@@ -371,10 +450,6 @@ class KIFMM:
             self.depth = max(2, int(np.round(np.log(
                 max(len(x_src) / self.pts_per_leaf, 1)) / np.log(8))))
         L = self.depth
-        if self.device.type == "cuda" and L < MIN_CUDA_DEPTH:
-            raise NotImplementedError(
-                f"KIFMM on the card needs depth >= {MIN_CUDA_DEPTH} "
-                f"(box count a multiple of 128); got depth {L}")
         dev, dt = self.device, self.dtype
         t = lambda a: _tensor(a, dev, dt)
         ti = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -423,8 +498,16 @@ class KIFMM:
         self.xt_rast = t(xt_p[inv].reshape(n, n, n, self.cap_t, 3)
                          .transpose(0, 1, 2, 4, 3))
         self.SL = -(-9 * self.cap_s // 128) * 128
-        self.xs_slab = to_slab(self.xs_pad, self.rast_to_mort, n,
-                               self.SL).contiguous()
+        # routes by shape: the shared-surface kernels take a box count
+        # that is a multiple of 128, the slab stencil's block the caps;
+        # otherwise the U-list kernel (see the module docstring)
+        self.surface_route = src.n_boxes % 128 == 0
+        self.stencil_route = stencil9_fits(self.cap_t, self.SL)
+        if self.stencil_route:
+            self.xs_slab = to_slab(self.xs_pad, self.rast_to_mort, n,
+                                   self.SL).contiguous()
+        else:
+            self._setup_near_ulist()
         # density gather and result scatter indices
         self.src_perm = ti(src.perm)
         self.trg_perm = ti(trg.perm)
@@ -498,9 +581,18 @@ class KIFMM:
         sf = self.ker_s2m.scale_factor
 
         # ---- S2M: leaf check potentials -> upward equivalents ----
-        out_sl = surface_pair(self.ker_s2m, self.surf_out_L, self.xs_sl,
-                              fp.reshape(1, -1), self.cap_s)
-        u_check = out_sl.permute(2, 1, 0).reshape(B, ns) * sf
+        if self.surface_route:
+            out_sl = surface_pair(self.ker_s2m, self.surf_out_L,
+                                  self.xs_sl, fp.reshape(1, -1), self.cap_s)
+            u_check = out_sl.permute(2, 1, 0).reshape(B, ns) * sf
+        else:
+            # box-local check surface (T) against the box's slots (S)
+            S = _round_up(self.cap_s, 128)
+            xs_b = _pad_to(self.xs_sl.reshape(3, B, -1).transpose(0, 1), S)
+            xc_b = _pad_to(self.surf_out_L.T, _round_up(ns, 8))
+            u = p2p_ulist(self.ker_s2m, xc_b.expand(B, -1, -1).contiguous(),
+                          xs_b, None, _pad_to(fp.transpose(1, 2), S))
+            u_check = u[:, :ns].reshape(B, ns) * sf
         if self.n_ovf_s:
             sb = self.sov_boxes
             xck = self.surf_out_L[None] + self.ctr[sb][:, None, :]
@@ -585,10 +677,20 @@ class KIFMM:
         ct = self.cap_t
 
         # ---- L2T ----
-        q_cm = q_dn.reshape(B, ns, kl.kdim0).permute(2, 1, 0).contiguous()
-        out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct)
-        u_far = out_sl.reshape(kl.kdim1, B, ct).permute(1, 2, 0) \
-            * kl.scale_factor
+        if self.surface_route:
+            q_cm = q_dn.reshape(B, ns, kl.kdim0).permute(2, 1, 0) \
+                .contiguous()
+            out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct)
+            u_far = out_sl.reshape(kl.kdim1, B, ct).permute(1, 2, 0)
+        else:
+            # box-local targets (T) against the equivalent surface (S)
+            S = _round_up(ns, 128)
+            xe_b = _pad_to(self.surf_out_L.T, S)
+            u_far = p2p_ulist(
+                kl, self.xt_sl.reshape(3, B, ct).transpose(0, 1)
+                .contiguous(), xe_b.expand(B, -1, -1).contiguous(), None,
+                _pad_to(q_dn.reshape(B, ns, kl.kdim0).transpose(1, 2), S))
+        u_far = u_far * kl.scale_factor
         if self.n_ovf_t:
             tb = self.tov_boxes
             xeq = self.surf_out_L[None] + self.ctr[tb][:, None, :]
@@ -600,7 +702,8 @@ class KIFMM:
         _mark(marks, "L2T")
 
         # ---- P2P near field ----
-        u_near = self._p2p_stencil(fp)
+        u_near = (self._p2p_stencil(fp) if self.stencil_route
+                  else self._p2p_ulist(fp))
         nb = self.nb
         if self.n_ovf_s:
             # sideband sources -> padded targets of their 27 neighbours
@@ -645,3 +748,34 @@ class KIFMM:
         u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
                            self.xt_rast, self.xs_slab, f_s)
         return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]
+
+    def _setup_near_ulist(self):
+        """Tables of the near field's U-list route: per box, its 27
+        neighbours' padded source slots side by side (zero coordinates
+        where a neighbour lies outside the domain), S padded to 128."""
+        B, cs = self.src_tree.n_boxes, self.cap_s
+        self.ul_S = _round_up(27 * cs, 128)
+        self.ul_ok = (self.nb >= 0).to(self.dtype)            # (B, 27)
+        nbc = self.nb.clamp(min=0)
+        xs = self.xs_pad[nbc] * self.ul_ok[..., None, None]   # (B,27,cs,3)
+        self.ul_xs = _pad_to(xs.permute(0, 3, 1, 2).reshape(B, 3, -1),
+                             self.ul_S)
+        self.ul_xt = self.xt_pad.transpose(1, 2).contiguous()
+        # boxes per launch: the gathered (G, k0 + 3, S) inputs stay near
+        # (1 << 22) slots, the JAX package's U-list chunk
+        self.ul_chunk = max(1, (1 << 22) // self.ul_S)
+
+    def _p2p_ulist(self, fp):
+        """Near field through the U-list kernel over each box's 27
+        neighbours -> (B, cap_t, k1), unscaled."""
+        B = self.src_tree.n_boxes
+        nbc = self.nb.clamp(min=0)
+        out = []
+        for g0 in range(0, B, self.ul_chunk):
+            g = slice(g0, g0 + self.ul_chunk)
+            f = fp[nbc[g]] * self.ul_ok[g, :, None, None]     # (G,27,cs,k0)
+            f = _pad_to(f.permute(0, 3, 1, 2).reshape(
+                f.shape[0], f.shape[-1], -1), self.ul_S)
+            out.append(p2p_ulist(self.ker_s2t, self.ul_xt[g], self.ul_xs[g],
+                                 None, f))
+        return torch.cat(out)

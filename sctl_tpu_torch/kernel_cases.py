@@ -1,6 +1,11 @@
 """Inputs for holding each CUDA kernel against its plain version, and
 the counts of each kernel's bound.
 
+The U-list kernel's cases (`ulist_cases`) take their widths from a
+set-up `AdaptiveFMM` instead: T = its target capacity, S = its U-list
+budget (source leaves per target leaf times the source capacity,
+padded to 128), on a reduced G = 32 boxes, one case per kernel formula.
+
 The cases take their widths from a set-up `KIFMM` (source and target
 slot capacities, slab group SL, the leaf-level check surface, the M2L
 ranks) and a reduced count (4096 boxes, a parent grid of h = 8 for
@@ -21,13 +26,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.kernels import Laplace3D_FxU
+from .ops.kernels import KERNELS, Laplace3D_FxU
 from .ops.m2l import m2l_grid_blocked, m2l_grid_blocked_plain, m2l_windows
-from .ops.p2p import p2p_stencil9, p2p_stencil9_plain, to_slab
+from .ops.p2p import (ULIST_KERNELS, p2p_stencil9, p2p_stencil9_plain,
+                      p2p_ulist, p2p_ulist_plain, to_slab)
 from .ops.sl import (l2t_surface, l2t_surface_plain, surface_pair,
                      surface_pair_plain)
 
-N_BOXES, M2L_H, P2P_N = 4096, 8, 16
+N_BOXES, M2L_H, P2P_N, ULIST_G = 4096, 8, 16, 32
+
+# f32 flops per pair of csrc/p2p_ulist.cu (an FMA counts 2): the
+# difference (3) and r2 (5), then Laplace the density FMA (2); Stokes
+# DxU r.f and r.n (5 each), the 1/r^5 and weight products (5) and three
+# FMAs (6); Stokes FSxU r.f (5), 1/r^2, 1/r^3 and the weight (4) and
+# six FMAs (12)
+ULIST_PAIR_FLOPS = {"Laplace3D-FxU": 10, "Stokes3D-DxU": 29,
+                    "Stokes3D-FSxU": 29}
 
 
 def surface_pair_work(pairs: int, ns: int, B: int, cap: int) -> dict:
@@ -52,6 +66,67 @@ def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
     return dict(flops=2 * h ** 3 * nz * (K // 8) * (N // 8),
                 bytes=4 * ((h + 2) ** 3 * K + mats_blk.numel()
                            + h ** 3 * N))
+
+
+def p2p_ulist_work(kernel, pairs: int, n_trg: int, n_src: int) -> dict:
+    """One rsqrt and ULIST_PAIR_FLOPS flops per needed pair; bytes of
+    the real targets and their output and of the real source slots
+    (point, density, and the normal for the double layer), each once:
+    the padded slots carry nothing the function needs."""
+    nsrc = 3 + kernel.kdim0 + (3 if kernel.needs_normal else 0)
+    return dict(pairs=pairs, pair_flops=ULIST_PAIR_FLOPS[kernel.name],
+                bytes=4 * ((3 + kernel.kdim1) * n_trg + nsrc * n_src))
+
+
+def _ulist_sources(af) -> np.ndarray:
+    """Real source points in each leaf's U list of an AdaptiveFMM."""
+    rows = af.ul_rows.cpu().numpy()
+    ok = af.ul_ok.cpu().numpy() > 0
+    return (af.tree.leaf_cnt[rows] * ok).sum(axis=1)
+
+
+def ulist_main_work(af) -> dict:
+    """The U-list kernel's work in one apply of a set-up AdaptiveFMM:
+    pairs of each leaf's real targets with its U list's real sources;
+    bytes of those targets and sources as the launches see them (a
+    source once in each U list that holds it)."""
+    tcnt = np.bincount(af.t_take.cpu().numpy() // af.cap_t,
+                       minlength=af.n_leaf)
+    near = _ulist_sources(af)
+    return p2p_ulist_work(af.ker_s2t, int((tcnt * near).sum()),
+                          int(tcnt.sum()), int(near.sum()))
+
+
+def ulist_cases(af, seed: int = 0) -> dict:
+    """kernel name -> (kernel call, plain call, None, work) of
+    `p2p_ulist` at the widths of the set-up AdaptiveFMM `af` on
+    ULIST_G boxes, on its device.  Targets fill a box of the leaves'
+    mean size, sources the 27 boxes around it; a source slot holds a
+    density as often as af's U-list slots hold a point."""
+    rng = np.random.default_rng(seed)
+    dev = af.device
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device=dev)
+    G, T, S = ULIST_G, af.ul_T, af.ul_S
+    fill = _ulist_sources(af).mean() / S
+    side = af.tree.scale / 2 ** np.mean(af.tree.leaf_levels)
+    xt = rng.random((G, 3, T)) * side
+    xs = (rng.random((G, 3, S)) * 3 - 1) * side
+    nrm = rng.normal(size=(G, 3, S))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    real = rng.random((G, S)) < fill
+    cases = {}
+    for name in ULIST_KERNELS:
+        ker = KERNELS[name]
+        f = rng.normal(size=(G, ker.kdim0, S)) * real[:, None, :]
+        a = (f32(xt), f32(xs), f32(nrm) if ker.needs_normal else None,
+             f32(f))
+        cases[name] = (
+            lambda ker=ker, a=a: p2p_ulist(ker, *a),
+            lambda ker=ker, a=a: p2p_ulist_plain(ker, *a), None,
+            p2p_ulist_work(ker, T * int(real.sum()), G * T,
+                           int(real.sum())))
+    return cases
 
 
 def _near_counts(cnt: np.ndarray) -> np.ndarray:

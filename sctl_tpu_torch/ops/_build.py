@@ -37,6 +37,7 @@ SIGNATURES = {
     "sctl_l2t_surface": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sctl_m2l_grid_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sctl_p2p_stencil9": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sctl_p2p_ulist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Numpy f64 host forms of the kernels (counterpart of
-sctl_tpu/ops/kernels_np.py:26-70), used by the operator precompute:
-the precompute makes hundreds of small matrix builds, which stay on the
-host in float64."""
+sctl_tpu/ops/kernels_np.py:26-70), used by the operator precompute and
+the BIE near assembly: they make hundreds of small matrix builds,
+which stay on the host in float64."""
 
 from __future__ import annotations
 
@@ -11,19 +11,31 @@ from .kernels import KernelSpec
 from .uker import uker_matrix
 
 
-def block_matrix_np(ker: KernelSpec, xt, xs) -> np.ndarray:
-    """(T, S, k0, k1) kernel blocks, scale factor included."""
+def full_matrix_np(ker: KernelSpec, xt, xs, ns=None) -> np.ndarray:
+    """(Ns*k0, Nt*k1) matrix, scale factor included."""
+    m = block_matrix_np(ker, xt, xs, ns)
+    T, S = m.shape[:2]
+    return m.transpose(1, 2, 0, 3).reshape(S * ker.kdim0, T * ker.kdim1)
+
+
+def block_matrix_np(ker: KernelSpec, xt, xs, ns=None) -> np.ndarray:
+    """(T, S, k0, k1) kernel blocks, scale factor included; ns (S, 3)
+    source normals."""
     xt = np.atleast_2d(np.asarray(xt, np.float64))
     xs = np.atleast_2d(np.asarray(xs, np.float64))
     d = xt[:, None, :] - xs[None, :, :]
-    r2 = (d * d).sum(-1)
-    rinv = np.where(r2 > 0, 1.0 / np.sqrt(np.where(r2 > 0, r2, 1.0)),
-                    0.0)
-    return uker_matrix(ker.name, d, rinv) * ker.scale_factor
+    if ns is not None:
+        ns = np.broadcast_to(np.asarray(ns, np.float64), d.shape)
+    return offset_blocks_np(ker, d, ns=ns)
 
 
-def full_matrix_np(ker: KernelSpec, xt, xs) -> np.ndarray:
-    """(Ns*k0, Nt*k1) matrix, scale factor included."""
-    m = block_matrix_np(ker, xt, xs)
-    T, S = m.shape[:2]
-    return m.transpose(1, 2, 0, 3).reshape(S * ker.kdim0, T * ker.kdim1)
+def offset_blocks_np(ker: KernelSpec, d, rinv=None, ns=None) -> np.ndarray:
+    """(..., k0, k1) kernel blocks from displacements d = xt - xs
+    (..., 3) and optional per-pair source normals of the same shape,
+    scale factor included."""
+    d = np.asarray(d, np.float64)
+    if rinv is None:
+        r2 = (d * d).sum(-1)
+        rinv = np.where(r2 > 0, 1.0 / np.sqrt(np.where(r2 > 0, r2, 1.0)),
+                        0.0)
+    return uker_matrix(ker.name, d, rinv, ns) * ker.scale_factor

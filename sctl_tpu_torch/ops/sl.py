@@ -15,7 +15,7 @@ import torch
 from ._build import launch
 from ._launch_checks import CHUNK_PAIRS, check_kernel_args, on_cuda
 from .kernels import KernelSpec
-from .uker import check_supported
+from .uker import LAPLACE_ONLY, check_supported
 
 
 def surface_pair_plain(kernel: KernelSpec, surf, pts_l, f_l, cap: int):
@@ -30,7 +30,7 @@ def surface_pair_plain(kernel: KernelSpec, surf, pts_l, f_l, cap: int):
         sl = slice(b0 * cap, b1 * cap)
         pts = pts_l[:, sl].reshape(3, b1 - b0, cap).permute(1, 2, 0)
         f = f_l[:, sl].reshape(k0, b1 - b0, cap).permute(1, 2, 0)
-        u = kernel.apply_pairwise(surf[None], pts, f)  # (b,ns,k1)
+        u = kernel.apply_pairwise(surf[None], pts, None, f)  # (b,ns,k1)
         out[:, :, b0:b1] = u.permute(2, 1, 0)
     return out
 
@@ -44,7 +44,7 @@ def surface_pair(kernel: KernelSpec, surf, pts_l, f_l, cap: int):
     f_l   (k0, B*cap): densities, zero in padded slots.
     -> (k1, ns, B) unscaled sums u[c, m, b] = sum_s K(surf_m - x_bs) f_bs.
     """
-    check_supported(kernel.name)
+    check_supported(kernel.name, LAPLACE_ONLY)
     if not on_cuda(surf, pts_l, f_l):
         return surface_pair_plain(kernel, surf, pts_l, f_l, cap)
     check_kernel_args("surface_pair", surf=surf, pts_l=pts_l, f_l=f_l)
@@ -79,7 +79,7 @@ def l2t_surface_plain(kernel: KernelSpec, surf, xt_l, q_cm, cap_t: int):
         sl = slice(b0 * cap_t, b1 * cap_t)
         xt = xt_l[:, sl].reshape(3, b1 - b0, cap_t).permute(1, 2, 0)
         q = q_cm[:, :, b0:b1].permute(2, 1, 0)              # (b, ns, k0)
-        u = kernel.apply_pairwise(xt, surf[None], q)  # (b,ct,k1)
+        u = kernel.apply_pairwise(xt, surf[None], None, q)  # (b,ct,k1)
         out[:, sl] = u.permute(2, 0, 1).reshape(kernel.kdim1, -1)
     return out
 
@@ -92,7 +92,7 @@ def l2t_surface(kernel: KernelSpec, surf, xt_l, q_cm, cap_t: int):
     q_cm (k0, ns, B): per-box equivalent densities, component-major.
     -> (k1, B*cap_t) unscaled potentials at the padded target slots.
     """
-    check_supported(kernel.name)
+    check_supported(kernel.name, LAPLACE_ONLY)
     if not on_cuda(surf, xt_l, q_cm):
         return l2t_surface_plain(kernel, surf, xt_l, q_cm, cap_t)
     check_kernel_args("l2t_surface", surf=surf, xt_l=xt_l, q_cm=q_cm)

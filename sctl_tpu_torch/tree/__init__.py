@@ -1,3 +1,3 @@
-from .tree import UniformTree
+from .tree import PtTree, UniformTree
 
-__all__ = ["UniformTree"]
+__all__ = ["PtTree", "UniformTree"]

@@ -73,3 +73,23 @@ def raster_index(level: int) -> np.ndarray:
     n = 1 << level
     b = box_coords(level_keys(level), level)
     return (b[:, 0] * n + b[:, 1]) * n + b[:, 2]
+
+
+def morton_children(keys: np.ndarray, level: int) -> np.ndarray:
+    """Keys of the 8 children of level-`level` boxes, (N,) -> (N, 8),
+    child c = x + 2y + 4z."""
+    shift = _U(3 * (MAX_DEPTH_3D - level - 1))
+    return keys[..., None] | (np.arange(8, dtype=np.uint64) << shift)
+
+
+def morton_neighbors(keys: np.ndarray, level: int):
+    """Keys of the 26 same-level neighbour boxes, (N, 26), and their
+    validity (False outside the unit cube)."""
+    b = box_coords(keys, level)
+    offsets = np.stack(np.meshgrid(*([[-1, 0, 1]] * 3), indexing="ij"),
+                       -1).reshape(-1, 3)
+    offsets = offsets[~np.all(offsets == 0, axis=1)]
+    nb = b[..., None, :] + offsets
+    side = 1 << level
+    valid = np.all((nb >= 0) & (nb < side), axis=-1)
+    return coords_to_key(np.clip(nb, 0, side - 1), level), valid

@@ -72,3 +72,88 @@ class UniformTree:
         nidx = (mt.coords_to_key(nb, lvl) >> np.uint64(
             3 * (mt.MAX_DEPTH_3D - lvl))).astype(np.int64)
         return np.where(valid, nidx, -1)
+
+
+class PtTree:
+    """Adaptive linear Morton octree, 2:1 balanced (counterpart of
+    sctl_tpu/tree/tree.py:118, the parts `AdaptiveFMM` reads).
+
+    offset, scale : the normalization x01 = (x - offset) / scale
+    perm, X_sorted: Morton sort of the points
+    leaf_keys, leaf_levels : sorted leaves (first-descendant keys)
+    leaf_dsp, leaf_cnt     : each leaf's range of sorted points
+    """
+
+    def __init__(self, X, offset, scale, max_pts: int,
+                 max_level: int = 12):
+        X = np.asarray(X, np.float64)
+        self.offset, self.scale = offset, scale
+        keys = mt.morton_encode((X - offset) / scale)
+        self.perm = np.argsort(keys, kind="stable")
+        self.X_sorted = X[self.perm]
+        skeys = keys[self.perm]
+        self._refine(skeys, max_pts, max_level)
+        self._balance21()
+        self.leaf_dsp = np.searchsorted(skeys, self.leaf_keys)
+        self.leaf_cnt = np.diff(np.append(self.leaf_dsp, len(skeys)))
+
+    def _refine(self, skeys, max_pts: int, max_level: int):
+        """Split every box holding more than max_pts points, level by
+        level (the loop of sctl_tpu AdaptiveFMM._refine)."""
+        D = mt.MAX_DEPTH_3D
+
+        def count(box_keys, level):
+            shift = np.uint64(3 * (D - level))
+            lo = np.searchsorted(skeys, box_keys)
+            hi = np.searchsorted(skeys, box_keys + (np.uint64(1) << shift))
+            return hi - lo
+
+        leaf_keys, leaf_levels = [], []
+        active = np.zeros(1, dtype=np.uint64)
+        level = 0
+        while len(active) and level < max_level:
+            child = mt.morton_children(active, level).reshape(-1)
+            split = count(child, level + 1) > max_pts
+            leaf_keys.append(child[~split])
+            leaf_levels.append(np.full((~split).sum(), level + 1,
+                                       dtype=np.int32))
+            active = child[split]
+            level += 1
+        if len(active):
+            leaf_keys.append(active)
+            leaf_levels.append(np.full(len(active), level, np.int32))
+        lk = np.concatenate(leaf_keys)
+        ll = np.concatenate(leaf_levels)
+        order = np.argsort(lk, kind="stable")
+        self.leaf_keys, self.leaf_levels = lk[order], ll[order]
+
+    def _balance21(self):
+        """Split any leaf more than one level coarser than an adjacent
+        leaf until none is (sctl_tpu PtTree._balance21, not periodic)."""
+        D = mt.MAX_DEPTH_3D
+        while True:
+            lk, ll = self.leaf_keys, self.leaf_levels
+            if len(lk) <= 1:
+                return
+            ends = lk + (np.uint64(1) << (np.uint64(3 * D)
+                                          - np.uint64(3)
+                                          * ll.astype(np.uint64)))
+            must_split = np.zeros(len(lk), dtype=bool)
+            for lvl in np.unique(ll):
+                nbk, valid = mt.morton_neighbors(lk[ll == lvl], int(lvl))
+                j = np.clip(np.searchsorted(lk, nbk.reshape(-1),
+                                            side="right") - 1,
+                            0, len(lk) - 1)
+                inside = (nbk.reshape(-1) < ends[j]) & valid.reshape(-1)
+                must_split[np.unique(j[inside & (ll[j] < lvl - 1)])] = True
+            if not must_split.any():
+                return
+            new_k = [lk[~must_split]]
+            new_l = [ll[~must_split]]
+            for key, lvl in zip(lk[must_split], ll[must_split]):
+                new_k.append(mt.morton_children(
+                    np.asarray([key], np.uint64), int(lvl)).reshape(-1))
+                new_l.append(np.full(8, lvl + 1, dtype=np.int32))
+            allk, alll = np.concatenate(new_k), np.concatenate(new_l)
+            order = np.argsort(allk, kind="stable")
+            self.leaf_keys, self.leaf_levels = allk[order], alll[order]

@@ -4,6 +4,8 @@ sum, and the ParticleFMM facade.  Both packages get the same inputs,
 made with numpy from fixed seeds, and (where stated) the same tables
 through `operators_from_numpy`."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,14 +99,22 @@ def test_slice_f32_matches_jax_pallas_route():
     assert rel(kf.eval(f), u_j) < 6e-4
 
 
+@functools.lru_cache(maxsize=None)
+def _cold_ops(p, dtype):
+    """The port's own cold-built tables (rcond 1e-9 in float64, 3e-5 in
+    float32), shared by the tests below."""
+    return KIFMMOperators(LAP, p, 1e-9 if dtype == torch.float64 else 3e-5,
+                          "cpu", dtype)
+
+
 def test_slice_f64_vs_direct():
     """The port's f64 KIFMM (cold tables, rcond 1e-9) against its direct
     sum; bar twice BASELINE.md rung 3 (3.6e-6)."""
     rng = np.random.default_rng(12)
     x = rng.random((2000, 3))
     f = rng.normal(size=(2000, 1))
-    kf = KIFMM(LAP, p=6, depth=3, device="cpu",
-               dtype=torch.float64).setup(x, x)
+    kf = KIFMM(LAP, p=6, depth=3, device="cpu", dtype=torch.float64,
+               operators=_cold_ops(6, torch.float64)).setup(x, x)
     X = torch.as_tensor(x)
     u_d = direct_eval_blocked(LAP, X, X, torch.as_tensor(f)).numpy()
     assert rel(kf.eval(f), u_d) < 2 * 3.6e-6
@@ -133,10 +143,67 @@ def test_particle_fmm_tree_and_direct():
 
 
 def test_unported_requests_raise():
-    stokes = KernelSpec("Stokes3D-FxU", 3, 3, 1.0, (1.0,) * 3, (0.0,) * 3)
+    """The uniform KIFMM and ParticleFMM run Laplace3D-FxU; the Stokes
+    kernels run through the adaptive FMM of the BIE path."""
+    stokes = KernelSpec("Stokes3D-FxU", 3, 3, False, 1.0, (1.0,) * 3,
+                        (0.0,) * 3)
     with pytest.raises(NotImplementedError):
         KIFMM(stokes, device="cpu")
     with pytest.raises(NotImplementedError):
         ParticleFMM(device="cpu").set_kernel_s2t("s", "t", stokes)
     with pytest.raises(NotImplementedError):
         KIFMM(LAP, device="cpu", dtype=torch.float16)
+
+
+def _depth2_case(seed, n):
+    rng = np.random.default_rng(seed)
+    return rng.random((n, 3)), rng.random((n // 2, 3)), \
+        rng.normal(size=(n, 1))
+
+
+@pytest.mark.parametrize("n", [3000, 20000])
+def test_depth2_ulist_route_matches_jax(n):
+    """Depth 2 (64 boxes, not a multiple of 128), float32: S2M and L2T
+    through the U-list kernel's plain version, and at 20,000 points
+    (about 300 a box, beyond the slab stencil's block) the near field
+    too, against the JAX KIFMM at depth 2 with use_pallas_sl=True, whose
+    S2M and L2T take pallas_p2p.p2p_ulist in interpret mode.  Bar 6e-4
+    of the maximum (tests/test_fmm.py:443)."""
+    xs, xt, f = _depth2_case(4, n)
+    jk = J_KIFMM(J_LAP, p=6, depth=2, dtype=jnp.float32,
+                 use_pallas_p2p=False, use_pallas_m2l=False,
+                 use_pallas_sl=True).setup(xs, xt)
+    assert not jk._sl_on
+    u_j = np.asarray(jk.eval(f))
+    ops = operators_from_numpy(_tables(jk._ops), "cpu", torch.float32)
+    kf = KIFMM(LAP, p=6, depth=2, device="cpu", dtype=torch.float32,
+               operators=ops).setup(xs, xt)
+    assert not kf.surface_route
+    assert kf.stencil_route == (n == 3000)
+    assert rel(kf.eval(f), u_j) < 6e-4
+
+
+def test_depth2_f64_vs_direct():
+    """The depth-2 U-list route in float64 (cold tables, rcond 1e-9)
+    against the direct sum; bar twice BASELINE.md rung 3 (3.6e-6)."""
+    xs, xt, f = _depth2_case(5, 3000)
+    kf = KIFMM(LAP, p=6, depth=2, device="cpu", dtype=torch.float64,
+               operators=_cold_ops(6, torch.float64)).setup(xs, xt)
+    assert not kf.surface_route
+    u_d = direct_eval_blocked(LAP, torch.as_tensor(xt), torch.as_tensor(xs),
+                              torch.as_tensor(f)).numpy()
+    assert rel(kf.eval(f), u_d) < 2 * 3.6e-6
+
+
+def test_depth_gate_removed():
+    """The card no longer refuses depth 2: no depth gate is left in
+    KIFMM, and the routes follow the shapes alone (the shared-surface
+    kernels at a box count that is a multiple of 128, the U-list
+    kernel below it), the same on the card as on the CPU."""
+    import sctl_tpu_torch.fmm.kifmm as kifmm_mod
+    assert not hasattr(kifmm_mod, "MIN_CUDA_DEPTH")
+    x = np.random.default_rng(6).random((2000, 3))
+    routes = {d: KIFMM(LAP, p=4, depth=d, device="cpu",
+                       operators=_cold_ops(4, torch.float32))
+              .setup(x, x).surface_route for d in (2, 3)}
+    assert routes == {2: False, 3: True}
