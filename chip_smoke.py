@@ -48,11 +48,42 @@ Phases, each printed on flushed lines with the seconds since start:
             Stokeslet at most 1e-4 (tests/test_bie.py:244) and the solve
             takes fewer than 120 iterations.
 
+6a. direct  ParticleFMM(float32) on 39,000 points from
+            numpy.random.default_rng(3), one run for each of the eight
+            kernels (unit normals for the double layers): the direct path
+            through the p2p kernel.  At 1000 sampled targets the float32
+            result against the float64 p2p on the card (bar 5e-6,
+            tests_tpu/test_p2p_accuracy.py:45), and the float64 p2p
+            against its plain version (bar 1e-12).  Then p2p against its
+            plain version for every formula in both types at 4096 x
+            39,000 (bars 1e-5 and 1e-12).
+6b. tree    ParticleFMM(float32) on 2e5 points from default_rng(4) at
+            automatic depth for Laplace3D-DxU and -FxdU and Stokes3D-DxU
+            and -FSxU: the tree path; error at 1000 sampled targets
+            against the float64 p2p (bar 2e-4).  The cold Stokes3D-FSxU
+            table build (p=6, rcond 3e-5) is timed on its own line first.
+6c. stokes  the Stokeslet, Stokes3D-FxU, at 1e7 uniform points from
+            default_rng(2), sources = targets, normal densities, p=6,
+            float32: first through ParticleFMM at its defaults (the tree
+            at about 256 points a leaf, depth 5), then through KIFMM at
+            bench_fmm's depth 6 on the same data.  For each: setup
+            seconds, the median of 3 evaluations with fresh densities,
+            per-stage CUDA-event times, one profiled evaluation, peak
+            device memory and the error at 1000 sampled targets against
+            the float64 p2p (bar 2e-4), with that oracle's time against
+            its bound.  At depth 6 also the error with the M2L sweep at
+            the exact ranks instead of the capped ones, and the level-6
+            M2L three ways (the sweep at capped and at exact ranks, the
+            blocked kernel at capped ranks): times and differences.
+            Last, the error against size and depth: 4,000 points at
+            depth 3, then 2e5 points at depths 3 to 6, from
+            default_rng(5) (bar 2e-4).
+
 Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched.  Then
 one JSON line with each kernel's numbers (launches summed over phases
-4, 4b and 5), the card's name and power limit, the run's wall time, and
-the closing JSON line.  Any failed check raises, so the script exits
+4, 4b, 5 and 6), the card's name and power limit, the run's wall time,
+and the closing JSON line.  Any failed check raises, so the script exits
 non-zero and prints no closing line.
 """
 
@@ -74,12 +105,12 @@ FMM_BAR = 2e-4
 # device memory 3.35 TB/s, f32 on the CUDA cores 67 TFLOP/s; rsqrt on
 # the special-function units 16 per SM per clock (NVIDIA's arithmetic
 # throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz.
+# f64 on the CUDA cores 34 TFLOP/s (the data sheet's FP64; its 67 is the
+# tensor cores', which a pair kernel does not use).
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 RSQRT_PER_S = 16 * 132 * 1.98e9
-# f32 operations per pair of the pair kernels: 3 differences, r2 as one
-# multiply and two FMAs, the density FMA (an FMA counts 2)
-PAIR_FLOPS = 10
 
 ROUTES = {
     "surface_pair": ("sctl_tpu_torch/csrc/surface_pair.cu",
@@ -92,8 +123,17 @@ ROUTES = {
                      "sctl_tpu/ops/pallas_p2p.py:425"),
     "p2p_ulist": ("sctl_tpu_torch/csrc/p2p_ulist.cu",
                   "sctl_tpu/ops/pallas_p2p.py:496"),
+    "p2p": ("sctl_tpu_torch/csrc/p2p_direct.cu",
+            "sctl_tpu/ops/pallas_p2p.py:555"),
 }
 PARTICLE_N = 45_000
+DIRECT_N = 39_000
+DIRECT_BAR = 5e-6
+ORACLE_BAR = 1e-12
+TREE_N = 200_000
+STOKES_N = 10_000_000
+STOKES_DEPTH_N = 200_000
+P2P_CASE = "p2p[Stokes3D-FxU,f32]"
 BIE_TOL = 1e-6
 BIE_RESID_BAR = 1.5e-6
 BIE_INTERIOR_BAR = 1e-4
@@ -105,11 +145,16 @@ def log(msg):
 
 
 def bound(work):
-    """(bound_ms, bound_by) of a kernel's counted work."""
+    """(bound_ms, bound_by) of a kernel's counted work: a pair kernel's
+    operations are the kernel's per-pair count (KernelSpec.flops) at the
+    f32 or f64 rate and, in float32, one rsqrt a pair."""
     t_bytes = work["bytes"] / HBM_BPS
     if "pairs" in work:
-        t_ops = max(work["pairs"] * work.get("pair_flops", PAIR_FLOPS)
-                    / F32_FLOPS, work["pairs"] / RSQRT_PER_S)
+        if work.get("f64"):
+            t_ops = work["pairs"] * work["pair_flops"] / F64_FLOPS
+        else:
+            t_ops = max(work["pairs"] * work["pair_flops"] / F32_FLOPS,
+                        work["pairs"] / RSQRT_PER_S)
     else:
         t_ops = work["flops"] / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
@@ -117,9 +162,9 @@ def bound(work):
 
 
 def ops_limit(work):
-    """Which operations set a pair kernel's bound: the FMA pipes or the
-    rsqrt units."""
-    fma = work["pairs"] * work.get("pair_flops", PAIR_FLOPS) / F32_FLOPS
+    """Which operations set a float32 pair kernel's bound: the FMA pipes
+    or the rsqrt units."""
+    fma = work["pairs"] * work["pair_flops"] / F32_FLOPS
     return "fma" if fma > work["pairs"] / RSQRT_PER_S else "rsqrt"
 
 
@@ -164,6 +209,7 @@ def phase_kernels(torch, kf, cases=None):
     cases = kernel_cases(kf) if cases is None else cases
     rows = {}
     for name, (run, plain, library, work) in cases.items():
+        bar = ORACLE_BAR if work.get("f64") else KERNEL_BAR
         out = run()
         torch.cuda.synchronize()
         ref = plain()
@@ -175,11 +221,11 @@ def phase_kernels(torch, kf, cases=None):
         b_ms, b_by = bound(work)
         shape = "x".join(str(s) for s in out.shape)
         log(f"kernel {name}: out {shape}, max rel err {err:.3e} "
-            f"(bar {KERNEL_BAR:g}), kernel {ms:.4f} ms, plain "
+            f"(bar {bar:g}), kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms ({b_by})")
-        if not err < KERNEL_BAR:
+        if not err < bar:
             raise SystemExit(f"chip_smoke: {name} disagrees with its "
                              f"plain version: {err:.3e}")
         rows[name] = dict(case=shape, max_abs_err=abs_err,
@@ -547,30 +593,374 @@ def phase_bie(torch, counters):
     return launches, row
 
 
+def _sample_err(u, u_ref):
+    """max |u - u_ref| / max |u_ref| of two (n, k) arrays."""
+    import numpy as np
+    return float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
+
+
+def phase_direct(torch, counters):
+    """6a: ParticleFMM's direct path for every kernel, through p2p."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import ParticleFMM
+    from sctl_tpu_torch.kernel_cases import p2p_cases
+    from sctl_tpu_torch.ops import KERNELS, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import p2p_plain
+    rng = np.random.default_rng(3)
+    x = rng.random((DIRECT_N, 3))
+    nrm = rng.normal(size=(DIRECT_N, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    idx = rng.choice(DIRECT_N, N_SAMPLE, replace=False)
+    # the float64 p2p reads the float32 run's inputs, so the two differ
+    # by the float32 arithmetic alone, not by the rounding of points a
+    # few 1e-4 apart
+    c64 = lambda a: torch.as_tensor(np.float32(a), device="cuda").double()
+    x64, n64 = c64(x), c64(nrm)
+    total = {k: 0 for k in counters}
+    for name, ker in KERNELS.items():
+        f = rng.normal(size=(DIRECT_N, ker.kdim0))
+        ns = nrm if ker.needs_normal else None
+        fmm = ParticleFMM(accuracy=P, device="cuda", dtype=torch.float32)
+        fmm.set_kernel_s2t("src", "trg", ker)
+        fmm.set_src_coord("src", x, normal=ns)
+        fmm.set_src_density("src", f)
+        fmm.set_trg_coord("trg", x)
+        reset(counters)
+        t = time.perf_counter()
+        u = fmm.eval("trg")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read(counters)
+        for k, v in launches.items():
+            total[k] += v
+        ns64 = n64 if ker.needs_normal else None
+        u64 = direct_eval_blocked(ker, x64[idx], x64, c64(f), ns=ns64)
+        u_plain = p2p_plain(ker, x64[idx], x64, ns64, c64(f)) \
+            * ker.scale_factor
+        err32 = _sample_err(u[idx], u64.cpu().numpy())
+        err64 = float((u64 - u_plain).abs().max() / u_plain.abs().max())
+        log(f"direct {name}: {DIRECT_N} points, eval {secs:.4f} s, "
+            f"float32 p2p vs float64 p2p at {N_SAMPLE} targets {err32:.3e}"
+            f" (bar {DIRECT_BAR:g}), float64 p2p vs its plain version "
+            f"{err64:.3e} (bar {ORACLE_BAR:g}); launches {launches}")
+        if not (launches["p2p"] == 1 and np.isfinite(err32)
+                and err32 < DIRECT_BAR and err64 < ORACLE_BAR):
+            raise SystemExit(f"chip_smoke: direct path of {name} failed: "
+                             f"{err32:.3e}, {err64:.3e}, {launches}")
+    crows = phase_kernels(torch, None, p2p_cases("cuda"))
+    row = dict(crows[P2P_CASE])
+    row["cases"] = {k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
+                            plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                            bound_by=v["bound_by"])
+                    for k, v in crows.items()}
+    return total, row
+
+
+def _tree_kernels_launched(kf, launches):
+    """The kernels the set-up KIFMM's routes take must have launched."""
+    need = (["surface_pair", "l2t_surface"] if kf.surface_route
+            else ["p2p_ulist"])
+    need.append("p2p_stencil9" if kf.stencil_route else "p2p_ulist")
+    if kf._ops.m2l_route == "blocked" and kf.depth >= 3:
+        need.append("m2l_grid_blocked")
+    return all(launches[k] > 0 for k in need)
+
+
+def phase_tree(torch, counters):
+    """6b: ParticleFMM's tree path for the four other tree kernels."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import ParticleFMM
+    from sctl_tpu_torch.fmm.kifmm import unit_tables
+    from sctl_tpu_torch.ops import KERNELS, direct_eval_blocked
+    t = time.perf_counter()
+    unit_tables("Stokes3D-FSxU", P, 3e-5)
+    log(f"tree: cold Stokes3D-FSxU table build (p={P}, rcond 3e-5) "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(4)
+    x = rng.random((TREE_N, 3))
+    nrm = rng.normal(size=(TREE_N, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    idx = rng.choice(TREE_N, N_SAMPLE, replace=False)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    x64, n64 = c64(x), c64(nrm)
+    total = {k: 0 for k in counters}
+    for name in ("Laplace3D-DxU", "Laplace3D-FxdU", "Stokes3D-DxU",
+                 "Stokes3D-FSxU"):
+        ker = KERNELS[name]
+        f = rng.normal(size=(TREE_N, ker.kdim0))
+        fmm = ParticleFMM(accuracy=P, device="cuda", dtype=torch.float32)
+        fmm.set_kernel_s2t("src", "trg", ker)
+        fmm.set_src_coord("src", x,
+                          normal=nrm if ker.needs_normal else None)
+        fmm.set_src_density("src", f)
+        fmm.set_trg_coord("trg", x)
+        reset(counters)
+        t = time.perf_counter()
+        u = fmm.eval("trg")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read(counters)
+        for k, v in launches.items():
+            total[k] += v
+        kf = next(iter(fmm._kifmm_cache.values()))
+        u64 = direct_eval_blocked(ker, x64[idx], x64, c64(f),
+                                  ns=n64 if ker.needs_normal else None)
+        err = _sample_err(u[idx], u64.cpu().numpy())
+        log(f"tree {name}: {TREE_N} points, depth {kf.depth}, cap_s "
+            f"{kf.cap_s}, cap_t {kf.cap_t}, routes "
+            f"{'surface' if kf.surface_route else 'ulist'}/"
+            f"{'stencil9' if kf.stencil_route else 'ulist'}/M2L "
+            f"{kf._ops.m2l_route}; setup and eval {secs:.2f} s; rel err at "
+            f"{N_SAMPLE} targets vs float64 p2p {err:.3e} (bar "
+            f"{FMM_BAR:g}); launches {launches}")
+        if not (np.isfinite(err) and err < FMM_BAR and launches["p2p"] == 0
+                and _tree_kernels_launched(kf, launches)):
+            raise SystemExit(f"chip_smoke: tree path of {name} failed: "
+                             f"{err:.3e}, {launches}")
+    return total
+
+
+def m2l_routes_at(torch, kf, lvl):
+    """The M2L of the set-up Stokes KIFMM at level `lvl` on one random
+    grid three ways: the per-parity sweep at the capped ranks (the
+    route), the sweep at the exact ranks and the blocked kernel at the
+    capped ranks -> {way: (ms, relative difference from the route)}.
+    The blocked stack is built for this and freed."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops.m2l import blocked_m2l_mats
+    ops = kf._ops
+    nd = ops.n_surf * ops.k0t
+    n = 1 << lvl
+    h = n // 2
+    r, r2 = ops.m2l_a.shape[1:]
+    cr, cr2 = ops.blk_r, ops.blk_r2
+    q = torch.randn((n, n, n, nd), device=kf.device)
+    own = ops.m2l_blk
+    ops.m2l_blk = torch.as_tensor(blocked_m2l_mats(
+        ops.ca_unit, ops.offsets, ops.parity_valid, cr, cr2),
+        dtype=torch.float32, device=kf.device)
+    runs = {f"sweep at capped ranks {cr}/{cr2}":
+            lambda: kf._m2l_parity_sweep(q, h, cr, cr2),
+            f"sweep at exact ranks {r}/{r2}":
+            lambda: kf._m2l_parity_sweep(q, h, r, r2),
+            f"blocked kernel at capped ranks {cr}/{cr2}":
+            lambda: kf._m2l_blocked(q, h)}
+    ref = next(iter(runs.values()))().reshape(-1, nd)
+    out = {}
+    for way, fn in runs.items():
+        diff = rel_max_err(fn().reshape(-1, nd), ref)
+        out[way] = (cuda_ms(torch, fn, 2), diff)
+    ops.m2l_blk = own
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stokes_evals(torch, kf, f_dev, label):
+    """Median seconds of 3 evaluations with fresh densities, each fenced
+    by synchronize, then one evaluation's stage ms from CUDA events and
+    one profiled evaluation."""
+    times = []
+    for rep in range(3):
+        f2 = f_dev * (1.0 + 1e-6 * (rep + 1))      # fresh densities
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kf.eval_tensor(f2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    med = sorted(times)[1]
+    log(f"{label}: KIFMM.eval_tensor s {['%.4f' % s for s in times]}, "
+        f"median {med:.4f} s, {STOKES_N / med / 1e6:.2f} Mpts/s")
+    fp, fo = kf.pad_density(f_dev)
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    kf._eval_impl(fp, fo, marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    log(f"{label}: stage ms " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in stages.items()))
+    profile_eval(torch, kf, fp, fo, med)
+    return med
+
+
+def _describe(kf):
+    return (f"depth {kf.depth}, boxes {kf.src_tree.n_boxes}, cap_s "
+            f"{kf.cap_s}, cap_t {kf.cap_t}, overflow sources {kf.n_ovf_s}"
+            f" targets {kf.n_ovf_t}, routes "
+            f"{'surface' if kf.surface_route else 'ulist'}/"
+            f"{'stencil9' if kf.stencil_route else 'ulist'}/M2L "
+            f"{kf._ops.m2l_route} at ranks {kf._ops.blk_r}/"
+            f"{kf._ops.blk_r2}")
+
+
+def stokes_depths(torch, ops):
+    """The Stokeslet's error against size and depth: 4,000 points at
+    depth 3 (the JAX package's CPU measurement's shape), then
+    STOKES_DEPTH_N points at depths 3 to 6, from default_rng(5), each
+    against the float64 p2p at up to 1000 sampled targets."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.ops import Stokes3D_FxU, direct_eval_blocked
+    rng = np.random.default_rng(5)
+    c64 = lambda a: torch.as_tensor(a, device="cuda")
+    for n, depths in ((4000, (3,)),
+                      (STOKES_DEPTH_N, range(3, DEPTH + 1))):
+        x = rng.random((n, 3))
+        f = rng.normal(size=(n, 3))
+        idx = rng.choice(n, N_SAMPLE, replace=False)
+        u_ref = direct_eval_blocked(Stokes3D_FxU, c64(x[idx]), c64(x),
+                                    c64(f)).cpu().numpy()
+        for depth in depths:
+            kf = KIFMM(Stokes3D_FxU, p=P, depth=depth, device="cuda",
+                       dtype=torch.float32, operators=ops).setup(x, x)
+            err = _sample_err(kf.eval(f)[idx], u_ref)
+            log(f"stokes depths: {n} points, depth {depth} ({kf.cap_s} "
+                f"source slots a box), rel err at {N_SAMPLE} sampled "
+                f"targets vs float64 p2p {err:.3e} (bar {FMM_BAR:g})")
+            if not np.isfinite(err) or not err < FMM_BAR:
+                raise SystemExit(f"chip_smoke: Stokes KIFMM at {n} points"
+                                 f", depth {depth}: error {err:.3e}")
+            del kf
+            torch.cuda.empty_cache()
+
+
+def phase_stokes(torch, counters):
+    """6c: the Stokeslet at 1e7 points through ParticleFMM at its
+    defaults, then KIFMM at bench_fmm's depth 6 on the same data."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
+    from sctl_tpu_torch.kernel_cases import p2p_work
+    from sctl_tpu_torch.ops import Stokes3D_FxU, direct_eval_blocked
+    rng = np.random.default_rng(2)
+    x = rng.random((STOKES_N, 3))
+    f = rng.normal(size=(STOKES_N, 3))
+    idx = rng.choice(STOKES_N, N_SAMPLE, replace=False)
+    x64 = torch.as_tensor(x, device="cuda")
+    f64 = torch.as_tensor(f, device="cuda")
+    oracle = lambda: direct_eval_blocked(Stokes3D_FxU, x64[idx], x64, f64)
+    u_ref = oracle().cpu().numpy()
+    oracle_ms = cuda_ms(torch, oracle, 3)
+    work = p2p_work(Stokes3D_FxU, torch.float64, N_SAMPLE, STOKES_N)
+    b_ms, b_by = bound(work)
+    log(f"stokes: the float64 p2p oracle ({N_SAMPLE} x {STOKES_N}) "
+        f"{oracle_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    del x64, f64
+    f_dev = torch.as_tensor(f, dtype=torch.float32, device="cuda")
+
+    def check(label, kf, u, launches):
+        err = _sample_err(u[idx], u_ref)
+        log(f"{label}: rel err at {N_SAMPLE} sampled targets vs float64 "
+            f"p2p {err:.3e} (bar {FMM_BAR:g}); launches {launches}")
+        if not np.isfinite(err) or not err < FMM_BAR:
+            raise SystemExit(f"chip_smoke: {label} error {err:.3e}")
+        if launches["p2p"] or not _tree_kernels_launched(kf, launches):
+            raise SystemExit(f"chip_smoke: {label}: a kernel of the path "
+                             f"was not launched: {launches}")
+        return err
+
+    # the facade at its defaults, as a user calls it
+    fmm = ParticleFMM(accuracy=P, device="cuda", dtype=torch.float32)
+    fmm.set_kernel_s2t("src", "trg", Stokes3D_FxU)
+    fmm.set_src_coord("src", x)
+    fmm.set_src_density("src", f)
+    fmm.set_trg_coord("trg", x)
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t = time.perf_counter()
+    kf = fmm._get_kifmm(Stokes3D_FxU, x, fmm.src["src"], "src", "trg")
+    torch.cuda.synchronize()
+    log(f"stokes facade setup: {time.perf_counter() - t:.2f} s "
+        f"({_describe(kf)})")
+    t = time.perf_counter()
+    u = fmm.eval("trg")
+    log(f"stokes facade: ParticleFMM.eval {time.perf_counter() - t:.4f} s"
+        f" (host arrays in and out)")
+    _stokes_evals(torch, kf, f_dev, "stokes facade")
+    launches = read(counters)
+    log(f"stokes facade: peak device memory of setup and evaluations "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check("stokes facade", kf, u, launches)
+    ops = kf._ops
+    del fmm, kf, u
+    torch.cuda.empty_cache()
+
+    # bench_fmm's shape, depth 6, through KIFMM directly
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t = time.perf_counter()
+    kf = KIFMM(Stokes3D_FxU, p=P, depth=DEPTH, device="cuda",
+               dtype=torch.float32, operators=ops).setup(x, x)
+    torch.cuda.synchronize()
+    log(f"stokes depth {DEPTH} setup: {time.perf_counter() - t:.2f} s "
+        f"({_describe(kf)})")
+    u = kf.eval_tensor(f_dev).cpu().numpy()
+    _stokes_evals(torch, kf, f_dev, f"stokes depth {DEPTH}")
+    l6 = read(counters)
+    log(f"stokes depth {DEPTH}: peak device memory of setup and "
+        f"evaluations {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        "GiB")
+    check(f"stokes depth {DEPTH}", kf, u, l6)
+    for k, v in l6.items():
+        launches[k] += v
+    # the same evaluation with the sweep at the exact ranks
+    caps = ops.blk_r, ops.blk_r2
+    ops.blk_r, ops.blk_r2 = ops.m2l_a.shape[1:]
+    u_exact = kf.eval_tensor(f_dev).cpu().numpy()
+    log(f"stokes depth {DEPTH}: with the M2L sweep at the exact ranks "
+        f"{ops.blk_r}/{ops.blk_r2} rel err "
+        f"{_sample_err(u_exact[idx], u_ref):.3e}")
+    ops.blk_r, ops.blk_r2 = caps
+    for way, (ms, diff) in m2l_routes_at(torch, kf, DEPTH).items():
+        log(f"stokes: M2L at level {DEPTH}, {way}: {ms:.3f} ms, relative "
+            f"difference from the route {diff:.3e}")
+    del kf
+    torch.cuda.empty_cache()
+    stokes_depths(torch, ops)
+    return launches, dict(main_path_ms=oracle_ms, main_path_bound_ms=b_ms,
+                          main_path_bound_by=b_by)
+
+
 def main():
     import torch
     smi = phase_device(torch)
     phase_build()
     from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
-    from sctl_tpu_torch.ops.p2p import p2p_stencil9, p2p_ulist
+    from sctl_tpu_torch.ops.p2p import p2p, p2p_stencil9, p2p_ulist
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     from sctl_tpu_torch.config import set_precision
+    from sctl_tpu_torch.kernel_cases import formula_cases
     set_precision()
     counters = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
                 "m2l_grid_blocked": m2l_grid_blocked,
                 "p2p_stencil9": p2p_stencil9}
-    all_counters = dict(counters, p2p_ulist=p2p_ulist)
+    all_counters = dict(counters, p2p_ulist=p2p_ulist, p2p=p2p)
     kf, xs, f, rng = phase_setup(torch)
     rows = phase_kernels(torch, kf)
+    frows = phase_kernels(torch, kf, formula_cases(kf))
+    for name in counters:
+        rows[name]["cases"] = {
+            k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
+                    plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+            for k, v in frows.items() if k.startswith(name + "[")}
     main_rows = phase_main(torch, kf, xs, f, rng, counters)
     del kf, xs, f
     torch.cuda.empty_cache()
     l4b = phase_particle(torch, all_counters)
     l5, rows["p2p_ulist"] = phase_bie(torch, all_counters)
     main_rows["p2p_ulist"] = dict(rows["p2p_ulist"], launches=0)
+    torch.cuda.empty_cache()
+    l6a, rows["p2p"] = phase_direct(torch, all_counters)
+    l6b = phase_tree(torch, all_counters)
+    l6c, main_rows["p2p"] = phase_stokes(torch, all_counters)
+    main_rows["p2p"]["launches"] = 0
     for name in ROUTES:
-        main_rows[name]["launches"] += l4b[name] + l5[name]
-    log("kernels: launches over phases 4, 4b and 5: " + ", ".join(
+        main_rows[name]["launches"] += sum(
+            lc.get(name, 0) for lc in (l4b, l5, l6a, l6b, l6c))
+    log("kernels: launches over phases 4, 4b, 5 and 6: " + ", ".join(
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
         raise SystemExit("chip_smoke: a kernel was never launched")

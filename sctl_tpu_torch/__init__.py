@@ -5,8 +5,10 @@ layer, direct sums, the uniform Morton tree, the KIFMM operators,
 setup and evaluation, and the `ParticleFMM` facade.  The second holds
 the Stokes BIE solve: the Stokes kernels, the adaptive-tree FMM, the
 patch geometry and device near quadrature, the boundary integral
-operator and GMRES.  The five TPU kernels on these paths are
-hand-written CUDA under `csrc/`.
+operator and GMRES.  The third holds `ParticleFMM` over all eight
+kernels: the direct sum and the uniform KIFMM for the six kernels with
+a tree path.  The six TPU kernels on these paths are hand-written CUDA
+under `csrc/`.
 """
 
 from .config import set_precision

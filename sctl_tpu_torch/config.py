@@ -33,3 +33,15 @@ def resolve_device(device) -> torch.device:
             "no CUDA device: pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
     return dev
+
+
+def limit_cpu_threads(n: int = 2) -> None:
+    """Cap the process's CPU thread pools at n: torch's intra-op threads
+    and, through threadpoolctl, the BLAS and OpenMP pools (numpy's BLAS
+    runs the operator tables' SVDs).  Each starts one thread a core; a
+    process that shares the host's cores with others (a test run in
+    several worker processes) oversubscribes them.  CUDA work is not
+    affected."""
+    from threadpoolctl import threadpool_limits
+    torch.set_num_threads(min(n, torch.get_num_threads()))
+    threadpool_limits(n)

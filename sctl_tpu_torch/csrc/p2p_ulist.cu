@@ -5,15 +5,17 @@
 //   out[g, t, :] = sum_{s < S} K(xt[g, :, t] - xs[g, :, s]) f[g, :, s]
 // over the box's gathered source slots (zero density in padding, so
 // padded slots add nothing); r2 = 0 is masked; unscaled.  The kernel
-// formula is a template parameter: Laplace3D-FxU, Stokes3D-DxU (reads
-// source normals) and Stokes3D-FSxU.
+// formula is a template parameter (ukernels.cuh): the six kernels with
+// a tree path (the uniform KIFMM's S2M, L2T and near field below the
+// shared-surface and slab kernels' widths) and the BIE's Stokes3D-DxU
+// and -FSxU; the double layers read the source normals.
 //
-// Bound on the H100: the f32 operations of the pairs.  The BIE far
-// field's U list (G = 3,536 leaves, T = 64, S = 10,752 slots, Stokes
-// DxU) is about 2.4e9 padded pair slots per operator apply, each about
-// 30 f32 flops and one rsqrt: the FMA pipes (67 TFLOP/s) bound it
-// before the special-function units (16 rsqrt per SM per clock) or the
-// bytes (10 floats per source slot, read once per 64 targets).
+// Bound on the H100: the bytes of the real slots.  The BIE far field's
+// U list (G = 3,536 leaves, T = 64, S = 10,752 slots, Stokes DxU) is
+// about 2.4e9 padded pair slots per operator apply for 4.2e7 needed
+// pairs; counted on the needed pairs and the real slots' bytes, the
+// bytes bound it (PERF.md §6), and the padding is what the kernel
+// spends its time on.
 //
 // Design: one block of 256 threads per (box, 64 targets).  The block
 // stages 256 source slots at a time in shared memory (coordinates,
@@ -24,6 +26,7 @@
 // the end.  Per-pair differences, not moment expansions, keep float32
 // exact to the pair's scale.
 #include "common.cuh"
+#include "ukernels.cuh"
 
 namespace {
 
@@ -32,20 +35,14 @@ constexpr int kThreads = 256;
 constexpr int kSplit = kThreads / kTB;
 constexpr int kTS = 256;          // source slots per shared tile
 
-enum { kLapFxU = 0, kStkDxU = 1, kStkFSxU = 2 };
-
-template <int KER> struct Dims;
-template <> struct Dims<kLapFxU> { static constexpr int k0 = 1, k1 = 1; };
-template <> struct Dims<kStkDxU> { static constexpr int k0 = 3, k1 = 3; };
-template <> struct Dims<kStkFSxU> { static constexpr int k0 = 4, k1 = 3; };
-
 template <int KER>
 __global__ void __launch_bounds__(kThreads)
 p2p_ulist_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
                  const float* __restrict__ ns, const float* __restrict__ f,
                  float* __restrict__ out, int T, int S) {
-  constexpr int K0 = Dims<KER>::k0, K1 = Dims<KER>::k1;
-  constexpr bool kNormals = KER == kStkDxU;
+  using D = sctl::Dims<KER>;
+  constexpr int K0 = D::k0, K1 = D::k1;
+  constexpr bool kNormals = D::nrm;
   __shared__ float sx[3][kTS];
   __shared__ float sn[kNormals ? 3 : 1][kTS];
   __shared__ float sf[K0][kTS];
@@ -82,28 +79,15 @@ p2p_ulist_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
     }
     __syncthreads();
     for (int i = part; i < kTS; i += kSplit) {
-      const float dx = x - sx[0][i], dy = y - sx[1][i], dz = z - sx[2][i];
-      const float rinv = rinv_masked(dx * dx + dy * dy + dz * dz);
-      if constexpr (KER == kLapFxU) {
-        acc[0] += sf[0][i] * rinv;
-      } else {
-        const float rinv2 = rinv * rinv;
-        const float rdotf = dx * sf[0][i] + dy * sf[1][i] + dz * sf[2][i];
-        float w;
-        if constexpr (KER == kStkDxU) {
-          const float rdotn = dx * sn[0][i] + dy * sn[1][i] + dz * sn[2][i];
-          w = rdotf * rdotn * (rinv2 * rinv2 * rinv);
-        } else {
-          const float rinv3 = rinv2 * rinv;
-          w = (rdotf + sf[3][i]) * rinv3;
-          acc[0] += sf[0][i] * rinv;
-          acc[1] += sf[1][i] * rinv;
-          acc[2] += sf[2][i] * rinv;
-        }
-        acc[0] += dx * w;
-        acc[1] += dy * w;
-        acc[2] += dz * w;
+      float fv[K0], nv[3];
+#pragma unroll
+      for (int c = 0; c < K0; ++c) fv[c] = sf[c][i];
+      if constexpr (kNormals) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) nv[c] = sn[c][i];
       }
+      sctl::uker_acc<KER>(x - sx[0][i], y - sx[1][i], z - sx[2][i], fv, nv,
+                          acc);
     }
   }
   if (part > 0) {
@@ -123,29 +107,29 @@ p2p_ulist_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
 }
 
 template <int KER>
-int launch(const float* xt, const float* xs, const float* ns, const float* f,
-           float* out, int G, int T, int S, cudaStream_t stream) {
-  dim3 grid(G, (T + kTB - 1) / kTB);
-  p2p_ulist_kernel<KER><<<grid, kThreads, 0, stream>>>(xt, xs, ns, f, out,
-                                                       T, S);
-  return (int)cudaGetLastError();
-}
+struct Launch {
+  static int run(const float* xt, const float* xs, const float* ns,
+                 const float* f, float* out, int G, int T, int S,
+                 cudaStream_t stream) {
+    dim3 grid(G, (T + kTB - 1) / kTB);
+    p2p_ulist_kernel<KER><<<grid, kThreads, 0, stream>>>(xt, xs, ns, f, out,
+                                                         T, S);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
-// xt (G, 3, T), xs (G, 3, S), ns (G, 3, S) (Stokes DxU only, else
-// null), f (G, k0, S), out (G, T, k1); float32.  ker: 0 Laplace3D-FxU,
-// 1 Stokes3D-DxU, 2 Stokes3D-FSxU.
+// xt (G, 3, T), xs (G, 3, S), ns (G, 3, S) (double layers only, else
+// null), f (G, k0, S), out (G, T, k1); float32.  ker: the formula index
+// of ukernels.cuh, one of the six kernels with a tree path.
 SCTL_API int sctl_p2p_ulist(const float* xt, const float* xs,
                             const float* ns, const float* f, float* out,
                             int ker, int G, int T, int S,
                             cudaStream_t stream) {
+  using namespace sctl;
   if (G == 0) return 0;
-  switch (ker) {
-    case kLapFxU: return launch<kLapFxU>(xt, xs, ns, f, out, G, T, S, stream);
-    case kStkDxU: return launch<kStkDxU>(xt, xs, ns, f, out, G, T, S, stream);
-    case kStkFSxU:
-      return launch<kStkFSxU>(xt, xs, ns, f, out, G, T, S, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
+                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, out, G, T,
+                                             S, stream);
 }

@@ -1,9 +1,13 @@
 """ParticleFMM facade, single device (counterpart of
 sctl_tpu/fmm/fmm.py:30-185).
 
-Named source and target groups with a source-to-target kernel per pair;
-`eval` runs the uniform-tree KIFMM at or above DIRECT_CUTOFF points and
-the blocked direct sum below it; `eval_direct` is the direct-sum oracle.
+Named source and target groups with a source-to-target kernel per pair.
+`eval` runs the uniform-tree KIFMM for the six kernels with a tree path
+(`_TREE_L2T`) when the target's source groups hold at least
+DIRECT_CUTOFF points together, and the direct sum otherwise (below the
+cutoff, and always for Stokes3D-FxT and Stokes3D-FxUP); `eval_direct`
+is the direct-sum oracle.  On the card the direct sum runs the
+hand-written `p2p` kernel (ops/direct.py).
 """
 
 from __future__ import annotations
@@ -15,35 +19,47 @@ import torch
 
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
-from ..ops.kernels import KernelSpec, Laplace3D_FxU, Stokes3D_FSxU
-from ..ops.uker import LAPLACE_ONLY, check_supported
+from ..ops.kernels import (KernelSpec, Laplace3D_FxdU, Laplace3D_FxU,
+                           Stokes3D_FSxU)
+from ..ops.uker import check_supported
 from .kifmm import KIFMM
 
 DIRECT_CUTOFF = 40_000   # below this, direct evaluation
 
 # kernels with a tree path and their L2T companion (sctl_tpu/fmm/fmm.py:
-# 35-42, the entries of the ported kernels)
+# 35-42)
 _TREE_L2T = {
     "Laplace3D-FxU": Laplace3D_FxU,
+    "Laplace3D-DxU": Laplace3D_FxU,
+    "Laplace3D-FxdU": Laplace3D_FxdU,
     "Stokes3D-FxU": Stokes3D_FSxU,
     "Stokes3D-DxU": Stokes3D_FSxU,
     "Stokes3D-FSxU": Stokes3D_FSxU,
 }
 
 
+def fmm_order(accuracy: int) -> int:
+    """The KIFMM order p for `accuracy` digits (sctl_tpu/fmm/fmm.py:175)."""
+    return max(4, min(10, accuracy))
+
+
 class _Group:
     def __init__(self):
         self.coord = None
+        self.normal = None
         self.density = None
 
 
 class ParticleFMM:
     """fmm = ParticleFMM(accuracy=6, device="cuda", dtype=torch.float32)
-    fmm.set_kernel_s2t("src", "trg", Laplace3D_FxU)
-    fmm.set_src_coord("src", X); fmm.set_src_density("src", F)
+    fmm.set_kernel_s2t("src", "trg", Stokes3D_DxU)
+    fmm.set_src_coord("src", X, normal=N); fmm.set_src_density("src", F)
     fmm.set_trg_coord("trg", Xt)
     U = fmm.eval("trg")          # tree FMM, or direct below the cutoff
     U = fmm.eval_direct("trg")   # O(N^2) oracle
+
+    The tree's depth is KIFMM's default, about 256 points a leaf (depth
+    5 at 1e7 points), as the JAX package's facade leaves it.
     """
 
     def __init__(self, accuracy: int = 6, device=None,
@@ -56,28 +72,43 @@ class ParticleFMM:
         self.s2t_kernels: Dict[tuple, KernelSpec] = {}
         self._kifmm_cache: Dict[tuple, KIFMM] = {}
 
+    # -- configuration (sctl_tpu/fmm/fmm.py:72-98) -------------------------
+    def set_accuracy(self, digits: int):
+        self.accuracy = digits
+        self._kifmm_cache.clear()
+
+    def add_src(self, name: str):
+        self.src.setdefault(name, _Group())
+
+    def add_trg(self, name: str):
+        self.trg.setdefault(name, _Group())
+
     def set_kernel_s2t(self, src: str, trg: str, kernel: KernelSpec):
-        check_supported(kernel.name, LAPLACE_ONLY)
-        self.src.setdefault(src, _Group())
-        self.trg.setdefault(trg, _Group())
+        check_supported(kernel.name)
+        self.add_src(src)
+        self.add_trg(trg)
         self.s2t_kernels[(src, trg)] = kernel
 
-    def set_src_coord(self, name: str, X):
-        self.src.setdefault(name, _Group()).coord = np.asarray(
-            X, np.float64)
+    def set_src_coord(self, name: str, X, normal=None):
+        self.add_src(name)
+        self.src[name].coord = np.asarray(X, np.float64)
+        if normal is not None:
+            self.src[name].normal = np.asarray(normal, np.float64)
         self._kifmm_cache.clear()
 
     def set_src_density(self, name: str, F):
-        self.src.setdefault(name, _Group()).density = np.asarray(
-            F, np.float64)
+        self.add_src(name)
+        self.src[name].density = np.asarray(F, np.float64)
 
     def set_trg_coord(self, name: str, X):
-        self.trg.setdefault(name, _Group()).coord = np.asarray(
-            X, np.float64)
+        self.add_trg(name)
+        self.trg[name].coord = np.asarray(X, np.float64)
         self._kifmm_cache.clear()
 
+    # -- evaluation --------------------------------------------------------
     def eval(self, trg_name: str) -> np.ndarray:
-        """Fast evaluation into target group `trg_name`."""
+        """Fast evaluation into target group `trg_name`, summed over its
+        source groups."""
         xt = self.trg[trg_name].coord
         total = sum(len(self.src[s].coord)
                     for (s, t) in self.s2t_kernels if t == trg_name)
@@ -86,7 +117,7 @@ class ParticleFMM:
             if t != trg_name:
                 continue
             g = self.src[s]
-            if total < DIRECT_CUTOFF:
+            if total < DIRECT_CUTOFF or ker.name not in _TREE_L2T:
                 us = self._direct_pair(ker, xt, g)
             else:
                 us = self._get_kifmm(ker, xt, g, s, t).eval(g.density)
@@ -106,14 +137,15 @@ class ParticleFMM:
     def _direct_pair(self, ker, xt, g) -> np.ndarray:
         as_t = lambda a: torch.as_tensor(a, device=self.device,
                                          dtype=self.dtype)
-        return direct_eval_blocked(ker, as_t(xt), as_t(g.coord),
-                                   as_t(g.density)).cpu().numpy()
+        return direct_eval_blocked(
+            ker, as_t(xt), as_t(g.coord), as_t(g.density),
+            ns=None if g.normal is None else as_t(g.normal)).cpu().numpy()
 
     def _get_kifmm(self, ker, xt, g, s_name, t_name) -> KIFMM:
         key = (ker.name, s_name, t_name)
         if key not in self._kifmm_cache:
-            p = max(4, min(10, self.accuracy))
             self._kifmm_cache[key] = KIFMM(
-                ker, p=p, device=self.device, dtype=self.dtype).setup(
-                g.coord, xt)
+                ker, p=fmm_order(self.accuracy), device=self.device,
+                dtype=self.dtype, ker_l2t=_TREE_L2T[ker.name]).setup(
+                g.coord, xt, n_src=g.normal)
         return self._kifmm_cache[key]

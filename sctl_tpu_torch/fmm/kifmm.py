@@ -1,37 +1,44 @@
 """Kernel-independent FMM on a uniform Morton tree, in PyTorch
-(counterpart of sctl_tpu/fmm/kifmm.py).
+(counterpart of sctl_tpu/fmm/kifmm.py), for the six kernels with a
+tree path: Laplace3D-FxU, -DxU and -FxdU translate with Laplace3D-FxU,
+Stokes3D-FxU, -DxU and -FSxU with Stokes3D-FSxU (`kernel_roles`).
 
 The evaluation follows the JAX package's TPU route stage by stage:
 
   S2M  shared-surface check potentials (ops/sl.py `surface_pair`),
        then q_up = uc2e q_check
   M2M  one concatenated matrix product per level
-  M2L  levels >= 3: sibling-blocked V list on the parent grid
-       (ops/m2l.py `m2l_grid_blocked`); level 2: the per-parity sweep
-       in plain torch, as the JAX package runs it outside Pallas
+  M2L  Laplace, levels >= 3: sibling-blocked V list on the parent
+       grid (ops/m2l.py `m2l_grid_blocked`); Laplace level 2 and every
+       Stokes level: the per-parity sweep as batched matrix products,
+       as the JAX package's scan runs it outside Pallas (`m2l_route`)
   L2L  one concatenated matrix product per level
   L2T  shared-surface evaluation at the leaf targets (ops/sl.py
        `l2t_surface`)
   P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`)
 
 The shared-surface kernels need a box count that is a multiple of 128
-(depth >= 3); below it S2M and L2T go through the per-box U-list kernel
+(depth >= 3) and box capacities their shared memory holds (a few
+hundred points a leaf, fewer for the double layers); otherwise S2M and
+L2T go through the per-box U-list kernel
 (ops/p2p.py `p2p_ulist`), as the JAX package does
 (sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The near field takes
 the U-list kernel too, over each box's 27 neighbours, when the
 stencil kernel's block cannot hold the box capacities (more than 256
-target slots or a slab group over 2,400 slots: a few hundred points a
-leaf).
+target slots, or a slab window over the shared memory: a few hundred
+points a leaf, fewer for the kernels with more values a slot).
 
 Box capacities are quantiles of the box counts; the points beyond them
 travel in overflow sidebands evaluated in plain torch.  Tensors on the
 card go through the CUDA kernels, tensors on the CPU through their
 plain versions.  The operator tables are built cold on the host in
-float64 at every setup (no disk cache).
+float64, once per process for each (translation kernel, p, rcond)
+(`unit_tables`; no disk cache).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -40,12 +47,14 @@ import torch.nn.functional as F
 
 from ..config import resolve_device
 from ..ops._launch_checks import CHUNK_PAIRS
-from ..ops.kernels import KernelSpec, Laplace3D_FxU, Stokes3D_FSxU
+from ..ops.kernels import (KERNELS, KernelSpec, Laplace3D_FxdU,
+                           Laplace3D_FxU, Stokes3D_FSxU)
 from ..ops.kernels_np import full_matrix_np
 from ..ops.m2l import blocked_m2l_mats, m2l_grid_blocked
 from ..ops.p2p import p2p_stencil9, p2p_ulist, stencil9_fits, to_slab
-from ..ops.sl import l2t_surface, surface_pair
-from ..ops.uker import LAPLACE_ONLY, check_supported
+from ..ops.sl import (l2t_surface, l2t_surface_fits, surface_pair,
+                      surface_pair_fits)
+from ..ops.uker import TREE_KERNELS, check_supported
 from ..tree import morton as mt
 from ..tree.tree import UniformTree
 
@@ -57,16 +66,19 @@ RAD_OUT = 2.95  # upward-check / downward-equivalent surface
 def kernel_roles(ker_s2t: KernelSpec, ker_l2t: Optional[KernelSpec] = None,
                  ker_s2m: Optional[KernelSpec] = None):
     """(ker_trans, ker_l2t, ker_s2m) for a source-to-target kernel, the
-    deduction of sctl_tpu/fmm/kifmm.py:619-665: a Stokes kernel
-    translates with Stokes3D-FSxU (Stokeslet plus source, k0 = 4 ->
-    k1 = 3), which also serves L2T; Laplace3D-FxU translates with
-    itself.  S2M uses ker_s2t unless given."""
-    check_supported(ker_s2t.name)
+    split of sctl_tpu/fmm/kifmm.py:619-665: a Stokes kernel translates
+    with Stokes3D-FSxU (Stokeslet plus source, k0 = 4 -> k1 = 3), which
+    also serves L2T; a Laplace kernel translates with Laplace3D-FxU,
+    and Laplace3D-FxdU evaluates S2M with its potential sibling
+    Laplace3D-FxU and L2T with itself.  Otherwise S2M uses ker_s2t."""
+    check_supported(ker_s2t.name, TREE_KERNELS)
+    fxdu = ker_s2t.name == Laplace3D_FxdU.name
     if ker_s2t.name.startswith("Stokes"):
         trans, l2t = Stokes3D_FSxU, ker_l2t or Stokes3D_FSxU
     else:
-        trans, l2t = Laplace3D_FxU, ker_l2t or Laplace3D_FxU
-    s2m = ker_s2m or ker_s2t
+        trans = Laplace3D_FxU
+        l2t = ker_l2t or (Laplace3D_FxdU if fxdu else Laplace3D_FxU)
+    s2m = ker_s2m or (Laplace3D_FxU if fxdu else ker_s2t)
     if s2m.kdim0 != ker_s2t.kdim0 or s2m.kdim1 != trans.kdim1:
         raise ValueError(f"ker_s2m {s2m.name} does not fit ker_s2t "
                          f"{ker_s2t.name} and ker_trans {trans.name}")
@@ -156,7 +168,19 @@ class KIFMMOperators:
     kernel (Laplace) the M2M, L2L and M2L tables are the same at every
     level, and only uc2e and the surfaces scale (done per tree in
     `KIFMM.setup`).  Translations with Stokes3D-FSxU carry k0t = 4
-    equivalent and k1t = 3 check values per surface point."""
+    equivalent and k1t = 3 check values per surface point.
+
+    M2L route (`m2l_route`), keyed on the translation kernel:
+    Laplace runs the sibling-blocked kernel `m2l_grid_blocked` at
+    levels >= 3, and builds its stack; Stokes runs the per-parity sweep
+    at every level as batched matrix products, and builds no stack.
+    Both run the route's ranks (`_rank_caps`).  What was timed on an
+    H100 (PERF.md §6, chip_smoke.py phases 4 and 6c): Laplace at p=6,
+    float32; for Stokes only level 6 at p=6, float32, where the sweep
+    beat the blocked kernel.  Other orders, levels and float64 are
+    untimed; the JAX package's gates (stack sizes against the TPU's
+    on-chip memory) send Laplace p=8 to `m2l_grid`, which the port
+    does not have yet."""
 
     TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
               "cb_unit", "cc_unit", "vb_unit", "ca_unit")
@@ -174,13 +198,22 @@ class KIFMMOperators:
         self.n_surf = len(self.surf)
         self.offsets, self.parity_valid = _vlist_offsets()
         if tables is None:
-            self._build_unit(ker_trans, self.surf, rcond)
-            self._compress_m2l_unit()
-        else:
-            for name in self.TABLES:
-                setattr(self, name, np.asarray(tables[name], np.float64))
-        if ker_trans.name in LAPLACE_ONLY:
-            self._to_device(torch.device(device), dtype)
+            tables = unit_tables(ker_trans.name, p, rcond)
+        for name in self.TABLES:
+            setattr(self, name, np.asarray(tables[name], np.float64))
+        self.m2l_route = ("blocked" if ker_trans.name == Laplace3D_FxU.name
+                          else "parity")
+        self.device, self.dtype = torch.device(device), dtype
+        self._rank_caps(dtype)
+        self._on_device = False
+
+    def device_tables(self) -> "KIFMMOperators":
+        """Cast the tables the uniform KIFMM reads to the device and
+        dtype, once (the adaptive FMM reads only the host tables)."""
+        if not self._on_device:
+            self._to_device(self.device, self.dtype)
+            self._on_device = True
+        return self
 
     def level_tables(self, depth: int, scale: float) -> dict:
         """Host float64 operators of levels 0..depth of a tree whose
@@ -268,19 +301,16 @@ class KIFMMOperators:
                                  optimize=True)
         self.m2l_unit = None          # build input only
 
-    def _to_device(self, device, dtype):
-        ns = self.n_surf
-        t = lambda a: _tensor(a, device, dtype)
-        self.m2m_cat = t(np.transpose(self.m2m_unit, (0, 2, 1)).reshape(
-            8 * ns, ns))
-        self.l2l_cat = t(np.transpose(self.l2l_unit, (2, 0, 1)).reshape(
-            ns, 8 * ns))
-        self.m2l_u = t(self.cb_unit)                  # (ns, r)
-        self.m2l_v = t(self.vb_unit)                  # (ns, r2)
-        self.m2l_a = t(self.ca_unit)                  # (316, r, r2)
-        # Rank caps of the f32 route (kifmm.py:423-435): the smallest
-        # 128-multiples whose dropped Frobenius tail of the compressed
-        # family stays below max(rcond^2, 1e-5) of its mass.
+    def _rank_caps(self, dtype):
+        """Rank caps of the f32 route (sctl_tpu/fmm/kifmm.py:423-435):
+        the smallest 128-multiples whose dropped Frobenius tail of the
+        compressed family stays below max(rcond^2, 1e-5) of its mass.
+        float32 runs the capped ranks, as the JAX package's Pallas
+        routes do, on both M2L routes.  The JAX package's Stokes scan
+        keeps the exact ranks; at the 1e7-point Stokeslet on an H100
+        the caps (248/512 of 248/608) gave the exact ranks' error,
+        1.039e-4, in 18% less level-6 M2L time (PERF.md §6).  float64
+        keeps the exact ranks of the JAX package's scan route."""
         ca = self.ca_unit
         cap_tol2 = max(self.rcond ** 2, 1e-5)
 
@@ -293,17 +323,26 @@ class KIFMMOperators:
             return int(min(c, len(nrm2)))
 
         self.m2l_cap_r, self.m2l_cap_r2 = _cap(1), _cap(2)
-        # float32 runs the capped ranks, as the JAX package's Pallas
-        # route does; float64 keeps the exact ranks of its scan route.
         if dtype == torch.float32:
             self.blk_r, self.blk_r2 = self.m2l_cap_r, self.m2l_cap_r2
         else:
             self.blk_r, self.blk_r2 = ca.shape[1], ca.shape[2]
-        self.m2l_blk = t(blocked_m2l_mats(ca, self.offsets,
-                                          self.parity_valid, self.blk_r,
-                                          self.blk_r2))
-        # level-2 per-parity sweep tables: for child parity c
-        # (4x + 2y + z) its 189 offsets d, c + d = 2 eb + ep
+
+    def _to_device(self, device, dtype):
+        t = lambda a: _tensor(a, device, dtype)
+        self.m2m_cat, self.l2l_cat = (t(a) for a in cat_tables(
+            self.m2m_unit, self.l2l_unit))
+        self.m2l_u = t(self.cb_unit)                  # (nd, r)
+        self.m2l_v = t(self.vb_unit)                  # (nd, r2)
+        self.m2l_a = t(self.ca_unit)                  # (316, r, r2)
+        # the blocked route's stack at the route's ranks, built only for
+        # that route (at Stokes ranks in float64 it would take GBs)
+        self.m2l_blk = (t(blocked_m2l_mats(self.ca_unit, self.offsets,
+                                           self.parity_valid, self.blk_r,
+                                           self.blk_r2))
+                        if self.m2l_route == "blocked" else None)
+        # per-parity sweep tables: for child parity c (4x + 2y + z) its
+        # 189 offsets d, c + d = 2 eb + ep
         vidx, ebs, eps = [], [], []
         for c in range(8):
             cvec = np.array([(c >> 2) & 1, (c >> 1) & 1, c & 1])
@@ -316,6 +355,29 @@ class KIFMMOperators:
         self.par_vidx = torch.as_tensor(np.stack(vidx), device=device)
         self.par_ebs = np.stack(ebs)
         self.par_eps = np.stack(eps)
+
+
+def cat_tables(m2m: np.ndarray, l2l: np.ndarray):
+    """(8, nd, nd) M2M and L2L stacks -> the concatenated single-GEMM
+    forms: q_parent (P, 8 nd) @ m2m_cat (8 nd, nd) and q_child =
+    (q_parent (P, nd) @ l2l_cat (nd, 8 nd)).reshape(8 P, nd)."""
+    nd = m2m.shape[1]
+    return (np.transpose(m2m, (0, 2, 1)).reshape(8 * nd, nd),
+            np.transpose(l2l, (2, 0, 1)).reshape(nd, 8 * nd))
+
+
+@functools.lru_cache(maxsize=None)
+def unit_tables(ker_name: str, p: int, rcond: float) -> dict:
+    """The unit-box tables (`KIFMMOperators.TABLES`) of translation
+    kernel `ker_name` at order p and pinv cutoff rcond, built cold on the
+    host in float64 once per process and shared by every KIFMMOperators
+    of those parameters (which read them and never write them)."""
+    ops = KIFMMOperators.__new__(KIFMMOperators)
+    ops.offsets, ops.parity_valid = _vlist_offsets()
+    ops._build_unit(KERNELS[ker_name], cube_surface(p), rcond)
+    ops._compress_m2l_unit()
+    return {name: np.ascontiguousarray(getattr(ops, name), np.float64)
+            for name in KIFMMOperators.TABLES}
 
 
 def operators_from_numpy(tables: dict, device, dtype: torch.dtype,
@@ -408,21 +470,32 @@ def _mark(marks, name: str) -> None:
         marks.append((name, ev))
 
 
+# Element budget of one chunk of the per-parity M2L sweep's stacked
+# windows: about 1 GiB of float32 on the card; the CPU keeps the plain
+# versions' budget.
+PARITY_CHUNK_ELEMS_CUDA = 1 << 28
+
+
 class KIFMM:
-    """Uniform-tree KIFMM evaluator for Laplace3D-FxU.
+    """Uniform-tree KIFMM evaluator for the six kernels with a tree path
+    (uker.TREE_KERNELS).
 
     device : "cuda" (default) runs the CUDA kernels, "cpu" their plain
              versions.
     dtype  : torch.float32 (the card's only type) or torch.float64
              (CPU only).
+    The double layers (Laplace3D-DxU, Stokes3D-DxU) read source normals:
+    `setup(..., n_src=)` takes them and refuses to run without.
     """
 
     def __init__(self, ker_s2t: KernelSpec, p: int = 6,
                  depth: Optional[int] = None, pts_per_leaf: int = 256,
                  device=None, dtype: torch.dtype = torch.float32,
                  rcond: Optional[float] = None,
-                 operators: Optional[KIFMMOperators] = None):
-        check_supported(ker_s2t.name, LAPLACE_ONLY)
+                 operators: Optional[KIFMMOperators] = None,
+                 ker_l2t: Optional[KernelSpec] = None,
+                 ker_s2m: Optional[KernelSpec] = None):
+        check_supported(ker_s2t.name, TREE_KERNELS)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(
@@ -430,7 +503,8 @@ class KIFMM:
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(f"KIFMM dtype {dtype}")
         self.ker_s2t = ker_s2t
-        self.ker_trans, self.ker_l2t, self.ker_s2m = kernel_roles(ker_s2t)
+        self.ker_trans, self.ker_l2t, self.ker_s2m = kernel_roles(
+            ker_s2t, ker_l2t, ker_s2m)
         self.p = p
         self.depth = depth
         self.pts_per_leaf = pts_per_leaf
@@ -441,7 +515,16 @@ class KIFMM:
         self._ops = operators
 
     # -- setup -----------------------------------------------------------
-    def setup(self, x_src: np.ndarray, x_trg: np.ndarray):
+    def setup(self, x_src: np.ndarray, x_trg: np.ndarray,
+              n_src: Optional[np.ndarray] = None):
+        """Trees, box slots and device tables for sources x_src (N, 3)
+        with normals n_src (N, 3) (the double layers only) and targets
+        x_trg."""
+        nrm = self.ker_s2t.needs_normal or self.ker_s2m.needs_normal
+        if nrm and n_src is None:
+            raise ValueError(
+                f"kernel {self.ker_s2t.name} requires source normals: "
+                "pass n_src")
         x_src = np.asarray(x_src, np.float64)
         x_trg = np.asarray(x_trg, np.float64)
         bbox = (np.minimum(x_src.min(0), x_trg.min(0)),
@@ -456,14 +539,16 @@ class KIFMM:
         self.src_tree = src = UniformTree(x_src, L, bbox=bbox)
         self.trg_tree = trg = UniformTree(x_trg, L, bbox=bbox)
         self.scale = src.scale
-        if self._ops is None or self._ops.p != self.p:
+        if (self._ops is None or self._ops.p != self.p
+                or self._ops.ker_trans.name != self.ker_trans.name):
             self._ops = KIFMMOperators(self.ker_trans, self.p, self.rcond,
                                        dev, dt)
-        ops = self._ops
+        ops = self._ops.device_tables()
         lam = self.scale / (1 << L)
         s_exp, t_exp = self.ker_trans.src_scal, self.ker_trans.trg_scal
         self.uc2e_L = t(_outer_scale(ops.uc2e_unit, lam, s_exp, t_exp))
         self.surf_out_L = t(ops.surf * (RAD_OUT * lam / 2))
+        self._level_tables(t)
         self.cap_s = _quantile_cap(src.box_cnt)
         self.cap_t = _quantile_cap(trg.box_cnt, q=85.0)
         (sov_boxes, self.sov_cap, sov_idx,
@@ -476,17 +561,21 @@ class KIFMM:
         t_idx, t_valid = _pad_index(trg, self.cap_t)
         xs_p = src.X_sorted[s_idx]                     # (B, cap_s, 3)
         xt_p = trg.X_sorted[t_idx]                     # (B, cap_t, 3)
+        n_sorted = (np.asarray(n_src, np.float64)[src.perm] if nrm
+                    else None)
+        ns_p = None if n_sorted is None else n_sorted[s_idx]
         ctr = src.box_centers()
         self.ctr = t(ctr)
         self.nb = ti(src.neighbor_boxes())             # (B, 27)
         self.xs_pad = t(xs_p)
         self.xt_pad = t(xt_p)
+        self.ns_pad = None if ns_p is None else t(ns_p)
         # box-local slot coordinates for the shared-surface kernels,
         # localized in f64 on the host (exact differences in f32)
-        self.xs_sl = t((xs_p - ctr[:, None, :]).transpose(2, 0, 1)
-                       .reshape(3, -1))
-        self.xt_sl = t((xt_p - ctr[:, None, :]).transpose(2, 0, 1)
-                       .reshape(3, -1))
+        slots = lambda a: t(a.transpose(2, 0, 1).reshape(3, -1))
+        self.xs_sl = slots(xs_p - ctr[:, None, :])
+        self.xt_sl = slots(xt_p - ctr[:, None, :])
+        self.ns_sl = (slots(ns_p) if self.ker_s2m.needs_normal else None)
         # raster layout of the slab stencil
         n = 1 << L
         gidx = mt.raster_index(L)                      # morton -> raster
@@ -499,13 +588,21 @@ class KIFMM:
                          .transpose(0, 1, 2, 4, 3))
         self.SL = -(-9 * self.cap_s // 128) * 128
         # routes by shape: the shared-surface kernels take a box count
-        # that is a multiple of 128, the slab stencil's block the caps;
-        # otherwise the U-list kernel (see the module docstring)
-        self.surface_route = src.n_boxes % 128 == 0
-        self.stencil_route = stencil9_fits(self.cap_t, self.SL)
+        # that is a multiple of 128 and capacities their shared memory
+        # holds, the slab stencil's block the caps; otherwise the U-list
+        # kernel (see the module docstring)
+        self.surface_route = (
+            src.n_boxes % 128 == 0
+            and surface_pair_fits(self.ker_s2m, self.cap_s)
+            and l2t_surface_fits(self.ker_l2t, ops.n_surf))
+        self.stencil_route = stencil9_fits(self.ker_s2t, self.cap_t,
+                                           self.SL)
+        self.p2p_nrm = self.ker_s2t.needs_normal
         if self.stencil_route:
-            self.xs_slab = to_slab(self.xs_pad, self.rast_to_mort, n,
-                                   self.SL).contiguous()
+            slab = lambda a: to_slab(a, self.rast_to_mort, n,
+                                     self.SL).contiguous()
+            self.xs_slab = slab(self.xs_pad)
+            self.ns_slab = slab(self.ns_pad) if self.p2p_nrm else None
         else:
             self._setup_near_ulist()
         # density gather and result scatter indices
@@ -524,6 +621,7 @@ class KIFMM:
         self.sov_idx = ti(sov_idx)
         self.sov_valid = t(sov_valid)
         self.xs_ov2 = t(src.X_sorted[sov_idx])
+        self.ns_ov2 = None if n_sorted is None else t(n_sorted[sov_idx])
         slot_of_box = np.full(src.n_boxes + 1, -1, np.int64)
         slot_of_box[sov_boxes] = np.arange(len(sov_boxes))
         self.sov_slot_of_box = ti(slot_of_box)
@@ -532,6 +630,25 @@ class KIFMM:
         self.tov_pos = ti(tov_idx.reshape(-1)[tov_valid.reshape(-1)])
         self.tov_take = ti(np.nonzero(tov_valid.reshape(-1))[0])
         return self
+
+    def _level_tables(self, t):
+        """Per-level M2M, L2L and M2L row scalings.  A single-exponent
+        kernel (Laplace) reads the unit tables at every level; Stokes
+        FSxU (source exponents 1, 1, 1, 2) reads the tables conjugated
+        to each level's box side (`KIFMMOperators.level_tables`)."""
+        ops, L = self._ops, self.depth
+        flat = len(set(self.ker_trans.src_scal)) == 1
+        self.m2l_s = {}
+        if flat:
+            self.m2m_cat = {lvl: ops.m2m_cat for lvl in range(1, L + 1)}
+            self.l2l_cat = {lvl: ops.l2l_cat for lvl in range(1, L + 1)}
+            return
+        lt = ops.level_tables(L, self.scale)
+        self.m2m_cat, self.l2l_cat = {}, {}
+        for lvl in range(1, L + 1):
+            m, l = cat_tables(lt["m2m"][lvl - 1], lt["l2l"][lvl - 1])
+            self.m2m_cat[lvl], self.l2l_cat[lvl] = t(m), t(l)
+        self.m2l_s = {lvl: t(lt["m2l_s"][lvl]) for lvl in range(2, L + 1)}
 
     # -- evaluation ---------------------------------------------------------
     def eval(self, f) -> np.ndarray:
@@ -577,35 +694,45 @@ class KIFMM:
         ops = self._ops
         L = self.depth
         ns = ops.n_surf
+        nd = ns * ops.k0t                  # equivalent values per box
         B = self.src_tree.n_boxes
-        sf = self.ker_s2m.scale_factor
+        km = self.ker_s2m
+        k0 = km.kdim0
 
         # ---- S2M: leaf check potentials -> upward equivalents ----
         if self.surface_route:
-            out_sl = surface_pair(self.ker_s2m, self.surf_out_L,
-                                  self.xs_sl, fp.reshape(1, -1), self.cap_s)
-            u_check = out_sl.permute(2, 1, 0).reshape(B, ns) * sf
+            out_sl = surface_pair(km, self.surf_out_L, self.xs_sl,
+                                  fp.reshape(-1, k0).T.contiguous(),
+                                  self.cap_s, self.ns_sl)
+            u_check = out_sl.permute(2, 1, 0).reshape(B, -1)
         else:
             # box-local check surface (T) against the box's slots (S)
             S = _round_up(self.cap_s, 128)
-            xs_b = _pad_to(self.xs_sl.reshape(3, B, -1).transpose(0, 1), S)
+            box_major = lambda a: _pad_to(
+                a.reshape(a.shape[0], B, -1).transpose(0, 1), S)
             xc_b = _pad_to(self.surf_out_L.T, _round_up(ns, 8))
-            u = p2p_ulist(self.ker_s2m, xc_b.expand(B, -1, -1).contiguous(),
-                          xs_b, None, _pad_to(fp.transpose(1, 2), S))
-            u_check = u[:, :ns].reshape(B, ns) * sf
+            u = p2p_ulist(km, xc_b.expand(B, -1, -1).contiguous(),
+                          box_major(self.xs_sl),
+                          None if self.ns_sl is None
+                          else box_major(self.ns_sl),
+                          _pad_to(fp.transpose(1, 2), S))
+            u_check = u[:, :ns].reshape(B, -1)
+        u_check = u_check * km.scale_factor
         if self.n_ovf_s:
             sb = self.sov_boxes
             xck = self.surf_out_L[None] + self.ctr[sb][:, None, :]
-            uo = _apply_groups(self.ker_s2m, xck, self.xs_ov2, fp_ovf)
-            u_check.index_add_(0, sb, uo.reshape(len(sb), -1) * sf)
+            uo = _apply_groups(km, xck, self.xs_ov2, fp_ovf,
+                               self.ns_ov2 if km.needs_normal else None)
+            u_check.index_add_(0, sb, uo.reshape(len(sb), -1)
+                               * km.scale_factor)
         q_up = u_check @ self.uc2e_L.T
         _mark(marks, "S2M")
 
         # ---- M2M: Morton order is parent-major ----
         q_levels = {L: q_up}
         for lvl in range(L, 2, -1):
-            q_levels[lvl - 1] = q_levels[lvl].reshape(-1, 8 * ns) \
-                @ ops.m2m_cat
+            q_levels[lvl - 1] = q_levels[lvl].reshape(-1, 8 * nd) \
+                @ self.m2m_cat[lvl]
         _mark(marks, "M2M")
 
         v_dn = self._m2l_sweep(q_levels)
@@ -614,59 +741,85 @@ class KIFMM:
         # ---- L2L (dc2e is folded into the M2L and L2L tables) ----
         q_dn = v_dn[2]
         for lvl in range(3, L + 1):
-            q_dn = (q_dn @ ops.l2l_cat).reshape(-1, ns) + v_dn[lvl]
+            q_dn = (q_dn @ self.l2l_cat[lvl]).reshape(-1, nd) + v_dn[lvl]
         _mark(marks, "L2L")
         return self._downward_tail(q_dn, fp, fp_ovf, marks)
 
     def _m2l_sweep(self, q_levels):
-        """V-list translations per level: the blocked kernel for levels
-        >= 3, the per-parity sweep at level 2."""
+        """V-list translations per level -> {level: (B_l, nd) downward
+        equivalents}, on the operators' route (KIFMMOperators.m2l_route):
+        "blocked", the blocked kernel at levels >= 3 and the per-parity
+        sweep at exact ranks at level 2; "parity", the per-parity sweep
+        at every level, at the route's ranks (capped in float32)."""
         ops = self._ops
-        ns = ops.n_surf
+        route = ops.m2l_route
+        nd = ops.n_surf * ops.k0t
         v_dn = {}
         for lvl in range(2, self.depth + 1):
             nside = 1 << lvl
             h = nside // 2
             gidx = self.gidx[lvl]
-            q_grid = q_levels[lvl].new_zeros((nside ** 3, ns))
-            q_grid[gidx] = q_levels[lvl]
-            q_grid = q_grid.reshape(nside, nside, nside, ns)
-            if lvl >= 3:
-                r, r2 = ops.blk_r, ops.blk_r2
-                qr2 = q_grid @ ops.m2l_v[:, :r2]
-                qb = qr2.reshape(h, 2, h, 2, h, 2, r2).permute(
-                    0, 2, 4, 1, 3, 5, 6).reshape(h, h, h, 8 * r2)
-                qbp = F.pad(qb, (0, 0, 1, 1, 1, 1, 1, 1)).contiguous()
-                accb = m2l_grid_blocked(qbp, ops.m2l_blk)
-                acc = accb.reshape(h, h, h, 2, 2, 2, r).permute(
-                    0, 3, 1, 4, 2, 5, 6).reshape(nside ** 3, r)
-                out = acc @ ops.m2l_u[:, :r].T
+            s = self.m2l_s.get(lvl)
+            q = q_levels[lvl] if s is None else q_levels[lvl] / s
+            q_grid = q.new_zeros((nside ** 3, nd))
+            q_grid[gidx] = q
+            q_grid = q_grid.reshape(nside, nside, nside, nd)
+            if lvl >= 3 and route == "blocked":
+                out = self._m2l_blocked(q_grid, h)
             else:
-                out = self._m2l_parity_sweep(q_grid, h).reshape(-1, ns)
-            v_dn[lvl] = out[gidx]
+                rr = ((ops.blk_r, ops.blk_r2) if route == "parity"
+                      else ops.m2l_a.shape[1:])
+                out = self._m2l_parity_sweep(q_grid, h, *rr)
+            out = out.reshape(-1, nd)[gidx]
+            v_dn[lvl] = out if s is None else out * s
         return v_dn
 
-    def _m2l_parity_sweep(self, q_grid, h):
-        """Per child parity c, the 189 valid offsets as contiguous
-        shifts of the parity-major grid (kifmm.py:1245-1286), exact
-        ranks.  Each parity's 189 products run as one batch."""
+    def _m2l_blocked(self, q_grid, h):
+        """Sibling-blocked M2L of one level through `m2l_grid_blocked`
+        at the capped ranks -> (n^3, nd) in raster order."""
         ops = self._ops
-        ns = ops.n_surf
-        qr = q_grid.reshape(h, 2, h, 2, h, 2, ns).permute(
-            1, 3, 5, 0, 2, 4, 6) @ ops.m2l_v              # (2,2,2,h,h,h,r2)
+        r, r2 = ops.blk_r, ops.blk_r2
+        qr2 = q_grid @ ops.m2l_v[:, :r2]
+        qb = qr2.reshape(h, 2, h, 2, h, 2, r2).permute(
+            0, 2, 4, 1, 3, 5, 6).reshape(h, h, h, 8 * r2)
+        qbp = F.pad(qb, (0, 0, 1, 1, 1, 1, 1, 1)).contiguous()
+        accb = m2l_grid_blocked(qbp, ops.m2l_blk)
+        acc = accb.reshape(h, h, h, 2, 2, 2, r).permute(
+            0, 3, 1, 4, 2, 5, 6).reshape((2 * h) ** 3, r)
+        return acc @ ops.m2l_u[:, :r].T
+
+    def _m2l_parity_sweep(self, q_grid, h, r, r2):
+        """Per child parity c, the 189 valid offsets as contiguous
+        shifts of the parity-major grid (sctl_tpu/fmm/kifmm.py:
+        1245-1286) at ranks (r, r2).  The shifted windows of a chunk of
+        offsets sit side by side, so each chunk is one matrix product
+        (h^3, g r2) @ (g r2, r) -> (n^3, nd) in raster order."""
+        ops = self._ops
+        nd = q_grid.shape[-1]
+        qr = q_grid.reshape(h, 2, h, 2, h, 2, nd).permute(
+            1, 3, 5, 0, 2, 4, 6) @ ops.m2l_v[:, :r2]     # (2,2,2,h,h,h,r2)
         qrp = F.pad(qr, (0, 0, 2, 2, 2, 2, 2, 2))
+        budget = (PARITY_CHUNK_ELEMS_CUDA if q_grid.device.type == "cuda"
+                  else CHUNK_PAIRS)
+        g = max(1, min(189, budget // (h ** 3 * r2)))
         outs = []
         for c in range(8):
-            sl = torch.stack([
-                qrp[ep[0], ep[1], ep[2], 2 + eb[0]:2 + eb[0] + h,
-                    2 + eb[1]:2 + eb[1] + h, 2 + eb[2]:2 + eb[2] + h]
-                for eb, ep in zip(ops.par_ebs[c], ops.par_eps[c])])
-            mats = ops.m2l_a[ops.par_vidx[c]]
-            acc = torch.einsum("oxyzn,orn->xyzr", sl, mats)
-            outs.append(acc @ ops.m2l_u.T)
-        out = torch.stack(outs).reshape(2, 2, 2, h, h, h, ns)
+            acc = None
+            vidx = ops.par_vidx[c]
+            for o0 in range(0, 189, g):
+                win = torch.stack([
+                    qrp[ep[0], ep[1], ep[2], 2 + eb[0]:2 + eb[0] + h,
+                        2 + eb[1]:2 + eb[1] + h, 2 + eb[2]:2 + eb[2] + h]
+                    for eb, ep in zip(ops.par_ebs[c][o0:o0 + g],
+                                      ops.par_eps[c][o0:o0 + g])], dim=3)
+                mats = ops.m2l_a[vidx[o0:o0 + g], :r, :r2]  # (g, r, r2)
+                y = win.reshape(h ** 3, -1) @ mats.transpose(1, 2) \
+                    .reshape(-1, r)
+                acc = y if acc is None else acc + y
+            outs.append(acc @ ops.m2l_u[:, :r].T)
+        out = torch.stack(outs).reshape(2, 2, 2, h, h, h, nd)
         return out.permute(3, 0, 4, 1, 5, 2, 6).reshape(
-            2 * h, 2 * h, 2 * h, ns)
+            2 * h, 2 * h, 2 * h, nd)
 
     def _downward_tail(self, q_dn, fp, fp_ovf, marks=None):
         """L2T, near-field P2P and the overflow sidebands."""
@@ -675,6 +828,7 @@ class KIFMM:
         B = self.src_tree.n_boxes
         ker, kl = self.ker_s2t, self.ker_l2t
         ct = self.cap_t
+        nrm = self.p2p_nrm
 
         # ---- L2T ----
         if self.surface_route:
@@ -710,10 +864,10 @@ class KIFMM:
             sb = self.sov_boxes
             tb_all = nb[sb].T.reshape(-1)                  # (27*Bo,)
             ok = tb_all >= 0
+            rep = lambda a: a.repeat(27, 1, 1)[ok]
             u_all = _apply_groups(
-                ker, self.xt_pad[tb_all[ok]],
-                self.xs_ov2.repeat(27, 1, 1)[ok],
-                fp_ovf.repeat(27, 1, 1)[ok])
+                ker, self.xt_pad[tb_all[ok]], rep(self.xs_ov2),
+                rep(fp_ovf), rep(self.ns_ov2) if nrm else None)
             u_near.index_add_(0, tb_all[ok], u_all)
         u_total = u_far + u_near * ker.scale_factor
         if self.n_ovf_t:
@@ -726,15 +880,18 @@ class KIFMM:
                 sb2 = nb[tb, j]
                 okj = sb2 >= 0
                 sbs = torch.where(okj, sb2, 0)
-                u_on += _apply_groups(ker, self.xt_ov2, self.xs_pad[sbs],
-                                      fp[sbs] * okj[:, None, None])
+                u_on += _apply_groups(
+                    ker, self.xt_ov2, self.xs_pad[sbs],
+                    fp[sbs] * okj[:, None, None],
+                    self.ns_pad[sbs] if nrm else None)
                 if self.n_ovf_s:
                     so = slot_of[torch.where(okj, sb2, B)]
                     oks = so >= 0
                     sos = torch.where(oks, so, 0)
                     u_on += _apply_groups(
                         ker, self.xt_ov2, self.xs_ov2[sos],
-                        fp_ovf[sos] * oks[:, None, None])
+                        fp_ovf[sos] * oks[:, None, None],
+                        self.ns_ov2[sos] if nrm else None)
             u_ovf = u_ovf + u_on * ker.scale_factor
         _mark(marks, "P2P")
         return u_total, u_ovf
@@ -746,7 +903,7 @@ class KIFMM:
         n = 1 << self.depth
         f_s = to_slab(fp, self.rast_to_mort, n, self.SL)
         u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
-                           self.xt_rast, self.xs_slab, f_s)
+                           self.xt_rast, self.xs_slab, f_s, self.ns_slab)
         return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]
 
     def _setup_near_ulist(self):
@@ -757,9 +914,14 @@ class KIFMM:
         self.ul_S = _round_up(27 * cs, 128)
         self.ul_ok = (self.nb >= 0).to(self.dtype)            # (B, 27)
         nbc = self.nb.clamp(min=0)
-        xs = self.xs_pad[nbc] * self.ul_ok[..., None, None]   # (B,27,cs,3)
-        self.ul_xs = _pad_to(xs.permute(0, 3, 1, 2).reshape(B, 3, -1),
-                             self.ul_S)
+
+        def gather(a):                                        # (B, cs, 3)
+            a = a[nbc] * self.ul_ok[..., None, None]          # (B,27,cs,3)
+            return _pad_to(a.permute(0, 3, 1, 2).reshape(B, 3, -1),
+                           self.ul_S)
+
+        self.ul_xs = gather(self.xs_pad)
+        self.ul_ns = gather(self.ns_pad) if self.p2p_nrm else None
         self.ul_xt = self.xt_pad.transpose(1, 2).contiguous()
         # boxes per launch: the gathered (G, k0 + 3, S) inputs stay near
         # (1 << 22) slots, the JAX package's U-list chunk
@@ -776,6 +938,7 @@ class KIFMM:
             f = fp[nbc[g]] * self.ul_ok[g, :, None, None]     # (G,27,cs,k0)
             f = _pad_to(f.permute(0, 3, 1, 2).reshape(
                 f.shape[0], f.shape[-1], -1), self.ul_S)
-            out.append(p2p_ulist(self.ker_s2t, self.ul_xt[g], self.ul_xs[g],
-                                 None, f))
+            out.append(p2p_ulist(
+                self.ker_s2t, self.ul_xt[g], self.ul_xs[g],
+                None if self.ul_ns is None else self.ul_ns[g], f))
         return torch.cat(out)

@@ -1,24 +1,31 @@
 """Inputs for holding each CUDA kernel against its plain version, and
 the counts of each kernel's bound.
 
-The U-list kernel's cases (`ulist_cases`) take their widths from a
-set-up `AdaptiveFMM` instead: T = its target capacity, S = its U-list
-budget (source leaves per target leaf times the source capacity,
-padded to 128), on a reduced G = 32 boxes, one case per kernel formula.
-
 The cases take their widths from a set-up `KIFMM` (source and target
 slot capacities, slab group SL, the leaf-level check surface, the M2L
 ranks) and a reduced count (4096 boxes, a parent grid of h = 8 for
 M2L, a 16^3 grid for P2P), so the plain versions stay small.
+`kernel_cases` builds them for the KIFMM's own kernel roles, or for one
+given formula (`formula_cases` runs every formula each kernel takes).
 Source slots hold a density as often as the KIFMM's leaves fill theirs
 on average; the others are zero, as the padding of the main path is.
+
+The U-list kernel's cases (`ulist_cases`) take their widths from a
+set-up `AdaptiveFMM` instead: T = its target capacity, S = its U-list
+budget (source leaves per target leaf times the source capacity,
+padded to 128), on a reduced G = 32 boxes, one case per kernel formula.
+The direct sum's cases (`p2p_cases`) are ParticleFMM's direct path
+reduced: 4096 targets among 39,000 sources in the unit cube, for every
+formula in float32 and float64.
+
 Data come from numpy's generator with a fixed seed.  Used by
 `chip_smoke.py` and the card tests.
 
 A `work` dict counts what the data need: pairs whose source has a
-density (for P2P only neighbour boxes that exist), the flops of the
-nonzero operator blocks, and each input read and each output written
-once.
+density (for P2P only neighbour boxes that exist) with the kernel's
+per-pair operations (`KernelSpec.flops`, the JAX package's counts),
+the flops of the nonzero operator blocks, and each input read and each
+output written once.
 """
 
 from __future__ import annotations
@@ -26,35 +33,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.kernels import KERNELS, Laplace3D_FxU
+from .ops.kernels import KERNELS
 from .ops.m2l import m2l_grid_blocked, m2l_grid_blocked_plain, m2l_windows
-from .ops.p2p import (ULIST_KERNELS, p2p_stencil9, p2p_stencil9_plain,
+from .ops.p2p import (p2p, p2p_plain, p2p_stencil9, p2p_stencil9_plain,
                       p2p_ulist, p2p_ulist_plain, to_slab)
 from .ops.sl import (l2t_surface, l2t_surface_plain, surface_pair,
                      surface_pair_plain)
+from .ops.uker import L2T_KERNELS, S2M_KERNELS, SUPPORTED, TREE_KERNELS
 
 N_BOXES, M2L_H, P2P_N, ULIST_G = 4096, 8, 16, 32
-
-# f32 flops per pair of csrc/p2p_ulist.cu (an FMA counts 2): the
-# difference (3) and r2 (5), then Laplace the density FMA (2); Stokes
-# DxU r.f and r.n (5 each), the 1/r^5 and weight products (5) and three
-# FMAs (6); Stokes FSxU r.f (5), 1/r^2, 1/r^3 and the weight (4) and
-# six FMAs (12)
-ULIST_PAIR_FLOPS = {"Laplace3D-FxU": 10, "Stokes3D-DxU": 29,
-                    "Stokes3D-FSxU": 29}
+P2P_T, P2P_S = 4096, 39_000
 
 
-def surface_pair_work(pairs: int, ns: int, B: int, cap: int) -> dict:
-    return dict(pairs=pairs, bytes=4 * (3 * ns + 4 * B * cap + ns * B))
+def surface_pair_work(kernel, pairs: int, ns: int, B: int,
+                      cap: int) -> dict:
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                bytes=4 * (3 * ns + kernel.src_floats * B * cap
+                           + kernel.kdim1 * ns * B))
 
 
-def l2t_surface_work(pairs: int, ns: int, B: int, cap_t: int) -> dict:
-    return dict(pairs=pairs, bytes=4 * (3 * ns + 4 * B * cap_t + ns * B))
+def l2t_surface_work(kernel, pairs: int, ns: int, B: int,
+                     cap_t: int) -> dict:
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                bytes=4 * (3 * ns + (3 + kernel.kdim1) * B * cap_t
+                           + kernel.kdim0 * ns * B))
 
 
-def p2p_stencil9_work(pairs: int, n: int, cap_t: int, SL: int) -> dict:
-    return dict(pairs=pairs, bytes=4 * (4 * n ** 3 * cap_t
-                                        + 4 * n * n * (n + 2) * SL))
+def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int,
+                      SL: int) -> dict:
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                bytes=4 * ((3 + kernel.kdim1) * n ** 3 * cap_t
+                           + kernel.src_floats * n * n * (n + 2) * SL))
 
 
 def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
@@ -69,13 +78,23 @@ def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
 
 
 def p2p_ulist_work(kernel, pairs: int, n_trg: int, n_src: int) -> dict:
-    """One rsqrt and ULIST_PAIR_FLOPS flops per needed pair; bytes of
+    """One rsqrt and the kernel's operations per needed pair; bytes of
     the real targets and their output and of the real source slots
     (point, density, and the normal for the double layer), each once:
     the padded slots carry nothing the function needs."""
-    nsrc = 3 + kernel.kdim0 + (3 if kernel.needs_normal else 0)
-    return dict(pairs=pairs, pair_flops=ULIST_PAIR_FLOPS[kernel.name],
-                bytes=4 * ((3 + kernel.kdim1) * n_trg + nsrc * n_src))
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                bytes=4 * ((3 + kernel.kdim1) * n_trg
+                           + kernel.src_floats * n_src))
+
+
+def p2p_work(kernel, dtype: torch.dtype, n_trg: int, n_src: int) -> dict:
+    """Every (target, source) pair with the kernel's operations, in
+    float32 or float64; each target, source and output once."""
+    nb = 8 if dtype == torch.float64 else 4
+    return dict(pairs=n_trg * n_src, pair_flops=kernel.flops,
+                f64=dtype == torch.float64,
+                bytes=nb * ((3 + kernel.kdim1) * n_trg
+                            + kernel.src_floats * n_src))
 
 
 def _ulist_sources(af) -> np.ndarray:
@@ -116,7 +135,7 @@ def ulist_cases(af, seed: int = 0) -> dict:
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     real = rng.random((G, S)) < fill
     cases = {}
-    for name in ULIST_KERNELS:
+    for name in TREE_KERNELS:
         ker = KERNELS[name]
         f = rng.normal(size=(G, ker.kdim0, S)) * real[:, None, :]
         a = (f32(xt), f32(xs), f32(nrm) if ker.needs_normal else None,
@@ -141,7 +160,7 @@ def _near_counts(cnt: np.ndarray) -> np.ndarray:
 
 def main_path_work(kf) -> dict:
     """Counts of each kernel's work on a set-up KIFMM's own data (the
-    M2L one at the leaf level's parent grid)."""
+    M2L one at the leaf level's parent grid, on the blocked route)."""
     ns = kf._ops.n_surf
     cs = np.minimum(kf.src_tree.box_cnt, kf.cap_s)
     ct = np.minimum(kf.trg_tree.box_cnt, kf.cap_t)
@@ -149,25 +168,33 @@ def main_path_work(kf) -> dict:
     near = np.where(nb >= 0, cs[np.maximum(nb, 0)], 0).sum(axis=1)
     B, n = kf.src_tree.n_boxes, 1 << kf.depth
     return {
-        "surface_pair": surface_pair_work(int(cs.sum()) * ns, ns, B,
-                                          kf.cap_s),
-        "l2t_surface": l2t_surface_work(int(ct.sum()) * ns, ns, B,
-                                        kf.cap_t),
+        "surface_pair": surface_pair_work(kf.ker_s2m, int(cs.sum()) * ns,
+                                          ns, B, kf.cap_s),
+        "l2t_surface": l2t_surface_work(kf.ker_l2t, int(ct.sum()) * ns,
+                                        ns, B, kf.cap_t),
         "m2l_grid_blocked": m2l_grid_blocked_work(n // 2,
                                                   kf._ops.m2l_blk),
-        "p2p_stencil9": p2p_stencil9_work(int((ct * near).sum()), n,
+        "p2p_stencil9": p2p_stencil9_work(kf.ker_s2t,
+                                          int((ct * near).sum()), n,
                                           kf.cap_t, kf.SL),
     }
 
 
-def kernel_cases(kf, seed: int = 0) -> dict:
+def _unit_normals(rng, shape, axis):
+    n = rng.normal(size=shape)
+    return n / np.linalg.norm(n, axis=axis, keepdims=True)
+
+
+def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
     """name -> (kernel call, plain call, library call or None, work) at
     the widths of the set-up float32 KIFMM `kf`, on its device.  Each
     call takes no argument and returns a tensor; the library call is
     one PyTorch call computing the same function (timed as a yardstick
-    only)."""
+    only).  Without `kernel`, the four kernels of kf's main path with
+    its own kernel roles; with it, the pair kernels that take that
+    formula, in it (no M2L)."""
     rng = np.random.default_rng(seed)
-    ker, dev = Laplace3D_FxU, kf.device
+    dev = kf.device
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                     device=dev)
     cap_s, cap_t, SL = kf.cap_s, kf.cap_t, kf.SL
@@ -175,55 +202,109 @@ def kernel_cases(kf, seed: int = 0) -> dict:
     fill = np.minimum(kf.src_tree.box_cnt, cap_s).mean() / cap_s
     surf = kf.surf_out_L
     ns = surf.shape[0]
+    roles = ({"surface_pair": kf.ker_s2m, "l2t_surface": kf.ker_l2t,
+              "p2p_stencil9": kf.ker_s2t} if kernel is None else
+             {stage: kernel for stage, names in (
+                 ("surface_pair", S2M_KERNELS),
+                 ("l2t_surface", L2T_KERNELS),
+                 ("p2p_stencil9", TREE_KERNELS)) if kernel.name in names})
     cases = {}
 
     B = N_BOXES
-    xs = (rng.random((B, cap_s, 3)) - 0.5) * lam
-    vs = rng.random((B, cap_s)) < fill
-    pts = f32(xs.transpose(2, 0, 1).reshape(3, -1))
-    fl = f32((rng.normal(size=(B, cap_s)) * vs).reshape(1, -1))
-    cases["surface_pair"] = (
-        lambda: surface_pair(ker, surf, pts, fl, cap_s),
-        lambda: surface_pair_plain(ker, surf, pts, fl, cap_s), None,
-        surface_pair_work(int(vs.sum()) * ns, ns, B, cap_s))
+    ker = roles.get("surface_pair")
+    if ker is not None:
+        xs = (rng.random((B, cap_s, 3)) - 0.5) * lam
+        vs = rng.random((B, cap_s)) < fill
+        slots = lambda a: f32(a.transpose(2, 0, 1).reshape(a.shape[2], -1))
+        pts = slots(xs)
+        nrm = (slots(_unit_normals(rng, (B, cap_s, 3), 2))
+               if ker.needs_normal else None)
+        fl = slots(rng.normal(size=(B, cap_s, ker.kdim0)) * vs[..., None])
+        cases["surface_pair"] = (
+            lambda: surface_pair(ker, surf, pts, fl, cap_s, nrm),
+            lambda: surface_pair_plain(ker, surf, pts, fl, cap_s, nrm),
+            None,
+            surface_pair_work(ker, int(vs.sum()) * ns, ns, B, cap_s))
 
-    xt = (rng.random((B, cap_t, 3)) - 0.5) * lam
-    xtl = f32(xt.transpose(2, 0, 1).reshape(3, -1))
-    q = f32(rng.normal(size=(1, ns, B)))
-    cases["l2t_surface"] = (
-        lambda: l2t_surface(ker, surf, xtl, q, cap_t),
-        lambda: l2t_surface_plain(ker, surf, xtl, q, cap_t), None,
-        l2t_surface_work(B * cap_t * ns, ns, B, cap_t))
+    kl = roles.get("l2t_surface")
+    if kl is not None:
+        xt = (rng.random((B, cap_t, 3)) - 0.5) * lam
+        xtl = f32(xt.transpose(2, 0, 1).reshape(3, -1))
+        q = f32(rng.normal(size=(kl.kdim0, ns, B)))
+        cases["l2t_surface"] = (
+            lambda: l2t_surface(kl, surf, xtl, q, cap_t),
+            lambda: l2t_surface_plain(kl, surf, xtl, q, cap_t), None,
+            l2t_surface_work(kl, B * cap_t * ns, ns, B, cap_t))
 
-    h, K, N = M2L_H, 8 * kf._ops.blk_r2, 8 * kf._ops.blk_r
-    mats = f32(rng.normal(size=(26, K, N)) / np.sqrt(K))
-    qp = np.zeros((h + 2,) * 3 + (K,))
-    qp[1:-1, 1:-1, 1:-1] = rng.normal(size=(h, h, h, K))
-    qp = f32(qp)
-    wins = torch.stack(m2l_windows(qp))
-    cases["m2l_grid_blocked"] = (
-        lambda: m2l_grid_blocked(qp, mats),
-        lambda: m2l_grid_blocked_plain(qp, mats),
-        lambda: torch.matmul(wins, mats).sum(0),
-        m2l_grid_blocked_work(h, mats))
+    if kernel is None:
+        h, K, N = M2L_H, 8 * kf._ops.blk_r2, 8 * kf._ops.blk_r
+        mats = f32(rng.normal(size=(26, K, N)) / np.sqrt(K))
+        qp = np.zeros((h + 2,) * 3 + (K,))
+        qp[1:-1, 1:-1, 1:-1] = rng.normal(size=(h, h, h, K))
+        qp = f32(qp)
+        wins = torch.stack(m2l_windows(qp))
+        cases["m2l_grid_blocked"] = (
+            lambda: m2l_grid_blocked(qp, mats),
+            lambda: m2l_grid_blocked_plain(qp, mats),
+            lambda: torch.matmul(wins, mats).sum(0),
+            m2l_grid_blocked_work(h, mats))
 
-    n = P2P_N
-    lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
-                  -1).reshape(-1, 1, 3)
-    xs_b = (lo + rng.random((n ** 3, cap_s, 3))) * lam
-    vs_b = rng.random((n ** 3, cap_s)) < fill
-    f_b = rng.normal(size=(n ** 3, cap_s, 1)) * vs_b[..., None]
-    xt_b = (lo + rng.random((n ** 3, cap_t, 3))) * lam
-    ident = torch.arange(n ** 3, device=dev)
-    xs_s = to_slab(f32(xs_b), ident, n, SL).contiguous()
-    f_s = to_slab(f32(f_b), ident, n, SL).contiguous()
-    xt_g = f32(xt_b.reshape(n, n, n, cap_t, 3).transpose(0, 1, 2, 4, 3))
-    near = _near_counts(vs_b.sum(axis=1).reshape(n, n, n))
-    cases["p2p_stencil9"] = (
-        lambda: p2p_stencil9(ker, n, SL, cap_t, xt_g, xs_s, f_s),
-        lambda: p2p_stencil9_plain(ker, n, SL, cap_t, xt_g, xs_s, f_s),
-        None,
-        p2p_stencil9_work(cap_t * int(near.sum()), n, cap_t, SL))
+    kn = roles.get("p2p_stencil9")
+    if kn is not None:
+        n = P2P_N
+        lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
+                      -1).reshape(-1, 1, 3)
+        xs_b = (lo + rng.random((n ** 3, cap_s, 3))) * lam
+        vs_b = rng.random((n ** 3, cap_s)) < fill
+        f_b = rng.normal(size=(n ** 3, cap_s, kn.kdim0)) * vs_b[..., None]
+        xt_b = (lo + rng.random((n ** 3, cap_t, 3))) * lam
+        ident = torch.arange(n ** 3, device=dev)
+        slab = lambda a: to_slab(f32(a), ident, n, SL).contiguous()
+        xs_s, f_s = slab(xs_b), slab(f_b)
+        ns_s = (slab(_unit_normals(rng, (n ** 3, cap_s, 3), 2))
+                if kn.needs_normal else None)
+        xt_g = f32(xt_b.reshape(n, n, n, cap_t, 3)
+                   .transpose(0, 1, 2, 4, 3))
+        near = _near_counts(vs_b.sum(axis=1).reshape(n, n, n))
+        cases["p2p_stencil9"] = (
+            lambda: p2p_stencil9(kn, n, SL, cap_t, xt_g, xs_s, f_s, ns_s),
+            lambda: p2p_stencil9_plain(kn, n, SL, cap_t, xt_g, xs_s, f_s,
+                                       ns_s),
+            None,
+            p2p_stencil9_work(kn, cap_t * int(near.sum()), n, cap_t, SL))
+    return cases
+
+
+def formula_cases(kf, seed: int = 0) -> dict:
+    """"stage[kernel]" -> case of `kernel_cases` for every formula each
+    pair kernel of the uniform KIFMM takes, at kf's widths."""
+    return {f"{stage}[{name}]": case for name in TREE_KERNELS
+            for stage, case in kernel_cases(kf, seed, KERNELS[name]).items()}
+
+
+def p2p_cases(device, seed: int = 0, n_trg: int = P2P_T,
+              n_src: int = P2P_S) -> dict:
+    """"p2p[kernel,dtype]" -> (kernel call, plain call, None, work) of the
+    direct sum for every formula in float32 and float64: sources and
+    unit normals uniform in the unit cube, the first n_trg of them also
+    the targets (so self pairs are masked), normal densities."""
+    rng = np.random.default_rng(seed)
+    xs = rng.random((n_src, 3))
+    nrm = _unit_normals(rng, (n_src, 3), 1)
+    cases = {}
+    for dt in (torch.float32, torch.float64):
+        T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                      device=device)
+        X, N = T(xs), T(nrm)
+        for name in SUPPORTED:
+            ker = KERNELS[name]
+            f = T(rng.normal(size=(n_src, ker.kdim0)))
+            ns = N if ker.needs_normal else None
+            a = (ker, X[:n_trg], X, ns, f)
+            tag = "f64" if dt == torch.float64 else "f32"
+            cases[f"p2p[{name},{tag}]"] = (
+                lambda a=a: p2p(*a), lambda a=a: p2p_plain(*a), None,
+                p2p_work(ker, dt, n_trg, n_src))
     return cases
 
 

@@ -2,7 +2,8 @@
 
 The sources under `sctl_tpu_torch/csrc/` have a plain C interface (no
 PyTorch headers), so each compiles in seconds.  At first use one
-`nvcc` call compiles every `*.cu` file for `sm_90a` into
+`nvcc -c` per `*.cu` file, all started together, compiles them for
+`sm_90a`, and one more links the objects into
 `sctl_tpu_torch/_build/libsctl_kernels.so`, which is loaded with
 ctypes.  The library is rebuilt when a source is newer than it.
 
@@ -31,13 +32,17 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every exported launcher: pointers, ints, then the
-# stream; each returns a cudaError_t as int.
+# stream; each returns a cudaError_t as int.  The pair kernels take the
+# formula index of csrc/ukernels.cuh (ops/uker.py FORMULA) first among
+# the ints.
 SIGNATURES = {
-    "sctl_surface_pair": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "sctl_l2t_surface": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sctl_surface_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_l2t_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_m2l_grid_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "sctl_p2p_stencil9": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sctl_p2p_stencil9": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_ulist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_p2p_direct_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sctl_p2p_direct_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -59,7 +64,8 @@ def _ptxas_summary(log: str) -> list:
 
 
 def build(force: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library; returns its path."""
+    """Compile csrc/*.cu, one nvcc each in parallel, and link them
+    into the shared library; returns its path."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     deps = sources + sorted(SRC_DIR.glob("*.cuh"))
     out = BUILD_DIR / LIB_NAME
@@ -70,18 +76,28 @@ def build(force: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *_ARCH, *_FLAGS, "-c", "-Xptxas", "-v", str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, log) for src, p, log in zip(sources, procs, logs)
+                  if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}:\n{log}" for name, log in failed))
         tmp_so = Path(tmp) / LIB_NAME
         run = subprocess.run(
-            [nvcc, *_ARCH, *_FLAGS, "-shared", "-Xptxas", "-v",
-             *map(str, sources), "-o", str(tmp_so)],
+            [nvcc, *_ARCH, "-shared", *map(str, objs), "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if run.returncode:
-            raise RuntimeError("nvcc failed:\n" + run.stdout)
+            raise RuntimeError("nvcc link failed:\n" + run.stdout)
         os.replace(tmp_so, out)
     secs = time.perf_counter() - t0
-    print(f"[sctl_tpu_torch build] {len(sources)} sources, "
+    print(f"[sctl_tpu_torch build] {len(sources)} sources in parallel, "
           f"{secs:.1f} s wall", flush=True)
-    for ln in _ptxas_summary(run.stdout):
+    for ln in _ptxas_summary("\n".join(logs)):
         print(f"[sctl_tpu_torch ptxas] {ln}", flush=True)
     return out
 

@@ -20,7 +20,9 @@ from .uker import rinv_masked, uker_apply, uker_matrix
 class KernelSpec:
     """Kernel descriptor: dimensions, whether it reads source normals,
     scale factor and the per-component homogeneity exponents under
-    x -> a x, K(a r)[i, j] = a^-(src_scal[i] + trg_scal[j]) K(r)[i, j]."""
+    x -> a x, K(a r)[i, j] = a^-(src_scal[i] + trg_scal[j]) K(r)[i, j].
+    `flops` is the JAX package's per-pair operation count
+    (sctl_tpu/ops/kernels.py:192-225), which the card's bounds read."""
     name: str
     kdim0: int
     kdim1: int
@@ -28,6 +30,13 @@ class KernelSpec:
     scale_factor: float
     src_scal: tuple
     trg_scal: tuple
+    flops: int = 0
+
+    @property
+    def src_floats(self) -> int:
+        """Values a source carries: its point, its densities and, for
+        the double layers, its normal (what a pair kernel stages)."""
+        return 3 + self.kdim0 + (3 if self.needs_normal else 0)
 
     def matrix(self, dx: torch.Tensor, n=None) -> torch.Tensor:
         """(..., k0, k1) blocks for displacements dx (..., 3) and
@@ -52,18 +61,32 @@ class KernelSpec:
                                              T * self.kdim1)
 
 
+_PI = math.pi
 Laplace3D_FxU = KernelSpec(
-    "Laplace3D-FxU", 1, 1, False, 1 / (4 * math.pi),
-    src_scal=(1.0,), trg_scal=(0.0,))
+    "Laplace3D-FxU", 1, 1, False, 1 / (4 * _PI),
+    src_scal=(1.0,), trg_scal=(0.0,), flops=6)
+Laplace3D_DxU = KernelSpec(
+    "Laplace3D-DxU", 1, 1, True, 1 / (4 * _PI),
+    src_scal=(2.0,), trg_scal=(0.0,), flops=14)
+Laplace3D_FxdU = KernelSpec(
+    "Laplace3D-FxdU", 1, 3, False, -1 / (4 * _PI),
+    src_scal=(1.0,), trg_scal=(1.0, 1.0, 1.0), flops=11)
 Stokes3D_FxU = KernelSpec(
-    "Stokes3D-FxU", 3, 3, False, 1 / (8 * math.pi),
-    src_scal=(1.0, 1.0, 1.0), trg_scal=(0.0, 0.0, 0.0))
+    "Stokes3D-FxU", 3, 3, False, 1 / (8 * _PI),
+    src_scal=(1.0, 1.0, 1.0), trg_scal=(0.0, 0.0, 0.0), flops=23)
 Stokes3D_DxU = KernelSpec(
-    "Stokes3D-DxU", 3, 3, True, 3 / (4 * math.pi),
-    src_scal=(2.0, 2.0, 2.0), trg_scal=(0.0, 0.0, 0.0))
+    "Stokes3D-DxU", 3, 3, True, 3 / (4 * _PI),
+    src_scal=(2.0, 2.0, 2.0), trg_scal=(0.0, 0.0, 0.0), flops=26)
+Stokes3D_FxT = KernelSpec(
+    "Stokes3D-FxT", 3, 9, False, -3 / (4 * _PI),
+    src_scal=(1.0, 1.0, 1.0), trg_scal=(1.0,) * 9, flops=39)
 Stokes3D_FSxU = KernelSpec(
-    "Stokes3D-FSxU", 4, 3, False, 1 / (8 * math.pi),
-    src_scal=(1.0, 1.0, 1.0, 2.0), trg_scal=(0.0, 0.0, 0.0))
+    "Stokes3D-FSxU", 4, 3, False, 1 / (8 * _PI),
+    src_scal=(1.0, 1.0, 1.0, 2.0), trg_scal=(0.0, 0.0, 0.0), flops=26)
+Stokes3D_FxUP = KernelSpec(
+    "Stokes3D-FxUP", 3, 4, False, 1 / (8 * _PI),
+    src_scal=(1.0, 1.0, 1.0), trg_scal=(0.0, 0.0, 0.0, 1.0), flops=26)
 
-KERNELS = {k.name: k for k in (Laplace3D_FxU, Stokes3D_FxU, Stokes3D_DxU,
-                               Stokes3D_FSxU)}
+KERNELS = {k.name: k for k in (
+    Laplace3D_FxU, Laplace3D_DxU, Laplace3D_FxdU, Stokes3D_FxU,
+    Stokes3D_DxU, Stokes3D_FxT, Stokes3D_FSxU, Stokes3D_FxUP)}

@@ -1,15 +1,17 @@
-"""Pair kernels: the near-field P2P over the packed 9-column slab
-(counterpart of sctl_tpu/ops/pallas_p2p.py `p2p_stencil9` :362-446)
-and the per-box U-list P2P (`p2p_ulist` :449-518).
+"""Pair kernels: the dense direct sum (counterpart of
+sctl_tpu/ops/pallas_p2p.py `p2p` :521-606), the near-field P2P over the
+packed 9-column slab (`p2p_stencil9` :362-446) and the per-box U-list
+P2P (`p2p_ulist` :449-518).  Each takes its kernel formula as a
+template parameter of its CUDA source (csrc/ukernels.cuh).
 
 Boxes are in raster order.  Slab entry z' of column (x, y) holds the 9
 (dx, dy) neighbour columns' box (x+dx, y+dy, z'-1) points side by side
 (SL slots, zeros in margins and padding), so the 27-box neighbourhood
 of target box z is the one window [z*SL, (z+3)*SL).
 
-On a CUDA tensor `p2p_stencil9` launches csrc/p2p_stencil9.cu and
-`p2p_ulist` csrc/p2p_ulist.cu; on a CPU tensor each runs its plain
-version.
+On a CUDA tensor `p2p` launches csrc/p2p_direct.cu (float32 or
+float64), `p2p_stencil9` csrc/p2p_stencil9.cu and `p2p_ulist`
+csrc/p2p_ulist.cu; on a CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -19,7 +21,78 @@ import torch
 from ._build import launch
 from ._launch_checks import CHUNK_PAIRS, check_kernel_args, on_cuda
 from .kernels import KernelSpec
-from .uker import LAPLACE_ONLY, check_supported
+from .uker import FORMULA, TREE_KERNELS, check_supported
+
+# sources per shared tile and targets per block of csrc/p2p_direct.cu
+_P2P_TILE = _P2P_BLOCK = 128
+
+
+def p2p_plain(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
+              block_s: int = 1024):
+    """Plain version of `p2p`: the pairwise form in (block_t x block_s)
+    tiles, so memory stays bounded at any size."""
+    out = torch.zeros((xt.shape[0], kernel.kdim1), dtype=f.dtype,
+                      device=f.device)
+    for t0 in range(0, xt.shape[0], block_t):
+        acc = out[t0:t0 + block_t]
+        for s0 in range(0, xs.shape[0], block_s):
+            s = slice(s0, s0 + block_s)
+            acc += kernel.apply_pairwise(
+                xt[t0:t0 + block_t], xs[s],
+                None if ns is None else ns[s], f[s])
+    return out
+
+
+def _n_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
+        block_s: int = 1024):
+    """Dense direct sum, unscaled: xt (T, 3), xs (S, 3), ns (S, 3) source
+    normals (None unless kernel.needs_normal), f (S, k0) -> (T, k1),
+    u[t] = sum_s K(xt_t - xs_s) f_s with r2 = 0 masked; float32 or
+    float64.  The card's grid splits the sources when the target blocks
+    alone would leave SMs idle, and the splits' partial sums are added
+    here.  On the CPU the plain version runs in (block_t x block_s)
+    tiles; the card's kernel has its own tiles."""
+    T, S, k0 = xt.shape[0], xs.shape[0], kernel.kdim0
+    if (xt.shape != (T, 3) or xs.shape != (S, 3) or f.shape != (S, k0)
+            or (kernel.needs_normal
+                and (ns is None or ns.shape != (S, 3)))):
+        raise ValueError(f"p2p: xt {tuple(xt.shape)}, xs {tuple(xs.shape)}"
+                         f", f {tuple(f.shape)}, ns "
+                         f"{None if ns is None else tuple(ns.shape)}, "
+                         f"kernel {kernel.name}")
+    ns = ns if kernel.needs_normal else None
+    tensors = [t for t in (xt, xs, ns, f) if t is not None]
+    if not on_cuda(*tensors):
+        return p2p_plain(kernel, xt, xs, ns, f, block_t, block_s)
+    dt = xt.dtype
+    if dt not in (torch.float32, torch.float64) or any(
+            t.dtype != dt for t in tensors):
+        raise NotImplementedError(f"p2p: dtypes {[t.dtype for t in tensors]}"
+                                  "; the CUDA kernel takes float32 or "
+                                  "float64, one type for all")
+    xt, xs, f = xt.contiguous(), xs.contiguous(), f.contiguous()
+    ns = None if ns is None else ns.contiguous()
+    # enough (target block, source split) blocks for 4 per SM
+    t_blocks = -(-T // _P2P_BLOCK)
+    tiles = max(1, -(-S // _P2P_TILE))
+    nsplit = min(tiles, max(1, -(-4 * _n_sms(xt.device) // max(t_blocks, 1))))
+    chunk = -(-tiles // nsplit) * _P2P_TILE
+    nsplit = max(1, -(-S // chunk))
+    part = torch.empty((nsplit, T, kernel.kdim1), dtype=dt,
+                       device=xt.device)
+    launch("sctl_p2p_direct_" + ("f32" if dt == torch.float32 else "f64"),
+           xt.data_ptr(), xs.data_ptr(),
+           None if ns is None else ns.data_ptr(), f.data_ptr(),
+           part.data_ptr(), FORMULA[kernel.name], T, S, nsplit, chunk)
+    p2p.launches += 1
+    return part[0] if nsplit == 1 else part.sum(0)
+
+
+p2p.launches = 0
 
 
 def to_slab(a, rast_to_mort, n: int, SL: int):
@@ -42,20 +115,22 @@ def to_slab(a, rast_to_mort, n: int, SL: int):
     return buf.reshape(n, n, k, (n + 2) * SL)
 
 
-def stencil9_fits(cap_t: int, SL: int) -> bool:
+def stencil9_fits(kernel: KernelSpec, cap_t: int, SL: int) -> bool:
     """Whether csrc/p2p_stencil9.cu's block takes these widths: one
-    thread per target slot of 4 z boxes, and the (4 + 2) SL float4
-    window in the 227 KB of shared memory."""
-    return 4 * cap_t <= 1024 and 16 * 6 * SL <= 227 * 1024
+    thread per target slot of 4 z boxes, and the (4 + 2) SL window in
+    the 227 KB of shared memory, at 4 bytes a slot for each coordinate,
+    density component and (for the double layers) normal component."""
+    return 4 * cap_t <= 1024 and 4 * kernel.src_floats * 6 * SL <= 227 * 1024
 
 
 def p2p_stencil9_plain(kernel: KernelSpec, nside: int, SL: int,
-                       cap_t: int, xt_g, xs_s, f_s):
+                       cap_t: int, xt_g, xs_s, f_s, ns_s=None):
     """Plain version of `p2p_stencil9`, in column chunks per z."""
     n, k0 = nside, kernel.kdim0
     xt = xt_g.reshape(n * n, n, 3, cap_t)
     xs = xs_s.reshape(n * n, 3, (n + 2) * SL)
     f = f_s.reshape(n * n, k0, (n + 2) * SL)
+    nrm = None if ns_s is None else ns_s.reshape(n * n, 3, (n + 2) * SL)
     out = torch.empty((n * n, n, cap_t, kernel.kdim1), dtype=xt_g.dtype,
                       device=xt_g.device)
     step = max(1, CHUNK_PAIRS // (cap_t * 3 * SL))
@@ -65,46 +140,55 @@ def p2p_stencil9_plain(kernel: KernelSpec, nside: int, SL: int,
             w = slice(z * SL, (z + 3) * SL)
             out[c, z] = kernel.apply_pairwise(
                 xt[c, z].transpose(1, 2), xs[c, :, w].transpose(1, 2),
-                None, f[c, :, w].transpose(1, 2))
+                None if nrm is None else nrm[c, :, w].transpose(1, 2),
+                f[c, :, w].transpose(1, 2))
     return out.reshape(n, n, n, cap_t, kernel.kdim1)
 
 
 def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
-                 xt_g, xs_s, f_s):
+                 xt_g, xs_s, f_s, ns_s=None):
     """Uniform-grid near-field P2P.
 
     xt_g (n, n, n, 3, cap_t): target coordinates per box, raster order.
     xs_s (n, n, 3, (n+2)*SL): packed slab columns (z margin included).
     f_s  (n, n, k0, (n+2)*SL): densities, zero in padding.
+    ns_s (n, n, 3, (n+2)*SL): source normals in the same slab (None
+         unless kernel.needs_normal).
     -> (n, n, n, cap_t, k1) unscaled potentials, raster order.
     """
-    check_supported(kernel.name, LAPLACE_ONLY)
+    check_supported(kernel.name, TREE_KERNELS)
     n = nside
-    if (xt_g.shape != (n, n, n, 3, cap_t)
-            or xs_s.shape != (n, n, 3, (n + 2) * SL)
-            or f_s.shape != (n, n, kernel.kdim0, (n + 2) * SL)):
+    slab = (n, n, 3, (n + 2) * SL)
+    if (xt_g.shape != (n, n, n, 3, cap_t) or xs_s.shape != slab
+            or f_s.shape != (n, n, kernel.kdim0, (n + 2) * SL)
+            or (kernel.needs_normal
+                and (ns_s is None or ns_s.shape != slab))):
         raise ValueError(f"p2p_stencil9: xt_g {tuple(xt_g.shape)}, xs_s "
                          f"{tuple(xs_s.shape)}, f_s {tuple(f_s.shape)}, "
-                         f"n {n}, SL {SL}, cap_t {cap_t}")
-    if not on_cuda(xt_g, xs_s, f_s):
-        return p2p_stencil9_plain(kernel, n, SL, cap_t, xt_g, xs_s, f_s)
-    check_kernel_args("p2p_stencil9", xt_g=xt_g, xs_s=xs_s, f_s=f_s)
-    if not stencil9_fits(cap_t, SL):
+                         f"ns_s {None if ns_s is None else tuple(ns_s.shape)}"
+                         f", n {n}, SL {SL}, cap_t {cap_t}, kernel "
+                         f"{kernel.name}")
+    ns_s = ns_s if kernel.needs_normal else None
+    tensors = [t for t in (xt_g, xs_s, f_s, ns_s) if t is not None]
+    if not on_cuda(*tensors):
+        return p2p_stencil9_plain(kernel, n, SL, cap_t, xt_g, xs_s, f_s,
+                                  ns_s)
+    check_kernel_args("p2p_stencil9", xt_g=xt_g, xs_s=xs_s, f_s=f_s,
+                      **({} if ns_s is None else {"ns_s": ns_s}))
+    if not stencil9_fits(kernel, cap_t, SL):
         raise NotImplementedError(f"p2p_stencil9: cap_t {cap_t} or SL "
-                                  f"{SL} exceeds the kernel's block")
-    out = torch.empty((n, n, n, cap_t, 1), dtype=torch.float32,
+                                  f"{SL} exceeds the kernel's block for "
+                                  f"{kernel.name}")
+    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
                       device=xt_g.device)
     launch("sctl_p2p_stencil9", xt_g.data_ptr(), xs_s.data_ptr(),
-           f_s.data_ptr(), out.data_ptr(), n, SL, cap_t)
+           None if ns_s is None else ns_s.data_ptr(), f_s.data_ptr(),
+           out.data_ptr(), FORMULA[kernel.name], n, SL, cap_t)
     p2p_stencil9.launches += 1
     return out
 
 
 p2p_stencil9.launches = 0
-
-
-# kernel name -> formula index of csrc/p2p_ulist.cu
-ULIST_KERNELS = {"Laplace3D-FxU": 0, "Stokes3D-DxU": 1, "Stokes3D-FSxU": 2}
 
 
 def p2p_ulist_plain(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
@@ -132,7 +216,7 @@ def p2p_ulist(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
     f_b  (G, k0, S): densities, zero in padded slots.
     -> (G, T, k1) unscaled potentials.
     """
-    check_supported(kernel.name, tuple(ULIST_KERNELS))
+    check_supported(kernel.name, TREE_KERNELS)
     G, _, T = xt_b.shape
     S = xs_b.shape[2]
     k0 = kernel.kdim0
@@ -154,7 +238,7 @@ def p2p_ulist(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
                       device=xt_b.device)
     launch("sctl_p2p_ulist", xt_b.data_ptr(), xs_b.data_ptr(),
            None if ns_b is None else ns_b.data_ptr(), f_b.data_ptr(),
-           out.data_ptr(), ULIST_KERNELS[kernel.name], G, T, S)
+           out.data_ptr(), FORMULA[kernel.name], G, T, S)
     p2p_ulist.launches += 1
     return out
 

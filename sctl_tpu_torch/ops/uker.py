@@ -8,8 +8,9 @@ f_s, written with explicit per-pair differences (never the moment
 expansion xt * sum(w) - sum(xs w), which cancels in float32 when the
 points lie far from the origin).
 
-This slice carries Laplace3D-FxU and the three Stokes kernels of the
-BIE path; every other kernel name raises.
+All eight kernels of the JAX package are here.  `FORMULA` numbers
+them as csrc/ukernels.cuh does, where each CUDA kernel reads its
+formula from.
 """
 
 from __future__ import annotations
@@ -17,10 +18,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-SUPPORTED = ("Laplace3D-FxU", "Stokes3D-FxU", "Stokes3D-DxU",
-             "Stokes3D-FSxU")
-# the uniform KIFMM's shared-surface and slab kernels
-LAPLACE_ONLY = ("Laplace3D-FxU",)
+SUPPORTED = ("Laplace3D-FxU", "Laplace3D-DxU", "Laplace3D-FxdU",
+             "Stokes3D-FxU", "Stokes3D-DxU", "Stokes3D-FxT",
+             "Stokes3D-FSxU", "Stokes3D-FxUP")
+# kernel name -> formula index of csrc/ukernels.cuh
+FORMULA = {name: i for i, name in enumerate(SUPPORTED)}
+# the kernels with a uniform-tree path (sctl_tpu/fmm/fmm.py:35-42)
+TREE_KERNELS = SUPPORTED[:5] + ("Stokes3D-FSxU",)
+# the S2M check kernels and the L2T kernels of those tree paths
+S2M_KERNELS = ("Laplace3D-FxU", "Laplace3D-DxU", "Stokes3D-FxU",
+               "Stokes3D-DxU", "Stokes3D-FSxU")
+L2T_KERNELS = ("Laplace3D-FxU", "Laplace3D-FxdU", "Stokes3D-FSxU")
 
 
 def check_supported(name: str, supported=SUPPORTED) -> None:
@@ -53,15 +61,25 @@ def uker_matrix(name: str, d, rinv, ns=None):
     if name == "Laplace3D-FxU":
         return rinv[..., None, None]
     rinv3 = rinv * rinv * rinv
+    if name == "Laplace3D-DxU":
+        return ((d * ns).sum(-1) * rinv3)[..., None, None]
+    if name == "Laplace3D-FxdU":
+        return (d * rinv3[..., None])[..., None, :]        # (..., 1, 3)
     dd = d[..., :, None] * d[..., None, :]
-    if name == "Stokes3D-DxU":
-        rdotn = (d * ns).sum(-1)
-        return dd * (rdotn * rinv3 * rinv * rinv)[..., None, None]
+    if name in ("Stokes3D-DxU", "Stokes3D-FxT"):
+        rinv5 = rinv3 * rinv * rinv
+        if name == "Stokes3D-DxU":
+            return dd * ((d * ns).sum(-1) * rinv5)[..., None, None]
+        rr = d[..., :, None, None] * (dd * rinv5[..., None, None])[
+            ..., None, :, :]                               # (..., 3, 3, 3)
+        return rr.reshape(rr.shape[:-3] + (3, 9))
     stk = _eye3(d) * rinv[..., None, None] + dd * rinv3[..., None, None]
     if name == "Stokes3D-FxU":
         return stk
-    src = (d * rinv3[..., None])[..., None, :]             # (..., 1, 3)
-    return _cat([stk, src], -2)                            # FSxU (.., 4, 3)
+    src = d * rinv3[..., None]
+    if name == "Stokes3D-FSxU":
+        return _cat([stk, src[..., None, :]], -2)          # (..., 4, 3)
+    return _cat([stk, src[..., :, None]], -1)              # FxUP (.., 3, 4)
 
 
 def rinv_masked(r2: torch.Tensor) -> torch.Tensor:
@@ -90,13 +108,24 @@ def uker_apply(name: str, xt, xs, ns, f):
     d = xt[..., :, None, :] - xs[..., None, :, :]          # (..., T, S, 3)
     rinv = rinv_masked((d * d).sum(-1))
     rinv3 = rinv * rinv * rinv
+    dsum = lambda w: torch.einsum("...tsj,...ts->...tj", d, w)
+    if name.startswith("Laplace"):
+        if name == "Laplace3D-DxU":
+            rdotn = (d * ns[..., None, :, :]).sum(-1)
+            return torch.matmul(rdotn * rinv3, f)
+        return dsum(rinv3 * f[..., None, :, 0])            # FxdU
     rdotf = (d * f[..., None, :, :3]).sum(-1)
-    if name == "Stokes3D-DxU":
-        rdotn = (d * ns[..., None, :, :]).sum(-1)
-        w = rdotf * rdotn * rinv3 * rinv * rinv
-        return torch.einsum("...tsj,...ts->...tj", d, w)
+    if name in ("Stokes3D-DxU", "Stokes3D-FxT"):
+        rinv5 = rinv3 * rinv * rinv
+        if name == "Stokes3D-DxU":
+            rdotn = (d * ns[..., None, :, :]).sum(-1)
+            return dsum(rdotf * rdotn * rinv5)
+        w = (rdotf * rinv5)[..., None]
+        return torch.einsum("...tsj,...tsk->...tjk", d * w, d).flatten(-2)
     w = rdotf * rinv3
     if name == "Stokes3D-FSxU":
         w = w + f[..., None, :, 3] * rinv3
-    return (torch.matmul(rinv, f[..., :3])
-            + torch.einsum("...tsj,...ts->...tj", d, w))
+    u = torch.matmul(rinv, f[..., :3]) + dsum(w)
+    if name == "Stokes3D-FxUP":                            # the pressure
+        u = torch.cat([u, (rdotf * rinv3).sum(-1, keepdim=True)], -1)
+    return u

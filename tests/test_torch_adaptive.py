@@ -17,9 +17,12 @@ from sctl_tpu.fmm.kifmm import KIFMMOperators as J_Ops
 from sctl_tpu.ops import Laplace3D_FxU as J_LAP
 from sctl_tpu.ops import Stokes3D_DxU as J_DXU
 from sctl_tpu.ops import Stokes3D_FSxU as J_FS
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.fmm import (AdaptiveFMM, KIFMMOperators,
                                 operators_from_numpy)
 from sctl_tpu_torch.ops import Laplace3D_FxU, Stokes3D_DxU, Stokes3D_FSxU
+
+limit_cpu_threads()
 
 
 def rel(a, b):

@@ -20,12 +20,15 @@ from sctl_tpu.linalg import gmres_device as j_gmres
 from sctl_tpu.ops import Stokes3D_DxU as J_DXU
 from sctl_tpu.ops import Stokes3D_FxU as J_FXU
 from sctl_tpu.ops import direct_eval_blocked as j_direct
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.bie import (BoundaryIntegralOp, ParametricPatchList,
                                 sphere_patches, torus_patches)
 from sctl_tpu_torch.fmm import KIFMMOperators, operators_from_numpy
 from sctl_tpu_torch.linalg import gmres_device
 from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FSxU, Stokes3D_FxU,
                                 direct_eval_blocked)
+
+limit_cpu_threads()
 
 F64 = torch.float64
 

@@ -23,11 +23,14 @@ import torch
 
 import sctl_tpu.fmm as j_fmm
 from sctl_tpu.linalg import gmres_device as j_gmres
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
 from sctl_tpu_torch.linalg import gmres_device
 from sctl_tpu_torch.ops import Stokes3D_DxU, Stokes3D_FxU, direct_eval_blocked
 
 from test_torch_bie import _jax_op_on_near
+
+limit_cpu_threads()
 
 TOL, RESID_BAR, P = 1e-6, 1.5e-6, 4
 

@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from sctl_tpu.linalg.gmres import gmres_device as j_gmres
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.linalg import gmres_device
+
+limit_cpu_threads()
 
 
 def _solve_both(A, b, **kw):

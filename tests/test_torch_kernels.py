@@ -11,10 +11,13 @@ import torch
 from sctl_tpu.ops import Laplace3D_FxU as J_LAP
 from sctl_tpu.ops import direct_eval_blocked as j_direct
 from sctl_tpu.ops.kernels_np import full_matrix_np as j_full_np
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.ops import Laplace3D_FxU as LAP
 from sctl_tpu_torch.ops import direct_eval_blocked
 from sctl_tpu_torch.ops.kernels_np import full_matrix_np
 from sctl_tpu_torch.ops.uker import check_supported
+
+limit_cpu_threads()
 
 T = torch.as_tensor
 
@@ -62,8 +65,14 @@ def test_direct_eval_blocked_matches_jax():
 
 @pytest.mark.parametrize("name", ["Laplace3D-DxU", "Stokes3D-FxT"])
 def test_other_kernels_not_ported(name):
+    """All eight kernels of the JAX package are ported: these two pass
+    the port's check; an unknown name, or a kernel outside a stage's own
+    list, raises."""
+    check_supported(name)
     with pytest.raises(NotImplementedError):
-        check_supported(name)
+        check_supported(name + "-unknown")
+    with pytest.raises(NotImplementedError):
+        check_supported(name, ("Laplace3D-FxU",))
 
 
 def _surface(p=6, rad=2.95):

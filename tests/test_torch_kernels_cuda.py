@@ -1,10 +1,13 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
 PyTorch version on the same card, at the widths of a depth-4 KIFMM
 filled as densely as the 1e7-point depth-6 run (about 38 points a
-leaf), with a reduced count (sctl_tpu_torch/kernel_cases.py); the
-U-list kernel at the widths of an adaptive FMM on a torus's far-field
-nodes, for its three kernel formulas; a depth-2 KIFMM, which runs
-through the U-list kernel, on the card against the CPU.
+leaf), with a reduced count (sctl_tpu_torch/kernel_cases.py), and every
+further formula of the shared-surface and slab kernels at those widths;
+the U-list kernel at the widths of an adaptive FMM on a torus's
+far-field nodes, for the six formulas with a tree path; the direct sum
+`p2p` for all eight formulas in float32 and float64; a depth-2 KIFMM,
+which runs through the U-list kernel, and a Stokes double-layer KIFMM
+on the card against the CPU.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -25,7 +28,15 @@ pytestmark = pytest.mark.cuda
 
 KERNELS = ["surface_pair", "l2t_surface", "m2l_grid_blocked",
            "p2p_stencil9"]
-ULIST = ["Laplace3D-FxU", "Stokes3D-DxU", "Stokes3D-FSxU"]
+ULIST = ["Laplace3D-FxU", "Laplace3D-DxU", "Laplace3D-FxdU",
+         "Stokes3D-FxU", "Stokes3D-DxU", "Stokes3D-FSxU"]
+ALL = ULIST[:5] + ["Stokes3D-FxT", "Stokes3D-FSxU", "Stokes3D-FxUP"]
+# each further formula of the PR-4 pair kernels (csrc/ukernels.cuh)
+FORMULAS = ([f"surface_pair[{k}]" for k in ("Laplace3D-DxU", "Stokes3D-FxU",
+                                            "Stokes3D-DxU", "Stokes3D-FSxU")]
+            + [f"l2t_surface[{k}]" for k in ("Laplace3D-FxdU",
+                                             "Stokes3D-FSxU")]
+            + [f"p2p_stencil9[{k}]" for k in ULIST[1:]])
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +56,58 @@ def cases(cuda_device):
     kf = KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
                dtype=torch.float32).setup(x, x)
     return kernel_cases(kf)
+
+
+@pytest.fixture(scope="module")
+def formulas(cuda_device):
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.kernel_cases import formula_cases
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    x = np.random.default_rng(3).random((16 ** 3 * 38, 3))
+    kf = KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
+               dtype=torch.float32).setup(x, x)
+    return formula_cases(kf)
+
+
+@pytest.mark.parametrize("name", FORMULAS)
+def test_formula_matches_plain(formulas, name):
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    run, plain, _, _ = formulas[name]
+    out = run()
+    torch.cuda.synchronize()
+    assert rel_max_err(out, plain()) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def direct(cuda_device):
+    from sctl_tpu_torch.kernel_cases import p2p_cases
+    return p2p_cases(cuda_device, n_trg=1000, n_src=5000)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("name", ALL)
+def test_p2p_matches_plain(direct, name, dtype):
+    """The direct sum against its plain version: 1e-5 of the maximum in
+    float32 (as above), 1e-12 in float64 (correctly rounded rsqrt; the
+    sums differ in order only)."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    run, plain, _, _ = direct[f"p2p[{name},{dtype}]"]
+    out = run()
+    torch.cuda.synchronize()
+    assert rel_max_err(out, plain()) < (1e-5 if dtype == "f32" else 1e-12)
+
+
+def test_direct_eval_blocked_launches_p2p(cuda_device):
+    """On a card the direct sum is the kernel: one launch per call."""
+    from sctl_tpu_torch.ops import Stokes3D_DxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import p2p
+    x = torch.rand((300, 3), device=cuda_device)
+    n = torch.nn.functional.normalize(torch.rand((300, 3),
+                                                 device=cuda_device), dim=1)
+    f = torch.rand((300, 3), device=cuda_device)
+    p2p.launches = 0
+    direct_eval_blocked(Stokes3D_DxU, x, x, f, ns=n)
+    assert p2p.launches == 1
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -128,5 +191,29 @@ def test_kifmm_depth2_card_matches_cpu(cuda_device):
     card = KIFMM(Laplace3D_FxU, p=6, depth=2, device=cuda_device,
                  dtype=torch.float32, operators=ops).setup(x, x)
     assert not card.surface_route and not card.stencil_route
+    u_cpu, u_card = cpu.eval(f), card.eval(f)
+    assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4
+
+
+def test_kifmm_stokes_dxu_card_matches_cpu(cuda_device):
+    """The Stokes double layer at depth 3 (S2M with the slots' normals,
+    FSxU translations, the per-parity M2L sweep, the slab stencil with
+    normals) on the card against the CPU's plain versions on the same
+    tables; bar 2e-4, as above."""
+    from sctl_tpu_torch.fmm import KIFMM, KIFMMOperators
+    from sctl_tpu_torch.ops import Stokes3D_DxU, Stokes3D_FSxU
+    rng = np.random.default_rng(9)
+    x = rng.random((20_000, 3))
+    n = rng.normal(size=(20_000, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    f = rng.normal(size=(20_000, 3))
+    cpu = KIFMM(Stokes3D_DxU, p=4, depth=3, device="cpu",
+                dtype=torch.float32).setup(x, x, n_src=n)
+    tables = {k: getattr(cpu._ops, k) for k in KIFMMOperators.TABLES}
+    ops = KIFMMOperators(Stokes3D_FSxU, 4, cpu.rcond, cuda_device,
+                         torch.float32, tables=tables)
+    card = KIFMM(Stokes3D_DxU, p=4, depth=3, device=cuda_device,
+                 dtype=torch.float32, operators=ops).setup(x, x, n_src=n)
+    assert card.surface_route and card.stencil_route
     u_cpu, u_card = cpu.eval(f), card.eval(f)
     assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4

@@ -13,12 +13,17 @@ import torch
 
 from sctl_tpu.fmm import KIFMM as J_KIFMM
 from sctl_tpu.fmm.kifmm import KIFMMOperators as J_Ops
+from sctl_tpu.ops import KERNELS as J_KERNELS
 from sctl_tpu.ops import Laplace3D_FxU as J_LAP
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.fmm import (DIRECT_CUTOFF, KIFMM, KIFMMOperators,
                                 ParticleFMM, operators_from_numpy)
+from sctl_tpu_torch.ops import KERNELS
 from sctl_tpu_torch.ops import Laplace3D_FxU as LAP
 from sctl_tpu_torch.ops import direct_eval_blocked
 from sctl_tpu_torch.ops.kernels import KernelSpec
+
+limit_cpu_threads()
 
 
 def rel(a, b):
@@ -142,15 +147,62 @@ def test_particle_fmm_tree_and_direct():
         assert rel(fmm.eval("t"), fmm.eval_direct("t")) < bar
 
 
+def test_particle_fmm_stokes_direct_matches_jax():
+    """ParticleFMM takes the Stokeslet: with 1,000 points the JAX
+    package returns the direct sum, and so does the port, to 1e-12 in
+    float64 (the port raised NotImplementedError for every kernel but
+    Laplace3D-FxU)."""
+    from sctl_tpu.fmm import ParticleFMM as J_PFMM
+    rng = np.random.default_rng(14)
+    x = rng.random((1000, 3))
+    f = rng.normal(size=(1000, 3))
+    us = []
+    for fmm in (J_PFMM(accuracy=6),
+                ParticleFMM(accuracy=6, device="cpu", dtype=torch.float64)):
+        fmm.set_kernel_s2t("s", "t", KERNELS["Stokes3D-FxU"]
+                           if isinstance(fmm, ParticleFMM)
+                           else J_KERNELS["Stokes3D-FxU"])
+        fmm.set_src_coord("s", x)
+        fmm.set_src_density("s", f)
+        fmm.set_trg_coord("t", x)
+        us.append(fmm.eval("t"))
+    assert us[1].shape == (1000, 3)
+    assert rel(us[1], us[0]) < 1e-12
+
+
+@pytest.mark.parametrize("name", ["Laplace3D-DxU", "Stokes3D-DxU"])
+def test_particle_fmm_passes_normals(name):
+    """The double layers read the source normals given to set_src_coord
+    (the direct path passed none, and set_src_coord took none): eval and
+    eval_direct against the direct sum with the normals, 1e-12."""
+    ker = KERNELS[name]
+    rng = np.random.default_rng(15)
+    x = rng.random((800, 3))
+    n = rng.normal(size=(800, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    f = rng.normal(size=(800, ker.kdim0))
+    fmm = ParticleFMM(device="cpu", dtype=torch.float64)
+    fmm.set_kernel_s2t("s", "t", ker)
+    fmm.set_src_coord("s", x, normal=n)
+    fmm.set_src_density("s", f)
+    fmm.set_trg_coord("t", x[:300])
+    X = torch.as_tensor(x)
+    u_d = direct_eval_blocked(ker, X[:300], X, torch.as_tensor(f),
+                              ns=torch.as_tensor(n)).numpy()
+    assert rel(fmm.eval("t"), u_d) < 1e-12
+    assert rel(fmm.eval_direct("t"), u_d) < 1e-12
+
+
 def test_unported_requests_raise():
-    """The uniform KIFMM and ParticleFMM run Laplace3D-FxU; the Stokes
-    kernels run through the adaptive FMM of the BIE path."""
-    stokes = KernelSpec("Stokes3D-FxU", 3, 3, False, 1.0, (1.0,) * 3,
-                        (0.0,) * 3)
+    """The uniform KIFMM takes the six kernels with a tree path and
+    ParticleFMM all eight; Stokes3D-FxT has no tree path, an unknown
+    kernel is refused, and float16 is no type of the port."""
     with pytest.raises(NotImplementedError):
-        KIFMM(stokes, device="cpu")
+        KIFMM(KERNELS["Stokes3D-FxT"], device="cpu")
+    unknown = KernelSpec("Stokes3D-FxQ", 3, 3, False, 1.0, (1.0,) * 3,
+                         (0.0,) * 3)
     with pytest.raises(NotImplementedError):
-        ParticleFMM(device="cpu").set_kernel_s2t("s", "t", stokes)
+        ParticleFMM(device="cpu").set_kernel_s2t("s", "t", unknown)
     with pytest.raises(NotImplementedError):
         KIFMM(LAP, device="cpu", dtype=torch.float16)
 

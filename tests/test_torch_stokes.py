@@ -17,15 +17,19 @@ from sctl_tpu.ops import direct_eval_blocked as j_direct
 from sctl_tpu.ops.kernels_np import block_matrix_np as j_block_np
 from sctl_tpu.ops.kernels_np import offset_blocks_np as j_offset_np
 from sctl_tpu.ops.pallas_p2p import p2p_ulist as j_ulist
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.linalg import interpolation_matrix, leg_quad_rule
 from sctl_tpu_torch.ops import KERNELS, direct_eval_blocked
 from sctl_tpu_torch.ops.kernels_np import (block_matrix_np, full_matrix_np,
                                            offset_blocks_np)
 from sctl_tpu_torch.ops.p2p import p2p_ulist
 
+limit_cpu_threads()
+
 T = torch.as_tensor
 STOKES = ["Stokes3D-FxU", "Stokes3D-DxU", "Stokes3D-FSxU"]
-ULIST = ["Laplace3D-FxU", "Stokes3D-DxU", "Stokes3D-FSxU"]
+ULIST = ["Laplace3D-FxU", "Laplace3D-DxU", "Laplace3D-FxdU", "Stokes3D-FxU",
+         "Stokes3D-DxU", "Stokes3D-FSxU"]
 
 
 def rel(a, b):
@@ -128,6 +132,6 @@ def test_p2p_ulist_rejects_bad_shapes():
         p2p_ulist(ker, z(2, 3, 8), z(2, 3, 100), z(2, 3, 100), z(2, 3, 100))
     with pytest.raises(ValueError):            # the double layer's normals
         p2p_ulist(ker, z(2, 3, 8), z(2, 3, 128), None, z(2, 3, 128))
-    with pytest.raises(NotImplementedError):
-        p2p_ulist(KERNELS["Stokes3D-FxU"], z(2, 3, 8), z(2, 3, 128), None,
+    with pytest.raises(NotImplementedError):   # no tree path
+        p2p_ulist(KERNELS["Stokes3D-FxT"], z(2, 3, 8), z(2, 3, 128), None,
                   z(2, 3, 128))

@@ -10,8 +10,11 @@ import torch  # noqa: F401
 from sctl_tpu.fmm.kifmm import KIFMM as J_KIFMM
 from sctl_tpu.tree import morton as jmt
 from sctl_tpu.tree.tree import UniformTree as J_Tree
+from sctl_tpu_torch.config import limit_cpu_threads
 from sctl_tpu_torch.tree import UniformTree
 from sctl_tpu_torch.tree import morton as mt
+
+limit_cpu_threads()
 
 
 @pytest.mark.parametrize("depth,shift", [(2, 0.0), (3, 0.0), (3, -4.5)])
