@@ -29,8 +29,9 @@ Phases, each printed on flushed lines with the seconds since start:
             > 0.  Then each kernel alone on the run's own tensors.
 4b. depth 2 ParticleFMM(Laplace3D_FxU) on 45,000 uniform points from
             numpy.random.default_rng(1): the tree path at automatic depth
-            2, whose 64 boxes take S2M, L2T and the near field through the
-            U-list kernel; error at 1000 sampled targets against a float64
+            2, whose 64 boxes take S2M and L2T through the U-list kernel
+            and, at about 700 points a box, the near field through the
+            halo stencil; error at 1000 sampled targets against a float64
             direct sum on the card (bar 2e-4, as phase 4).
 5.  bie      the Stokes BIE solve of bench.py's bench_bie at its size:
             BoundaryIntegralOp(Stokes3D_DxU) at tolerance 1e-6 on
@@ -65,25 +66,47 @@ Phases, each printed on flushed lines with the seconds since start:
 6c. stokes  the Stokeslet, Stokes3D-FxU, at 1e7 uniform points from
             default_rng(2), sources = targets, normal densities, p=6,
             float32: first through ParticleFMM at its defaults (the tree
-            at about 256 points a leaf, depth 5), then through KIFMM at
-            bench_fmm's depth 6 on the same data.  For each: setup
-            seconds, the median of 3 evaluations with fresh densities,
-            per-stage CUDA-event times, one profiled evaluation, peak
-            device memory and the error at 1000 sampled targets against
-            the float64 p2p (bar 2e-4), with that oracle's time against
-            its bound.  At depth 6 also the error with the M2L sweep at
+            at about 256 points a leaf, depth 5: S2M and L2T through the
+            U-list kernel, the near field through the halo stencil), then
+            through KIFMM at bench_fmm's depth 6 on the same data.  For
+            each: setup seconds, the median of 3 evaluations with fresh
+            densities, per-stage CUDA-event times, one profiled
+            evaluation, peak device memory and the error at 1000 sampled
+            targets against the float64 p2p (bar 2e-4), with that
+            oracle's time against its bound.  At depth 6 also the error with the M2L sweep at
             the exact ranks instead of the capped ones, and the level-6
             M2L three ways (the sweep at capped and at exact ranks, the
             blocked kernel at capped ranks): times and differences.
             Last, the error against size and depth: 4,000 points at
             depth 3, then 2e5 points at depths 3 to 6, from
             default_rng(5) (bar 2e-4).
+7.  p=8     ParticleFMM(accuracy=8, float32), Laplace3D_FxU, at 1e7
+            uniform points from default_rng(7), sources = targets, at its
+            defaults (depth 5, about 305 points a leaf): BASELINE.md's
+            rung 2.  The cold p=8 table build on its own line; setup
+            seconds; the route of each M2L level (level 2 the per-parity
+            sweep, levels 3-5 the grid kernel m2l_grid, chosen by the
+            stacks' sizes) and of the near field (the halo stencil
+            p2p_stencil, as cap_t is over the slab stencil's 256); the
+            median of 3 evaluations with fresh densities, per-stage
+            times, one profiled evaluation, peak device memory, and the
+            error at 1000 sampled targets against the float64 p2p (bar
+            2e-4).  m2l_grid and p2p_stencil against their plain versions
+            at reduced cases (p2p_stencil for the six tree formulas; bar
+            1e-5, as phase 4) and alone at the run's shapes.  The level-5
+            M2L three ways on one random grid (m2l_grid, the blocked
+            kernel at the same ranks, the per-parity sweep at the same
+            ranks) and the near field through p2p_stencil and through
+            p2p_ulist on the same 27-box gathered inputs: times and
+            differences.  Last, rung 2 itself: KIFMM(p=8, depth=3) at
+            4,000 points against the float64 p2p (bar 1e-4,
+            tests/test_accuracy_ladder.py:32-33).
 
 Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched.  Then
 one JSON line with each kernel's numbers (launches summed over phases
-4, 4b, 5 and 6), the card's name and power limit, the run's wall time,
-and the closing JSON line.  Any failed check raises, so the script exits
+4 to 7), the card's name and power limit, the run's wall time, and the
+closing JSON line.  Any failed check raises, so the script exits
 non-zero and prints no closing line.
 """
 
@@ -125,6 +148,10 @@ ROUTES = {
                   "sctl_tpu/ops/pallas_p2p.py:496"),
     "p2p": ("sctl_tpu_torch/csrc/p2p_direct.cu",
             "sctl_tpu/ops/pallas_p2p.py:555"),
+    "m2l_grid": ("sctl_tpu_torch/csrc/m2l_grid.cu",
+                 "sctl_tpu/ops/pallas_m2l.py:149"),
+    "p2p_stencil": ("sctl_tpu_torch/csrc/p2p_stencil.cu",
+                    "sctl_tpu/ops/pallas_p2p.py:340"),
 }
 PARTICLE_N = 45_000
 DIRECT_N = 39_000
@@ -138,6 +165,10 @@ BIE_TOL = 1e-6
 BIE_RESID_BAR = 1.5e-6
 BIE_INTERIOR_BAR = 1e-4
 BIE_MAX_ITER = 120
+P8_N = 10_000_000
+P8 = 8
+RUNG2_N = 4000
+RUNG2_BAR = 1e-4
 
 
 def log(msg):
@@ -409,8 +440,8 @@ def phase_particle(torch, counters):
         f"{kf.src_tree.n_boxes}, cap_s {kf.cap_s}, cap_t {kf.cap_t}, "
         f"S2M/L2T route "
         f"{'surface kernels' if kf.surface_route else 'p2p_ulist'}, near "
-        f"route {'p2p_stencil9' if kf.stencil_route else 'p2p_ulist'}; "
-        f"setup and eval {secs:.2f} s; launches {launches}")
+        f"route p2p_{kf.near_route}; setup and eval {secs:.2f} s; "
+        f"launches {launches}")
     idx = rng.choice(PARTICLE_N, N_SAMPLE, replace=False)
     xd = torch.as_tensor(x, device="cuda")
     u_ref = direct_eval_blocked(Laplace3D_FxU, xd[idx], xd,
@@ -422,9 +453,9 @@ def phase_particle(torch, counters):
     if kf.depth != 2 or not np.isfinite(err) or not err < FMM_BAR:
         raise SystemExit(f"chip_smoke: depth-2 ParticleFMM failed: depth "
                          f"{kf.depth}, error {err:.3e}")
-    if not launches["p2p_ulist"] > 0:
-        raise SystemExit("chip_smoke: the depth-2 path did not launch "
-                         "p2p_ulist")
+    if not _tree_kernels_launched(kf, launches):
+        raise SystemExit(f"chip_smoke: the depth-2 path did not launch "
+                         f"its kernels: {launches}")
     return launches
 
 
@@ -658,11 +689,10 @@ def phase_direct(torch, counters):
 
 def _tree_kernels_launched(kf, launches):
     """The kernels the set-up KIFMM's routes take must have launched."""
+    from sctl_tpu_torch.kernel_cases import m2l_kernel, near_kernel
     need = (["surface_pair", "l2t_surface"] if kf.surface_route
             else ["p2p_ulist"])
-    need.append("p2p_stencil9" if kf.stencil_route else "p2p_ulist")
-    if kf._ops.m2l_route == "blocked" and kf.depth >= 3:
-        need.append("m2l_grid_blocked")
+    need += [near_kernel(kf)] + [k for k in [m2l_kernel(kf)] if k]
     return all(launches[k] > 0 for k in need)
 
 
@@ -709,8 +739,8 @@ def phase_tree(torch, counters):
         log(f"tree {name}: {TREE_N} points, depth {kf.depth}, cap_s "
             f"{kf.cap_s}, cap_t {kf.cap_t}, routes "
             f"{'surface' if kf.surface_route else 'ulist'}/"
-            f"{'stencil9' if kf.stencil_route else 'ulist'}/M2L "
-            f"{kf._ops.m2l_route}; setup and eval {secs:.2f} s; rel err at "
+            f"{kf.near_route}/M2L {kf._ops.m2l_route}; setup and eval "
+            f"{secs:.2f} s; rel err at "
             f"{N_SAMPLE} targets vs float64 p2p {err:.3e} (bar "
             f"{FMM_BAR:g}); launches {launches}")
         if not (np.isfinite(err) and err < FMM_BAR and launches["p2p"] == 0
@@ -720,12 +750,13 @@ def phase_tree(torch, counters):
     return total
 
 
-def m2l_routes_at(torch, kf, lvl):
-    """The M2L of the set-up Stokes KIFMM at level `lvl` on one random
-    grid three ways: the per-parity sweep at the capped ranks (the
-    route), the sweep at the exact ranks and the blocked kernel at the
-    capped ranks -> {way: (ms, relative difference from the route)}.
-    The blocked stack is built for this and freed."""
+def m2l_routes_at(torch, kf, lvl, ways):
+    """The M2L of the set-up KIFMM at level `lvl` on one random grid in
+    each of `ways`, the first the route: "grid" (m2l_grid), "blocked"
+    (the blocked kernel), "sweep" (the per-parity sweep), each at the
+    capped ranks, and "sweep exact" (the sweep at the exact ranks) ->
+    {label: (ms, relative difference from the first)}.  A blocked stack
+    the route lacks is built for this and freed."""
     from sctl_tpu_torch.kernel_cases import rel_max_err
     from sctl_tpu_torch.ops.m2l import blocked_m2l_mats
     ops = kf._ops
@@ -736,27 +767,31 @@ def m2l_routes_at(torch, kf, lvl):
     cr, cr2 = ops.blk_r, ops.blk_r2
     q = torch.randn((n, n, n, nd), device=kf.device)
     own = ops.m2l_blk
-    ops.m2l_blk = torch.as_tensor(blocked_m2l_mats(
-        ops.ca_unit, ops.offsets, ops.parity_valid, cr, cr2),
-        dtype=torch.float32, device=kf.device)
-    runs = {f"sweep at capped ranks {cr}/{cr2}":
-            lambda: kf._m2l_parity_sweep(q, h, cr, cr2),
-            f"sweep at exact ranks {r}/{r2}":
-            lambda: kf._m2l_parity_sweep(q, h, r, r2),
-            f"blocked kernel at capped ranks {cr}/{cr2}":
-            lambda: kf._m2l_blocked(q, h)}
-    ref = next(iter(runs.values()))().reshape(-1, nd)
+    if "blocked" in ways and own is None:
+        ops.m2l_blk = torch.as_tensor(blocked_m2l_mats(
+            ops.ca_unit, ops.offsets, ops.parity_valid, cr, cr2),
+            dtype=torch.float32, device=kf.device)
+    fns = {"grid": (f"m2l_grid at capped ranks {cr}/{cr2}",
+                    lambda: kf._m2l_grid(q)),
+           "blocked": (f"blocked kernel at capped ranks {cr}/{cr2}",
+                       lambda: kf._m2l_blocked(q, h)),
+           "sweep": (f"sweep at capped ranks {cr}/{cr2}",
+                     lambda: kf._m2l_parity_sweep(q, h, cr, cr2)),
+           "sweep exact": (f"sweep at exact ranks {r}/{r2}",
+                           lambda: kf._m2l_parity_sweep(q, h, r, r2))}
+    ref = fns[ways[0]][1]().reshape(-1, nd)
     out = {}
-    for way, fn in runs.items():
+    for way in ways:
+        label, fn = fns[way]
         diff = rel_max_err(fn().reshape(-1, nd), ref)
-        out[way] = (cuda_ms(torch, fn, 2), diff)
+        out[label] = (cuda_ms(torch, fn, 2), diff)
     ops.m2l_blk = own
     del ref
     torch.cuda.empty_cache()
     return out
 
 
-def _stokes_evals(torch, kf, f_dev, label):
+def _evals(torch, kf, f_dev, label):
     """Median seconds of 3 evaluations with fresh densities, each fenced
     by synchronize, then one evaluation's stage ms from CUDA events and
     one profiled evaluation."""
@@ -770,7 +805,7 @@ def _stokes_evals(torch, kf, f_dev, label):
         times.append(time.perf_counter() - t)
     med = sorted(times)[1]
     log(f"{label}: KIFMM.eval_tensor s {['%.4f' % s for s in times]}, "
-        f"median {med:.4f} s, {STOKES_N / med / 1e6:.2f} Mpts/s")
+        f"median {med:.4f} s, {f_dev.shape[0] / med / 1e6:.2f} Mpts/s")
     fp, fo = kf.pad_density(f_dev)
     marks = []
     start = torch.cuda.Event(enable_timing=True)
@@ -792,9 +827,8 @@ def _describe(kf):
             f"{kf.cap_s}, cap_t {kf.cap_t}, overflow sources {kf.n_ovf_s}"
             f" targets {kf.n_ovf_t}, routes "
             f"{'surface' if kf.surface_route else 'ulist'}/"
-            f"{'stencil9' if kf.stencil_route else 'ulist'}/M2L "
-            f"{kf._ops.m2l_route} at ranks {kf._ops.blk_r}/"
-            f"{kf._ops.blk_r2}")
+            f"{kf.near_route}/M2L {kf._ops.m2l_route} at ranks "
+            f"{kf._ops.blk_r}/{kf._ops.blk_r2}")
 
 
 def stokes_depths(torch, ops):
@@ -879,7 +913,7 @@ def phase_stokes(torch, counters):
     u = fmm.eval("trg")
     log(f"stokes facade: ParticleFMM.eval {time.perf_counter() - t:.4f} s"
         f" (host arrays in and out)")
-    _stokes_evals(torch, kf, f_dev, "stokes facade")
+    _evals(torch, kf, f_dev, "stokes facade")
     launches = read(counters)
     log(f"stokes facade: peak device memory of setup and evaluations "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -898,7 +932,7 @@ def phase_stokes(torch, counters):
     log(f"stokes depth {DEPTH} setup: {time.perf_counter() - t:.2f} s "
         f"({_describe(kf)})")
     u = kf.eval_tensor(f_dev).cpu().numpy()
-    _stokes_evals(torch, kf, f_dev, f"stokes depth {DEPTH}")
+    _evals(torch, kf, f_dev, f"stokes depth {DEPTH}")
     l6 = read(counters)
     log(f"stokes depth {DEPTH}: peak device memory of setup and "
         f"evaluations {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
@@ -914,7 +948,8 @@ def phase_stokes(torch, counters):
         f"{ops.blk_r}/{ops.blk_r2} rel err "
         f"{_sample_err(u_exact[idx], u_ref):.3e}")
     ops.blk_r, ops.blk_r2 = caps
-    for way, (ms, diff) in m2l_routes_at(torch, kf, DEPTH).items():
+    for way, (ms, diff) in m2l_routes_at(
+            torch, kf, DEPTH, ("sweep", "sweep exact", "blocked")).items():
         log(f"stokes: M2L at level {DEPTH}, {way}: {ms:.3f} ms, relative "
             f"difference from the route {diff:.3e}")
     del kf
@@ -924,12 +959,181 @@ def phase_stokes(torch, counters):
                           main_path_bound_by=b_by)
 
 
+def near_ways(torch, kf, fp):
+    """The near field of the set-up KIFMM on padded densities fp two
+    ways: the halo stencil p2p_stencil on the run's own columns, and
+    p2p_ulist on each box's 27 neighbours' slots gathered side by side
+    (S = 27 cap_s padded to 128, zero coordinates where a neighbour
+    lies outside the domain; 1 << 22 slots a launch), the gathers built
+    here and not timed -> (stencil ms, ulist ms, relative difference,
+    launches of p2p_ulist)."""
+    import torch.nn.functional as F
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    B, cs = kf.src_tree.n_boxes, kf.cap_s
+    S = -(-27 * cs // 128) * 128
+    ok = (kf.nb >= 0).float()
+    nbc = kf.nb.clamp(min=0)
+    chunk = max(1, (1 << 22) // S)
+
+    def gather(a, g):                  # (B, cs, k) -> (G, k, S)
+        a = a[nbc[g]] * ok[g, :, None, None]
+        return F.pad(a.permute(0, 3, 1, 2).reshape(a.shape[0], a.shape[-1],
+                                                   -1),
+                     (0, S - 27 * cs)).contiguous()
+
+    xt = kf.xt_pad.transpose(1, 2).contiguous()
+    groups = [slice(g0, g0 + chunk) for g0 in range(0, B, chunk)]
+    ins = [(xt[g], gather(kf.xs_pad, g), gather(fp, g)) for g in groups]
+    ulist = lambda: torch.cat([p2p_ulist(kf.ker_s2t, a, b, None, c)
+                               for a, b, c in ins])
+    diff = rel_max_err(ulist(), kf._p2p_near(fp))
+    out = (cuda_ms(torch, lambda: kf._p2p_near(fp), 3),
+           cuda_ms(torch, ulist, 3), diff, len(ins))
+    del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_p8(torch, counters):
+    """7: ParticleFMM(accuracy=8) at 1e7 points, rung 2 of BASELINE.md,
+    through m2l_grid and p2p_stencil."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
+    from sctl_tpu_torch.fmm.kifmm import unit_tables
+    from sctl_tpu_torch.kernel_cases import (formula_cases, kernel_cases,
+                                             main_path_work, rel_max_err)
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.m2l import m2l_grid
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, to_halo
+    t = time.perf_counter()
+    unit_tables(Laplace3D_FxU.name, P8, 3e-5)
+    log(f"p8: cold Laplace3D-FxU table build (p={P8}, rcond 3e-5) "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(7)
+    x = rng.random((P8_N, 3))
+    f = rng.normal(size=(P8_N, 1))
+    idx = rng.choice(P8_N, N_SAMPLE, replace=False)
+    x64 = torch.as_tensor(x, device="cuda")
+    u_ref = direct_eval_blocked(Laplace3D_FxU, x64[idx], x64,
+                                torch.as_tensor(f, device="cuda"),
+                                block_t=N_SAMPLE, block_s=1 << 17)
+    u_ref = u_ref.cpu().numpy()
+    del x64
+    f_dev = torch.as_tensor(f, dtype=torch.float32, device="cuda")
+
+    fmm = ParticleFMM(accuracy=P8, device="cuda", dtype=torch.float32)
+    fmm.set_kernel_s2t("src", "trg", Laplace3D_FxU)
+    fmm.set_src_coord("src", x)
+    fmm.set_src_density("src", f)
+    fmm.set_trg_coord("trg", x)
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t = time.perf_counter()
+    kf = fmm._get_kifmm(Laplace3D_FxU, x, fmm.src["src"], "src", "trg")
+    torch.cuda.synchronize()
+    ops = kf._ops
+    log(f"p8 setup: {time.perf_counter() - t:.2f} s ({_describe(kf)})")
+    r_ex, r2_ex = ops.m2l_a.shape[1:]
+    log(f"p8 routes: M2L level 2 per-parity sweep at exact ranks "
+        f"{r_ex}/{r2_ex}; levels 3-{kf.depth} {ops.m2l_route} at ranks "
+        f"{ops.blk_r}/{ops.blk_r2}; near field p2p_{kf.near_route} (cap_s "
+        f"{kf.cap_s}, cap_t {kf.cap_t})")
+    t = time.perf_counter()
+    u = fmm.eval("trg")
+    log(f"p8: ParticleFMM.eval {time.perf_counter() - t:.4f} s (host "
+        f"arrays in and out)")
+    _evals(torch, kf, f_dev, "p8")
+    launches = read(counters)
+    log(f"p8: peak device memory of setup and evaluations "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    err = _sample_err(u[idx], u_ref)
+    log(f"p8: rel err at {N_SAMPLE} sampled targets vs float64 p2p "
+        f"{err:.3e} (bar {FMM_BAR:g}); launches {launches}")
+    if not (ops.m2l_route == "grid" and kf.near_route == "stencil"
+            and kf.depth >= 3):
+        raise SystemExit(f"chip_smoke: p8 took other routes: "
+                         f"{_describe(kf)}")
+    if not np.isfinite(err) or not err < FMM_BAR:
+        raise SystemExit(f"chip_smoke: p8 error {err:.3e}")
+    if launches["p2p"] or not _tree_kernels_launched(kf, launches):
+        raise SystemExit(f"chip_smoke: p8: a kernel of the path was not "
+                         f"launched: {launches}")
+
+    # the two new kernels against their plain versions, reduced
+    cases = kernel_cases(kf)
+    rows = phase_kernels(torch, None, {k: cases[k] for k in
+                                       ("m2l_grid", "p2p_stencil")})
+    frows = phase_kernels(torch, None,
+                          formula_cases(kf, stages=("p2p_stencil",)))
+    rows["p2p_stencil"]["cases"] = {
+        k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
+                plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+        for k, v in frows.items()}
+
+    # each alone at the run's shapes (level 5 for M2L)
+    n = 1 << kf.depth
+    qp = torch.zeros((n + 6,) * 3 + (ops.blk_r2,), device="cuda")
+    qp[3:-3, 3:-3, 3:-3] = torch.randn((n, n, n, ops.blk_r2),
+                                       device="cuda")
+    fp, _ = kf.pad_density(f_dev)
+    f_h = to_halo(fp, kf.rast_to_mort, n)
+    full = {"m2l_grid": lambda: m2l_grid(qp, ops.m2l_at),
+            "p2p_stencil": lambda: p2p_stencil(
+                kf.ker_s2t, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo,
+                f_h)}
+    work = main_path_work(kf)
+    main_rows = {}
+    for name, fn in full.items():
+        ms = cuda_ms(torch, fn, 5)
+        b_ms, b_by = bound(work[name])
+        main_rows[name] = dict(launches=launches[name], main_path_ms=ms,
+                               main_path_bound_ms=b_ms,
+                               main_path_bound_by=b_by)
+        log(f"p8: {name} alone at the run's shapes (M2L: level "
+            f"{kf.depth}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), work "
+            f"{work[name]}")
+    del qp, f_h
+    for way, (ms, diff) in m2l_routes_at(
+            torch, kf, kf.depth, ("grid", "blocked", "sweep")).items():
+        log(f"p8: M2L at level {kf.depth}, {way}: {ms:.3f} ms, relative "
+            f"difference from the route {diff:.3e}")
+    st_ms, ul_ms, diff, n_ul = near_ways(torch, kf, fp)
+    log(f"p8: near field through p2p_stencil {st_ms:.3f} ms, through "
+        f"p2p_ulist on the gathered 27-box inputs {ul_ms:.3f} ms "
+        f"({n_ul} launches); relative difference {diff:.3e}")
+    del fmm, kf, u, fp, f_dev
+    torch.cuda.empty_cache()
+
+    # rung 2: p=8, depth 3, 4,000 points against the float64 p2p
+    xr = rng.random((RUNG2_N, 3))
+    fr = rng.normal(size=(RUNG2_N, 1))
+    c64 = lambda a: torch.as_tensor(a, device="cuda")
+    reset(counters)
+    kr = KIFMM(Laplace3D_FxU, p=P8, depth=3, device="cuda",
+               dtype=torch.float32, operators=ops).setup(xr, xr)
+    ur = kr.eval(fr)
+    lr = read(counters)
+    ud = direct_eval_blocked(Laplace3D_FxU, c64(xr), c64(xr),
+                             c64(fr)).cpu().numpy()
+    err2 = _sample_err(ur, ud)
+    log(f"p8 rung 2: {RUNG2_N} points, {_describe(kr)}; rel err vs float64 "
+        f"p2p at every target {err2:.3e} (bar {RUNG2_BAR:g}); launches {lr}")
+    if (not np.isfinite(err2) or not err2 < RUNG2_BAR
+            or not _tree_kernels_launched(kr, lr)):
+        raise SystemExit(f"chip_smoke: rung 2 failed: {err2:.3e}, {lr}")
+    for k, v in lr.items():
+        launches[k] += v
+    return launches, rows, main_rows
+
+
 def main():
     import torch
     smi = phase_device(torch)
     phase_build()
-    from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
-    from sctl_tpu_torch.ops.p2p import p2p, p2p_stencil9, p2p_ulist
+    from sctl_tpu_torch.ops.m2l import m2l_grid, m2l_grid_blocked
+    from sctl_tpu_torch.ops.p2p import (p2p, p2p_stencil, p2p_stencil9,
+                                        p2p_ulist)
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     from sctl_tpu_torch.config import set_precision
     from sctl_tpu_torch.kernel_cases import formula_cases
@@ -937,7 +1141,8 @@ def main():
     counters = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
                 "m2l_grid_blocked": m2l_grid_blocked,
                 "p2p_stencil9": p2p_stencil9}
-    all_counters = dict(counters, p2p_ulist=p2p_ulist, p2p=p2p)
+    all_counters = dict(counters, p2p_ulist=p2p_ulist, p2p=p2p,
+                        m2l_grid=m2l_grid, p2p_stencil=p2p_stencil)
     kf, xs, f, rng = phase_setup(torch)
     rows = phase_kernels(torch, kf)
     frows = phase_kernels(torch, kf, formula_cases(kf))
@@ -957,10 +1162,14 @@ def main():
     l6b = phase_tree(torch, all_counters)
     l6c, main_rows["p2p"] = phase_stokes(torch, all_counters)
     main_rows["p2p"]["launches"] = 0
+    torch.cuda.empty_cache()
+    l7, r7, m7 = phase_p8(torch, all_counters)
+    rows.update(r7)
+    main_rows.update({k: dict(v, launches=0) for k, v in m7.items()})
     for name in ROUTES:
         main_rows[name]["launches"] += sum(
-            lc.get(name, 0) for lc in (l4b, l5, l6a, l6b, l6c))
-    log("kernels: launches over phases 4, 4b, 5 and 6: " + ", ".join(
+            lc.get(name, 0) for lc in (l4b, l5, l6a, l6b, l6c, l7))
+    log("kernels: launches over phases 4 to 7: " + ", ".join(
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
         raise SystemExit("chip_smoke: a kernel was never launched")

@@ -59,7 +59,12 @@ class ParticleFMM:
     U = fmm.eval_direct("trg")   # O(N^2) oracle
 
     The tree's depth is KIFMM's default, about 256 points a leaf (depth
-    5 at 1e7 points), as the JAX package's facade leaves it.
+    5 at 1e7 points), as the JAX package's facade leaves it, and the
+    order p = fmm_order(accuracy).  The routes follow from these by
+    data: at accuracy=8 in float32 (p = 8, BASELINE.md's rung 2) the
+    Laplace M2L runs the 316-offset grid kernel at levels >= 3, and at
+    a few hundred points a leaf the near field runs the halo stencil
+    (KIFMM's module docstring).
     """
 
     def __init__(self, accuracy: int = 6, device=None,

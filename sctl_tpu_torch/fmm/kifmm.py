@@ -8,25 +8,31 @@ The evaluation follows the JAX package's TPU route stage by stage:
   S2M  shared-surface check potentials (ops/sl.py `surface_pair`),
        then q_up = uc2e q_check
   M2M  one concatenated matrix product per level
-  M2L  Laplace, levels >= 3: sibling-blocked V list on the parent
-       grid (ops/m2l.py `m2l_grid_blocked`); Laplace level 2 and every
-       Stokes level: the per-parity sweep as batched matrix products,
-       as the JAX package's scan runs it outside Pallas (`m2l_route`)
+  M2L  levels >= 3 in float32, by the operator stacks' sizes as the
+       JAX package chooses (`m2l_route`): the sibling-blocked V list on
+       the parent grid (ops/m2l.py `m2l_grid_blocked`; Laplace p <= 6),
+       else the 316-offset grid sweep (ops/m2l.py `m2l_grid`; Laplace
+       p = 8), else the per-parity sweep as batched matrix products, as
+       the JAX package's scan runs it outside Pallas (Stokes); level 2
+       always the per-parity sweep
   L2L  one concatenated matrix product per level
   L2T  shared-surface evaluation at the leaf targets (ops/sl.py
        `l2t_surface`)
-  P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`)
+  P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`) where
+       its block holds the box capacities, else the stencil over 9
+       shifted halo columns (ops/p2p.py `p2p_stencil`), which takes
+       any capacities
 
 The shared-surface kernels need a box count that is a multiple of 128
 (depth >= 3) and box capacities their shared memory holds (a few
 hundred points a leaf, fewer for the double layers); otherwise S2M and
 L2T go through the per-box U-list kernel
 (ops/p2p.py `p2p_ulist`), as the JAX package does
-(sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The near field takes
-the U-list kernel too, over each box's 27 neighbours, when the
-stencil kernel's block cannot hold the box capacities (more than 256
-target slots, or a slab window over the shared memory: a few hundred
-points a leaf, fewer for the kernels with more values a slot).
+(sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The slab stencil's
+block holds at most 256 target slots and a slab window within the
+shared memory (a few hundred points a leaf, fewer for the kernels with
+more values a slot); beyond that the near field takes the halo
+stencil.
 
 Box capacities are quantiles of the box counts; the points beyond them
 travel in overflow sidebands evaluated in plain torch.  Tensors on the
@@ -50,8 +56,10 @@ from ..ops._launch_checks import CHUNK_PAIRS
 from ..ops.kernels import (KERNELS, KernelSpec, Laplace3D_FxdU,
                            Laplace3D_FxU, Stokes3D_FSxU)
 from ..ops.kernels_np import full_matrix_np
-from ..ops.m2l import blocked_m2l_mats, m2l_grid_blocked
-from ..ops.p2p import p2p_stencil9, p2p_ulist, stencil9_fits, to_slab
+from ..ops.m2l import blocked_m2l_mats, m2l_grid, m2l_grid_blocked
+from ..ops.m2l import vlist_offsets as _vlist_offsets
+from ..ops.p2p import (p2p_stencil, p2p_stencil9, p2p_ulist, stencil9_fits,
+                       to_halo, to_slab)
 from ..ops.sl import (l2t_surface, l2t_surface_fits, surface_pair,
                       surface_pair_fits)
 from ..ops.uker import TREE_KERNELS, check_supported
@@ -105,20 +113,6 @@ def _pinv(a: np.ndarray, rcond: float = 1e-9) -> np.ndarray:
     return (vt.T * sinv) @ u.T
 
 
-def _vlist_offsets():
-    """The 316 same-level offsets d with |d|_inf in {2, 3} and the
-    (8 parities, 316) table: d is in the V list of a child of parity c
-    iff the parents are neighbours, |floor((c + d) / 2)|_inf <= 1."""
-    rng = np.arange(-3, 4)
-    d = np.stack(np.meshgrid(rng, rng, rng, indexing="ij"),
-                 -1).reshape(-1, 3)
-    d = d[np.abs(d).max(axis=1) >= 2]
-    par = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
-                   -1).reshape(-1, 3)
-    pd = np.floor((par[:, None, :] + d[None, :, :]) / 2).astype(int)
-    return d, np.abs(pd).max(axis=2) <= 1
-
-
 def _outer_scale(mat: np.ndarray, lam: float, row_exp, col_exp):
     """mat * outer(lam^row_exp, lam^col_exp), exponents tiled over the
     surface points (point-major layout)."""
@@ -153,6 +147,24 @@ def _rand_colbasis(A: np.ndarray, tol: float = 1e-10,
         k = min(m, 2 * k)
 
 
+# The JAX package's gates of its float32 M2L kernels (sctl_tpu/fmm/
+# kifmm.py:440-450, :1182-1186): the blocked stack within 80 MiB, else
+# the 316-offset stack, its ranks padded to 128, within 48 MiB.
+BLOCKED_STACK_MIB, GRID_STACK_MIB = 80, 48
+
+
+def m2l_route(r: int, r2: int) -> str:
+    """The float32 M2L route of levels >= 3 at ranks (r, r2): "blocked"
+    when the sibling-blocked stack 26 (8 r2)(8 r) floats fits its gate,
+    else "grid" when the 316-offset stack does, else "parity"."""
+    if 26 * (8 * r2) * (8 * r) * 4 <= BLOCKED_STACK_MIB << 20:
+        return "blocked"
+    if 316 * _round_up(r, 128) * _round_up(r2, 128) * 4 \
+            <= GRID_STACK_MIB << 20:
+        return "grid"
+    return "parity"
+
+
 def _tensor(a, device, dtype):
     """Host array -> contiguous tensor of `dtype` on `device`."""
     return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -170,17 +182,19 @@ class KIFMMOperators:
     `KIFMM.setup`).  Translations with Stokes3D-FSxU carry k0t = 4
     equivalent and k1t = 3 check values per surface point.
 
-    M2L route (`m2l_route`), keyed on the translation kernel:
-    Laplace runs the sibling-blocked kernel `m2l_grid_blocked` at
-    levels >= 3, and builds its stack; Stokes runs the per-parity sweep
-    at every level as batched matrix products, and builds no stack.
-    Both run the route's ranks (`_rank_caps`).  What was timed on an
-    H100 (PERF.md §6, chip_smoke.py phases 4 and 6c): Laplace at p=6,
-    float32; for Stokes only level 6 at p=6, float32, where the sweep
-    beat the blocked kernel.  Other orders, levels and float64 are
-    untimed; the JAX package's gates (stack sizes against the TPU's
-    on-chip memory) send Laplace p=8 to `m2l_grid`, which the port
-    does not have yet."""
+    M2L route of levels >= 3 (`m2l_route`), chosen in float32 from the
+    stacks' sizes at the capped ranks with the JAX package's gates, so
+    that port and reference run the same kernel: "blocked", the
+    sibling-blocked kernel `m2l_grid_blocked` (Laplace p <= 6), which
+    builds its (26, 8 r2, 8 r) stack; "grid", the 316-offset sweep
+    `m2l_grid` (Laplace p = 8), which builds the (316, r2, r)
+    transposed stack; "parity", the per-parity sweep as batched matrix
+    products (Stokes), which builds no stack.  float64 (the CPU only)
+    keeps the route by translation kernel: blocked for Laplace, parity
+    for Stokes.  All run the route's ranks (`_rank_caps`).  Timed on an
+    H100 (PERF.md, chip_smoke.py phases 4, 6c and 7): Laplace p=6 and
+    p=8 and Stokes p=6 in float32; for Stokes at level 6 the sweep beat
+    the blocked kernel."""
 
     TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
               "cb_unit", "cc_unit", "vb_unit", "ca_unit")
@@ -201,10 +215,12 @@ class KIFMMOperators:
             tables = unit_tables(ker_trans.name, p, rcond)
         for name in self.TABLES:
             setattr(self, name, np.asarray(tables[name], np.float64))
-        self.m2l_route = ("blocked" if ker_trans.name == Laplace3D_FxU.name
-                          else "parity")
         self.device, self.dtype = torch.device(device), dtype
         self._rank_caps(dtype)
+        self.m2l_route = (
+            m2l_route(self.blk_r, self.blk_r2) if dtype == torch.float32
+            else "blocked" if ker_trans.name == Laplace3D_FxU.name
+            else "parity")
         self._on_device = False
 
     def device_tables(self) -> "KIFMMOperators":
@@ -335,12 +351,15 @@ class KIFMMOperators:
         self.m2l_u = t(self.cb_unit)                  # (nd, r)
         self.m2l_v = t(self.vb_unit)                  # (nd, r2)
         self.m2l_a = t(self.ca_unit)                  # (316, r, r2)
-        # the blocked route's stack at the route's ranks, built only for
-        # that route (at Stokes ranks in float64 it would take GBs)
+        # each kernel route's stack at the route's ranks, built only for
+        # that route (at Stokes ranks in float64 the blocked one would
+        # take GBs)
+        r, r2 = self.blk_r, self.blk_r2
         self.m2l_blk = (t(blocked_m2l_mats(self.ca_unit, self.offsets,
-                                           self.parity_valid, self.blk_r,
-                                           self.blk_r2))
+                                           self.parity_valid, r, r2))
                         if self.m2l_route == "blocked" else None)
+        self.m2l_at = (t(self.ca_unit[:, :r, :r2].transpose(0, 2, 1))
+                       if self.m2l_route == "grid" else None)
         # per-parity sweep tables: for child parity c (4x + 2y + z) its
         # 189 offsets d, c + d = 2 eb + ep
         vidx, ebs, eps = [], [], []
@@ -589,22 +608,24 @@ class KIFMM:
         self.SL = -(-9 * self.cap_s // 128) * 128
         # routes by shape: the shared-surface kernels take a box count
         # that is a multiple of 128 and capacities their shared memory
-        # holds, the slab stencil's block the caps; otherwise the U-list
-        # kernel (see the module docstring)
+        # holds, otherwise the U-list kernel; the near field the slab
+        # stencil where its block holds the caps, otherwise the halo
+        # stencil (see the module docstring)
         self.surface_route = (
             src.n_boxes % 128 == 0
             and surface_pair_fits(self.ker_s2m, self.cap_s)
             and l2t_surface_fits(self.ker_l2t, ops.n_surf))
-        self.stencil_route = stencil9_fits(self.ker_s2t, self.cap_t,
-                                           self.SL)
+        self.near_route = ("stencil9" if stencil9_fits(
+            self.ker_s2t, self.cap_t, self.SL) else "stencil")
         self.p2p_nrm = self.ker_s2t.needs_normal
-        if self.stencil_route:
-            slab = lambda a: to_slab(a, self.rast_to_mort, n,
-                                     self.SL).contiguous()
-            self.xs_slab = slab(self.xs_pad)
-            self.ns_slab = slab(self.ns_pad) if self.p2p_nrm else None
+        if self.near_route == "stencil9":
+            lay = lambda a: to_slab(a, self.rast_to_mort, n, self.SL)
+            self.xs_slab = lay(self.xs_pad)
+            self.ns_slab = lay(self.ns_pad) if self.p2p_nrm else None
         else:
-            self._setup_near_ulist()
+            lay = lambda a: to_halo(a, self.rast_to_mort, n)
+            self.xs_halo = lay(self.xs_pad)
+            self.ns_halo = lay(self.ns_pad) if self.p2p_nrm else None
         # density gather and result scatter indices
         self.src_perm = ti(src.perm)
         self.trg_perm = ti(trg.perm)
@@ -748,9 +769,10 @@ class KIFMM:
     def _m2l_sweep(self, q_levels):
         """V-list translations per level -> {level: (B_l, nd) downward
         equivalents}, on the operators' route (KIFMMOperators.m2l_route):
-        "blocked", the blocked kernel at levels >= 3 and the per-parity
-        sweep at exact ranks at level 2; "parity", the per-parity sweep
-        at every level, at the route's ranks (capped in float32)."""
+        "blocked" or "grid", that kernel at levels >= 3 and the
+        per-parity sweep at exact ranks at level 2; "parity", the
+        per-parity sweep at every level, at the route's ranks (capped in
+        float32)."""
         ops = self._ops
         route = ops.m2l_route
         nd = ops.n_surf * ops.k0t
@@ -766,6 +788,8 @@ class KIFMM:
             q_grid = q_grid.reshape(nside, nside, nside, nd)
             if lvl >= 3 and route == "blocked":
                 out = self._m2l_blocked(q_grid, h)
+            elif lvl >= 3 and route == "grid":
+                out = self._m2l_grid(q_grid)
             else:
                 rr = ((ops.blk_r, ops.blk_r2) if route == "parity"
                       else ops.m2l_a.shape[1:])
@@ -787,6 +811,15 @@ class KIFMM:
         acc = accb.reshape(h, h, h, 2, 2, 2, r).permute(
             0, 3, 1, 4, 2, 5, 6).reshape((2 * h) ** 3, r)
         return acc @ ops.m2l_u[:, :r].T
+
+    def _m2l_grid(self, q_grid):
+        """316-offset M2L of one level through `m2l_grid` at the capped
+        ranks (sctl_tpu/fmm/kifmm.py:1216-1241): project onto V, pad 3,
+        sweep, expand by U -> (n, n, n, nd) in raster order."""
+        ops = self._ops
+        r, r2 = ops.blk_r, ops.blk_r2
+        qp = F.pad(q_grid @ ops.m2l_v[:, :r2], (0, 0, 3, 3, 3, 3, 3, 3))
+        return m2l_grid(qp, ops.m2l_at) @ ops.m2l_u[:, :r].T
 
     def _m2l_parity_sweep(self, q_grid, h, r, r2):
         """Per child parity c, the 189 valid offsets as contiguous
@@ -856,8 +889,7 @@ class KIFMM:
         _mark(marks, "L2T")
 
         # ---- P2P near field ----
-        u_near = (self._p2p_stencil(fp) if self.stencil_route
-                  else self._p2p_ulist(fp))
+        u_near = self._p2p_near(fp)
         nb = self.nb
         if self.n_ovf_s:
             # sideband sources -> padded targets of their 27 neighbours
@@ -896,49 +928,19 @@ class KIFMM:
         _mark(marks, "P2P")
         return u_total, u_ovf
 
-    def _p2p_stencil(self, fp):
-        """Near field through the slab stencil: one raster gather of the
-        densities into the slab, one gather of the result back to
-        Morton order -> (B, cap_t, k1), unscaled."""
+    def _p2p_near(self, fp):
+        """Near field through the route's stencil: one raster gather of
+        the densities into the slab or halo columns, one gather of the
+        result back to Morton order -> (B, cap_t, k1), unscaled."""
         n = 1 << self.depth
-        f_s = to_slab(fp, self.rast_to_mort, n, self.SL)
-        u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
-                           self.xt_rast, self.xs_slab, f_s, self.ns_slab)
+        if self.near_route == "stencil9":
+            f_s = to_slab(fp, self.rast_to_mort, n, self.SL)
+            u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
+                               self.xt_rast, self.xs_slab, f_s,
+                               self.ns_slab)
+        else:
+            f_h = to_halo(fp, self.rast_to_mort, n)
+            u_r = p2p_stencil(self.ker_s2t, n, self.cap_s, self.cap_t,
+                              self.xt_rast, self.xs_halo, f_h,
+                              self.ns_halo)
         return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]
-
-    def _setup_near_ulist(self):
-        """Tables of the near field's U-list route: per box, its 27
-        neighbours' padded source slots side by side (zero coordinates
-        where a neighbour lies outside the domain), S padded to 128."""
-        B, cs = self.src_tree.n_boxes, self.cap_s
-        self.ul_S = _round_up(27 * cs, 128)
-        self.ul_ok = (self.nb >= 0).to(self.dtype)            # (B, 27)
-        nbc = self.nb.clamp(min=0)
-
-        def gather(a):                                        # (B, cs, 3)
-            a = a[nbc] * self.ul_ok[..., None, None]          # (B,27,cs,3)
-            return _pad_to(a.permute(0, 3, 1, 2).reshape(B, 3, -1),
-                           self.ul_S)
-
-        self.ul_xs = gather(self.xs_pad)
-        self.ul_ns = gather(self.ns_pad) if self.p2p_nrm else None
-        self.ul_xt = self.xt_pad.transpose(1, 2).contiguous()
-        # boxes per launch: the gathered (G, k0 + 3, S) inputs stay near
-        # (1 << 22) slots, the JAX package's U-list chunk
-        self.ul_chunk = max(1, (1 << 22) // self.ul_S)
-
-    def _p2p_ulist(self, fp):
-        """Near field through the U-list kernel over each box's 27
-        neighbours -> (B, cap_t, k1), unscaled."""
-        B = self.src_tree.n_boxes
-        nbc = self.nb.clamp(min=0)
-        out = []
-        for g0 in range(0, B, self.ul_chunk):
-            g = slice(g0, g0 + self.ul_chunk)
-            f = fp[nbc[g]] * self.ul_ok[g, :, None, None]     # (G,27,cs,k0)
-            f = _pad_to(f.permute(0, 3, 1, 2).reshape(
-                f.shape[0], f.shape[-1], -1), self.ul_S)
-            out.append(p2p_ulist(
-                self.ker_s2t, self.ul_xt[g], self.ul_xs[g],
-                None if self.ul_ns is None else self.ul_ns[g], f))
-        return torch.cat(out)

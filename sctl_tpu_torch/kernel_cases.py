@@ -3,10 +3,13 @@ the counts of each kernel's bound.
 
 The cases take their widths from a set-up `KIFMM` (source and target
 slot capacities, slab group SL, the leaf-level check surface, the M2L
-ranks) and a reduced count (4096 boxes, a parent grid of h = 8 for
-M2L, a 16^3 grid for P2P), so the plain versions stay small.
-`kernel_cases` builds them for the KIFMM's own kernel roles, or for one
-given formula (`formula_cases` runs every formula each kernel takes).
+ranks) and a reduced count (4096 boxes, a 16^3 grid for M2L, a 16^3
+grid for the slab stencil, an 8^3 grid for the halo stencil, whose
+capacities are larger), so the plain versions stay small.
+`kernel_cases` builds them for the KIFMM's own routes and kernel roles
+(its M2L kernel, blocked or grid, and its near-field stencil), or for
+one given formula (`formula_cases` runs every formula each pair kernel
+takes).
 Source slots hold a density as often as the KIFMM's leaves fill theirs
 on average; the others are zero, as the padding of the main path is.
 
@@ -34,14 +37,17 @@ import numpy as np
 import torch
 
 from .ops.kernels import KERNELS
-from .ops.m2l import m2l_grid_blocked, m2l_grid_blocked_plain, m2l_windows
-from .ops.p2p import (p2p, p2p_plain, p2p_stencil9, p2p_stencil9_plain,
-                      p2p_ulist, p2p_ulist_plain, to_slab)
+from .ops.m2l import (N_VALID, m2l_grid, m2l_grid_blocked,
+                      m2l_grid_blocked_plain, m2l_grid_plain, m2l_windows,
+                      parity_offsets)
+from .ops.p2p import (p2p, p2p_plain, p2p_stencil, p2p_stencil9,
+                      p2p_stencil9_plain, p2p_stencil_plain, p2p_ulist,
+                      p2p_ulist_plain, to_halo, to_slab)
 from .ops.sl import (l2t_surface, l2t_surface_plain, surface_pair,
                      surface_pair_plain)
 from .ops.uker import L2T_KERNELS, S2M_KERNELS, SUPPORTED, TREE_KERNELS
 
-N_BOXES, M2L_H, P2P_N, ULIST_G = 4096, 8, 16, 32
+N_BOXES, M2L_H, P2P_N, STENCIL_N, ULIST_G = 4096, 8, 16, 8, 32
 P2P_T, P2P_S = 4096, 39_000
 
 
@@ -64,6 +70,20 @@ def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int,
     return dict(pairs=pairs, pair_flops=kernel.flops,
                 bytes=4 * ((3 + kernel.kdim1) * n ** 3 * cap_t
                            + kernel.src_floats * n * n * (n + 2) * SL))
+
+
+def p2p_stencil_work(kernel, pairs: int, n: int, cap: int,
+                     cap_t: int) -> dict:
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                bytes=4 * ((3 + kernel.kdim1) * n ** 3 * cap_t
+                           + kernel.src_floats * n * n * (n + 2) * cap))
+
+
+def m2l_grid_work(n: int, r: int, r2: int) -> dict:
+    """Flops of each box's 189 (r2, r) products over the n^3 grid,
+    bytes of qp, the 316-offset stack and the output."""
+    return dict(flops=2 * n ** 3 * N_VALID * r * r2,
+                bytes=4 * ((n + 6) ** 3 * r2 + 316 * r2 * r + n ** 3 * r))
 
 
 def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
@@ -158,26 +178,52 @@ def _near_counts(cnt: np.ndarray) -> np.ndarray:
                for dz in (-1, 0, 1))
 
 
+def near_kernel(kf) -> str:
+    """The near-field kernel of a set-up KIFMM's route."""
+    return "p2p_" + kf.near_route
+
+
+def m2l_kernel(kf):
+    """The M2L kernel of a set-up KIFMM's route at levels >= 3, or None
+    for the per-parity sweep and for a tree of depth 2."""
+    if kf.depth < 3:
+        return None
+    return {"blocked": "m2l_grid_blocked",
+            "grid": "m2l_grid"}.get(kf._ops.m2l_route)
+
+
 def main_path_work(kf) -> dict:
-    """Counts of each kernel's work on a set-up KIFMM's own data (the
-    M2L one at the leaf level's parent grid, on the blocked route)."""
-    ns = kf._ops.n_surf
+    """Counts of each kernel's work on a set-up KIFMM's own data: the
+    shared-surface kernels, the route's M2L kernel at the leaf level
+    (the blocked one on its parent grid) and the route's near-field
+    stencil, pairs of real targets with the real sources of their
+    neighbour boxes."""
+    ops = kf._ops
+    ns = ops.n_surf
     cs = np.minimum(kf.src_tree.box_cnt, kf.cap_s)
     ct = np.minimum(kf.trg_tree.box_cnt, kf.cap_t)
     nb = kf.src_tree.neighbor_boxes()
     near = np.where(nb >= 0, cs[np.maximum(nb, 0)], 0).sum(axis=1)
     B, n = kf.src_tree.n_boxes, 1 << kf.depth
-    return {
+    pairs = int((ct * near).sum())
+    work = {
         "surface_pair": surface_pair_work(kf.ker_s2m, int(cs.sum()) * ns,
                                           ns, B, kf.cap_s),
         "l2t_surface": l2t_surface_work(kf.ker_l2t, int(ct.sum()) * ns,
                                         ns, B, kf.cap_t),
-        "m2l_grid_blocked": m2l_grid_blocked_work(n // 2,
-                                                  kf._ops.m2l_blk),
-        "p2p_stencil9": p2p_stencil9_work(kf.ker_s2t,
-                                          int((ct * near).sum()), n,
-                                          kf.cap_t, kf.SL),
     }
+    if kf.near_route == "stencil9":
+        work["p2p_stencil9"] = p2p_stencil9_work(kf.ker_s2t, pairs, n,
+                                                 kf.cap_t, kf.SL)
+    else:
+        work["p2p_stencil"] = p2p_stencil_work(kf.ker_s2t, pairs, n,
+                                               kf.cap_s, kf.cap_t)
+    if m2l_kernel(kf) == "m2l_grid_blocked":
+        work["m2l_grid_blocked"] = m2l_grid_blocked_work(n // 2,
+                                                         ops.m2l_blk)
+    elif m2l_kernel(kf) == "m2l_grid":
+        work["m2l_grid"] = m2l_grid_work(n, ops.blk_r, ops.blk_r2)
+    return work
 
 
 def _unit_normals(rng, shape, axis):
@@ -190,9 +236,10 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
     the widths of the set-up float32 KIFMM `kf`, on its device.  Each
     call takes no argument and returns a tensor; the library call is
     one PyTorch call computing the same function (timed as a yardstick
-    only).  Without `kernel`, the four kernels of kf's main path with
-    its own kernel roles; with it, the pair kernels that take that
-    formula, in it (no M2L)."""
+    only).  Without `kernel`, the kernels of kf's main path (its M2L
+    kernel by its route, none for the per-parity sweep; its near-field
+    stencil by its route) with its own kernel roles; with it, the pair
+    kernels that take that formula, in it (no M2L)."""
     rng = np.random.default_rng(seed)
     dev = kf.device
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
@@ -202,12 +249,13 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
     fill = np.minimum(kf.src_tree.box_cnt, cap_s).mean() / cap_s
     surf = kf.surf_out_L
     ns = surf.shape[0]
+    near = near_kernel(kf)
     roles = ({"surface_pair": kf.ker_s2m, "l2t_surface": kf.ker_l2t,
-              "p2p_stencil9": kf.ker_s2t} if kernel is None else
+              near: kf.ker_s2t} if kernel is None else
              {stage: kernel for stage, names in (
                  ("surface_pair", S2M_KERNELS),
                  ("l2t_surface", L2T_KERNELS),
-                 ("p2p_stencil9", TREE_KERNELS)) if kernel.name in names})
+                 (near, TREE_KERNELS)) if kernel.name in names})
     cases = {}
 
     B = N_BOXES
@@ -236,22 +284,33 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
             lambda: l2t_surface_plain(kl, surf, xtl, q, cap_t), None,
             l2t_surface_work(kl, B * cap_t * ns, ns, B, cap_t))
 
-    if kernel is None:
+    m2l = m2l_kernel(kf) if kernel is None else None
+    if m2l == "m2l_grid_blocked":
         h, K, N = M2L_H, 8 * kf._ops.blk_r2, 8 * kf._ops.blk_r
         mats = f32(rng.normal(size=(26, K, N)) / np.sqrt(K))
         qp = np.zeros((h + 2,) * 3 + (K,))
         qp[1:-1, 1:-1, 1:-1] = rng.normal(size=(h, h, h, K))
         qp = f32(qp)
         wins = torch.stack(m2l_windows(qp))
-        cases["m2l_grid_blocked"] = (
+        cases[m2l] = (
             lambda: m2l_grid_blocked(qp, mats),
             lambda: m2l_grid_blocked_plain(qp, mats),
             lambda: torch.matmul(wins, mats).sum(0),
             m2l_grid_blocked_work(h, mats))
+    elif m2l == "m2l_grid":
+        n, r, r2 = 2 * M2L_H, kf._ops.blk_r, kf._ops.blk_r2
+        mats = f32(rng.normal(size=(316, r2, r)) / np.sqrt(r2))
+        qp = np.zeros((n + 6,) * 3 + (r2,))
+        qp[3:-3, 3:-3, 3:-3] = rng.normal(size=(n, n, n, r2))
+        qp = f32(qp)
+        wins, mcat = _parity_windows(qp, mats)
+        cases[m2l] = (
+            lambda: m2l_grid(qp, mats), lambda: m2l_grid_plain(qp, mats),
+            lambda: torch.matmul(wins, mcat), m2l_grid_work(n, r, r2))
 
-    kn = roles.get("p2p_stencil9")
+    kn = roles.get(near)
     if kn is not None:
-        n = P2P_N
+        n = P2P_N if near == "p2p_stencil9" else STENCIL_N
         lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
                       -1).reshape(-1, 1, 3)
         xs_b = (lo + rng.random((n ** 3, cap_s, 3))) * lam
@@ -259,27 +318,55 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         f_b = rng.normal(size=(n ** 3, cap_s, kn.kdim0)) * vs_b[..., None]
         xt_b = (lo + rng.random((n ** 3, cap_t, 3))) * lam
         ident = torch.arange(n ** 3, device=dev)
-        slab = lambda a: to_slab(f32(a), ident, n, SL).contiguous()
-        xs_s, f_s = slab(xs_b), slab(f_b)
-        ns_s = (slab(_unit_normals(rng, (n ** 3, cap_s, 3), 2))
-                if kn.needs_normal else None)
+        nrm_b = (_unit_normals(rng, (n ** 3, cap_s, 3), 2)
+                 if kn.needs_normal else None)
         xt_g = f32(xt_b.reshape(n, n, n, cap_t, 3)
                    .transpose(0, 1, 2, 4, 3))
-        near = _near_counts(vs_b.sum(axis=1).reshape(n, n, n))
-        cases["p2p_stencil9"] = (
-            lambda: p2p_stencil9(kn, n, SL, cap_t, xt_g, xs_s, f_s, ns_s),
-            lambda: p2p_stencil9_plain(kn, n, SL, cap_t, xt_g, xs_s, f_s,
-                                       ns_s),
-            None,
-            p2p_stencil9_work(kn, cap_t * int(near.sum()), n, cap_t, SL))
+        pairs = cap_t * int(_near_counts(vs_b.sum(axis=1)
+                                         .reshape(n, n, n)).sum())
+        if near == "p2p_stencil9":
+            lay = lambda a: to_slab(f32(a), ident, n, SL)
+            a = (kn, n, SL, cap_t, xt_g, lay(xs_b), lay(f_b),
+                 None if nrm_b is None else lay(nrm_b))
+            cases[near] = (lambda a=a: p2p_stencil9(*a),
+                           lambda a=a: p2p_stencil9_plain(*a), None,
+                           p2p_stencil9_work(kn, pairs, n, cap_t, SL))
+        else:
+            lay = lambda a: to_halo(f32(a), ident, n)
+            a = (kn, n, cap_s, cap_t, xt_g, lay(xs_b), lay(f_b),
+                 None if nrm_b is None else lay(nrm_b))
+            cases[near] = (lambda a=a: p2p_stencil(*a),
+                           lambda a=a: p2p_stencil_plain(*a), None,
+                           p2p_stencil_work(kn, pairs, n, cap_s, cap_t))
     return cases
 
 
-def formula_cases(kf, seed: int = 0) -> dict:
+def _parity_windows(qp, mats_t):
+    """The library yardstick's inputs of `m2l_grid`: per parity, its
+    boxes' 189 source rows side by side (8, h^3, 189 r2) and its
+    offsets' operators stacked (8, 189 r2, r), so that one batched
+    product computes the function (the per-parity sweep's products)."""
+    n = qp.shape[0] - 6
+    wins, mcat = [], []
+    for c, offs in enumerate(parity_offsets()):
+        cx, cy, cz = (c >> 2) & 1, (c >> 1) & 1, c & 1
+        wins.append(torch.cat([
+            qp[3 + cx + dx:3 + cx + dx + n:2, 3 + cy + dy:3 + cy + dy + n:2,
+               3 + cz + dz:3 + cz + dz + n:2].reshape((n // 2) ** 3, -1)
+            for dx, dy, dz, _ in offs.tolist()], 1))
+        mcat.append(mats_t[torch.as_tensor(offs[:, 3].astype(np.int64),
+                                           device=qp.device)]
+                    .reshape(-1, mats_t.shape[-1]))
+    return torch.stack(wins), torch.stack(mcat)
+
+
+def formula_cases(kf, seed: int = 0, stages=None) -> dict:
     """"stage[kernel]" -> case of `kernel_cases` for every formula each
-    pair kernel of the uniform KIFMM takes, at kf's widths."""
+    pair kernel of the uniform KIFMM takes (those of `stages` only,
+    when given), at kf's widths."""
     return {f"{stage}[{name}]": case for name in TREE_KERNELS
-            for stage, case in kernel_cases(kf, seed, KERNELS[name]).items()}
+            for stage, case in kernel_cases(kf, seed, KERNELS[name]).items()
+            if stages is None or stage in stages}
 
 
 def p2p_cases(device, seed: int = 0, n_trg: int = P2P_T,

@@ -39,6 +39,8 @@ SIGNATURES = {
     "sctl_surface_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_l2t_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_m2l_grid_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sctl_m2l_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sctl_p2p_stencil": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_stencil9": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_ulist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_direct_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

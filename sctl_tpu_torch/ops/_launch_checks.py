@@ -23,6 +23,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
+def n_sms(device) -> int:
+    """The card's SM count (a grid that splits its work reads it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_kernel_args(name: str, **tensors: torch.Tensor) -> None:
     for key, t in tensors.items():
         if t.dtype != torch.float32:

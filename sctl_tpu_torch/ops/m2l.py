@@ -1,12 +1,24 @@
-"""Sibling-blocked M2L (counterpart of sctl_tpu/ops/pallas_m2l.py:
-`m2l_grid_blocked` :227-303 and its host helpers :306-356).
+"""The V-list (M2L) kernels of the uniform grid (counterpart of
+sctl_tpu/ops/pallas_m2l.py).
 
-The child grid (n, n, n, r2) is reshaped to the parent grid
-(h, h, h, 8*r2), h = n/2, child channel blocks c = 4cx + 2cy + cz, and
-swept with the 26 parent-neighbour directions; direction k applies one
-(8*r2, 8*r) block operator assembled from the child-pair V-list tables,
-near child pairs zero.  On a CUDA tensor `m2l_grid_blocked` launches
-csrc/m2l_blocked.cu; on a CPU tensor it runs the plain version.
+`m2l_grid` (`m2l_grid` :109-224, host helpers :359-388): the 316-offset
+sweep over the V-projected grid (n+6, n+6, n+6, r2) with 3-wide zero
+margins.  Box b of child parity c = 4(x%2) + 2(y%2) + z%2 sums exactly
+its 189 valid offsets d (`parity_offsets`), the products
+qp[b + 3 + d] @ A_d^T.  The TPU kernel runs all 316 and masks the
+others to zero; here each parity's targets are one matrix product over
+their own offsets.
+
+`m2l_grid_blocked` (:227-303, host helpers :306-356): the child grid
+(n, n, n, r2) is reshaped to the parent grid (h, h, h, 8*r2), h = n/2,
+child channel blocks c = 4cx + 2cy + cz, and swept with the 26
+parent-neighbour directions; direction k applies one (8*r2, 8*r) block
+operator assembled from the child-pair V-list tables, near child pairs
+zero.
+
+On a CUDA tensor `m2l_grid` launches csrc/m2l_grid.cu and
+`m2l_grid_blocked` csrc/m2l_blocked.cu; on a CPU tensor each runs its
+plain version.
 """
 
 from __future__ import annotations
@@ -17,7 +29,104 @@ import numpy as np
 import torch
 
 from ._build import launch
-from ._launch_checks import check_kernel_args, on_cuda
+from ._launch_checks import check_kernel_args, n_sms, on_cuda
+
+
+def vlist_offsets():
+    """The 316 same-level offsets d with |d|_inf in {2, 3} and the
+    (8 parities, 316) table: d is in the V list of a child of parity c
+    (c = 4x + 2y + z) iff the parents are neighbours,
+    |floor((c + d) / 2)|_inf <= 1."""
+    rng = np.arange(-3, 4)
+    d = np.stack(np.meshgrid(rng, rng, rng, indexing="ij"),
+                 -1).reshape(-1, 3)
+    d = d[np.abs(d).max(axis=1) >= 2]
+    par = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                   -1).reshape(-1, 3)
+    pd = np.floor((par[:, None, :] + d[None, :, :]) / 2).astype(int)
+    return d, np.abs(pd).max(axis=2) <= 1
+
+
+# valid offsets of each child parity (189 of the 316)
+N_VALID = 189
+
+
+@functools.lru_cache(maxsize=None)
+def parity_offsets() -> np.ndarray:
+    """(8, 189, 4) int32, read-only: for child parity c = 4(x%2) +
+    2(y%2) + z%2, its valid offsets (dx, dy, dz) and their index o in
+    `vlist_offsets` order, ascending in o.  The same validity as the TPU
+    kernel's (316, t, t, n) masks (pallas_m2l.py `_full_masks`), as
+    lists."""
+    d, valid = vlist_offsets()
+    tab = np.zeros((8, N_VALID, 4), np.int32)
+    for c in range(8):
+        oi = np.nonzero(valid[c])[0]
+        tab[c, :, :3] = d[oi]
+        tab[c, :, 3] = oi
+    tab.setflags(write=False)
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _parity_offsets_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor(parity_offsets(), device=device)
+
+
+def m2l_grid_plain(qp, mats_t):
+    """Plain version of `m2l_grid`: per parity, one (h^3, r2) @ (r2, r)
+    product for each of its 189 offsets, added in order."""
+    n = qp.shape[0] - 6
+    h = n // 2
+    out = qp.new_empty((n, n, n, mats_t.shape[-1]))
+    for c, offs in enumerate(parity_offsets()):
+        cx, cy, cz = (c >> 2) & 1, (c >> 1) & 1, c & 1
+        acc = None
+        for dx, dy, dz, o in offs.tolist():
+            x0, y0, z0 = 3 + cx + dx, 3 + cy + dy, 3 + cz + dz
+            win = qp[x0:x0 + n:2, y0:y0 + n:2, z0:z0 + n:2]
+            y = win.reshape(h ** 3, -1) @ mats_t[o]
+            acc = y if acc is None else acc + y
+        out[cx::2, cy::2, cz::2] = acc.reshape(h, h, h, -1)
+    return out
+
+
+# output tile of a block of csrc/m2l_grid.cu (rows are target boxes,
+# columns the rank r)
+_GRID_BM, _GRID_BN = 128, 80
+
+
+def m2l_grid(qp, mats_t):
+    """qp (n+6, n+6, n+6, r2): the V-projected grid with 3-wide zero
+    margins; mats_t (316, r2, r): A_d^T in `vlist_offsets()` order ->
+    (n, n, n, r) in raster order: out[b] = sum over the 189 offsets d
+    valid for b's parity of qp[b + 3 + d] @ mats_t[d].  float32 on the
+    card; the card's grid splits the offsets when the boxes alone would
+    leave SMs idle, and the splits' partial sums are added here."""
+    n = qp.shape[0] - 6
+    r2, r = mats_t.shape[-2:]
+    if (n < 2 or n % 2 or qp.shape != (n + 6,) * 3 + (r2,)
+            or mats_t.shape != (316, r2, r)):
+        raise ValueError(f"m2l_grid: qp {tuple(qp.shape)}, mats_t "
+                         f"{tuple(mats_t.shape)}")
+    if not on_cuda(qp, mats_t):
+        return m2l_grid_plain(qp, mats_t)
+    check_kernel_args("m2l_grid", qp=qp, mats_t=mats_t)
+    h3 = (n // 2) ** 3
+    blocks = 8 * -(-h3 // _GRID_BM) * -(-r // _GRID_BN)
+    nsplit = min(N_VALID, max(1, -(-2 * n_sms(qp.device) // blocks)))
+    chunk = -(-N_VALID // nsplit)
+    nsplit = -(-N_VALID // chunk)
+    part = torch.empty((nsplit, n, n, n, r), dtype=torch.float32,
+                       device=qp.device)
+    launch("sctl_m2l_grid", qp.data_ptr(), mats_t.data_ptr(),
+           _parity_offsets_on(qp.device).data_ptr(), part.data_ptr(), n,
+           r2, r, nsplit, chunk)
+    m2l_grid.launches += 1
+    return part[0] if nsplit == 1 else part.sum(0)
+
+
+m2l_grid.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,25 +1,31 @@
 """Pair kernels: the dense direct sum (counterpart of
 sctl_tpu/ops/pallas_p2p.py `p2p` :521-606), the near-field P2P over the
-packed 9-column slab (`p2p_stencil9` :362-446) and the per-box U-list
+packed 9-column slab (`p2p_stencil9` :362-446), the near-field P2P over
+9 shifted halo columns (`p2p_stencil` :286-359) and the per-box U-list
 P2P (`p2p_ulist` :449-518).  Each takes its kernel formula as a
 template parameter of its CUDA source (csrc/ukernels.cuh).
 
 Boxes are in raster order.  Slab entry z' of column (x, y) holds the 9
 (dx, dy) neighbour columns' box (x+dx, y+dy, z'-1) points side by side
 (SL slots, zeros in margins and padding), so the 27-box neighbourhood
-of target box z is the one window [z*SL, (z+3)*SL).
+of target box z is the one window [z*SL, (z+3)*SL).  The halo layout
+keeps each column's own boxes only, cap slots a box between cap-wide
+zero margins (`to_halo`); the kernel reads the window [z*cap, (z+3)*cap)
+of each of the 9 neighbour columns where it lies.
 
 On a CUDA tensor `p2p` launches csrc/p2p_direct.cu (float32 or
-float64), `p2p_stencil9` csrc/p2p_stencil9.cu and `p2p_ulist`
-csrc/p2p_ulist.cu; on a CPU tensor each runs its plain version.
+float64), `p2p_stencil9` csrc/p2p_stencil9.cu, `p2p_stencil`
+csrc/p2p_stencil.cu and `p2p_ulist` csrc/p2p_ulist.cu; on a CPU tensor
+each runs its plain version.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ._build import launch
-from ._launch_checks import CHUNK_PAIRS, check_kernel_args, on_cuda
+from ._launch_checks import CHUNK_PAIRS, check_kernel_args, n_sms, on_cuda
 from .kernels import KernelSpec
 from .uker import FORMULA, TREE_KERNELS, check_supported
 
@@ -41,10 +47,6 @@ def p2p_plain(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
                 xt[t0:t0 + block_t], xs[s],
                 None if ns is None else ns[s], f[s])
     return out
-
-
-def _n_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
@@ -79,7 +81,7 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
     # enough (target block, source split) blocks for 4 per SM
     t_blocks = -(-T // _P2P_BLOCK)
     tiles = max(1, -(-S // _P2P_TILE))
-    nsplit = min(tiles, max(1, -(-4 * _n_sms(xt.device) // max(t_blocks, 1))))
+    nsplit = min(tiles, max(1, -(-4 * n_sms(xt.device) // max(t_blocks, 1))))
     chunk = -(-tiles // nsplit) * _P2P_TILE
     nsplit = max(1, -(-S // chunk))
     part = torch.empty((nsplit, T, kernel.kdim1), dtype=dt,
@@ -189,6 +191,94 @@ def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
 
 
 p2p_stencil9.launches = 0
+
+
+def to_halo(a, rast_to_mort, n: int):
+    """(B, cap, k) box-slot array in Morton order -> halo columns
+    (n, n, k, (n+2)*cap): column (x, y) holds boxes (x, y, 0..n-1) in
+    blocks of cap slots, z-major, between cap-wide zero margins (the
+    layout of the `to_halo` closure, sctl_tpu/fmm/kifmm.py:861-867).
+    Any cap: the JAX package rounds it up to a 64 or 128 multiple for
+    the TPU's lane tiles, which the CUDA kernel does not need (its loads
+    take any slot; a padded slot is a pair computed for nothing)."""
+    B, cap, k = a.shape
+    g = a[rast_to_mort].reshape(n, n, n, cap, k).permute(0, 1, 4, 2, 3)
+    return F.pad(g.reshape(n, n, k, n * cap), (cap, cap))
+
+
+def _nine_columns(a, n: int):
+    """(n, n, k, L) halo columns -> (n*n, 9, k, L): each column's 9
+    (dx, dy) neighbour columns, zeros outside the domain."""
+    pa = F.pad(a, (0, 0, 0, 0, 1, 1, 1, 1))
+    return torch.stack([pa[1 + dx:1 + dx + n, 1 + dy:1 + dy + n]
+                        for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                       2).reshape(n * n, 9, a.shape[2], -1)
+
+
+def p2p_stencil_plain(kernel: KernelSpec, nside: int, cap: int,
+                      cap_t: int, xt_g, xs_h, f_h, ns_h=None):
+    """Plain version of `p2p_stencil`, in column chunks per z."""
+    n = nside
+    xs9, f9 = _nine_columns(xs_h, n), _nine_columns(f_h, n)
+    ns9 = None if ns_h is None else _nine_columns(ns_h, n)
+    xt = xt_g.reshape(n * n, n, 3, cap_t)
+    out = xt_g.new_empty((n * n, n, cap_t, kernel.kdim1))
+    step = max(1, CHUNK_PAIRS // (cap_t * 27 * cap))
+
+    def win(a, c, z):                      # (C, 27 cap, k)
+        w = a[c, :, :, z * cap:(z + 3) * cap].transpose(2, 3)
+        return w.reshape(w.shape[0], 27 * cap, -1)
+
+    for c0 in range(0, n * n, step):
+        c = slice(c0, c0 + step)
+        for z in range(n):
+            out[c, z] = kernel.apply_pairwise(
+                xt[c, z].transpose(1, 2), win(xs9, c, z),
+                None if ns9 is None else win(ns9, c, z), win(f9, c, z))
+    return out.reshape(n, n, n, cap_t, kernel.kdim1)
+
+
+def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
+                xt_g, xs_h, f_h, ns_h=None):
+    """Uniform-grid near-field P2P over 9 shifted halo columns.
+
+    xt_g (n, n, n, 3, cap_t): target coordinates per box, raster order.
+    xs_h (n, n, 3, (n+2)*cap): halo columns (`to_halo`).
+    f_h  (n, n, k0, (n+2)*cap): densities, zero in padding and margins.
+    ns_h (n, n, 3, (n+2)*cap): source normals in the same columns (None
+         unless kernel.needs_normal).
+    -> (n, n, n, cap_t, k1) unscaled potentials, raster order.  Any
+    (cap, cap_t): the card's block streams the sources in tiles.
+    """
+    check_supported(kernel.name, TREE_KERNELS)
+    n = nside
+    col = (n, n, 3, (n + 2) * cap)
+    if (xt_g.shape != (n, n, n, 3, cap_t) or xs_h.shape != col
+            or f_h.shape != (n, n, kernel.kdim0, (n + 2) * cap)
+            or (kernel.needs_normal
+                and (ns_h is None or ns_h.shape != col))):
+        raise ValueError(f"p2p_stencil: xt_g {tuple(xt_g.shape)}, xs_h "
+                         f"{tuple(xs_h.shape)}, f_h {tuple(f_h.shape)}, "
+                         f"ns_h {None if ns_h is None else tuple(ns_h.shape)}"
+                         f", n {n}, cap {cap}, cap_t {cap_t}, kernel "
+                         f"{kernel.name}")
+    ns_h = ns_h if kernel.needs_normal else None
+    tensors = [t for t in (xt_g, xs_h, f_h, ns_h) if t is not None]
+    if not on_cuda(*tensors):
+        return p2p_stencil_plain(kernel, n, cap, cap_t, xt_g, xs_h, f_h,
+                                 ns_h)
+    check_kernel_args("p2p_stencil", xt_g=xt_g, xs_h=xs_h, f_h=f_h,
+                      **({} if ns_h is None else {"ns_h": ns_h}))
+    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
+                      device=xt_g.device)
+    launch("sctl_p2p_stencil", xt_g.data_ptr(), xs_h.data_ptr(),
+           None if ns_h is None else ns_h.data_ptr(), f_h.data_ptr(),
+           out.data_ptr(), FORMULA[kernel.name], n, cap, cap_t)
+    p2p_stencil.launches += 1
+    return out
+
+
+p2p_stencil.launches = 0
 
 
 def p2p_ulist_plain(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):

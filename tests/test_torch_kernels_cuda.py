@@ -3,11 +3,15 @@ PyTorch version on the same card, at the widths of a depth-4 KIFMM
 filled as densely as the 1e7-point depth-6 run (about 38 points a
 leaf), with a reduced count (sctl_tpu_torch/kernel_cases.py), and every
 further formula of the shared-surface and slab kernels at those widths;
-the U-list kernel at the widths of an adaptive FMM on a torus's
-far-field nodes, for the six formulas with a tree path; the direct sum
-`p2p` for all eight formulas in float32 and float64; a depth-2 KIFMM,
-which runs through the U-list kernel, and a Stokes double-layer KIFMM
-on the card against the CPU.
+the p=8 path's kernels (the grid M2L `m2l_grid` and the halo stencil
+`p2p_stencil`, all six tree formulas) at the widths of a depth-4 p=8
+KIFMM as densely filled as ParticleFMM(accuracy=8) at 1e7 points
+(about 305 points a leaf); the U-list kernel at the widths of an
+adaptive FMM on a torus's far-field nodes, for the six formulas with a
+tree path; the direct sum `p2p` for all eight formulas in float32 and
+float64; KIFMMs on the card against the CPU: p=6 and p=8 at depth 4, a
+depth-2 one, whose near field runs through the halo stencil, and a
+Stokes double layer.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -56,6 +60,42 @@ def cases(cuda_device):
     kf = KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
                dtype=torch.float32).setup(x, x)
     return kernel_cases(kf)
+
+
+# the kernels of the p=8 path (ParticleFMM(accuracy=8))
+KERNELS8 = ["surface_pair", "l2t_surface", "m2l_grid", "p2p_stencil"]
+
+
+@pytest.fixture(scope="module")
+def kf8(cuda_device):
+    """A p=8 KIFMM at depth 4 with about 305 points a leaf, so that its
+    routes are the grid M2L and the halo stencil."""
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    x = np.random.default_rng(4).random((16 ** 3 * 305, 3))
+    kf = KIFMM(Laplace3D_FxU, p=8, depth=4, device=cuda_device,
+               dtype=torch.float32).setup(x, x)
+    assert kf._ops.m2l_route == "grid" and kf.near_route == "stencil"
+    return kf
+
+
+@pytest.mark.parametrize("name", KERNELS8)
+def test_p8_kernel_matches_plain(kf8, name):
+    from sctl_tpu_torch.kernel_cases import kernel_cases, rel_max_err
+    run, plain, _, _ = kernel_cases(kf8)[name]
+    out = run()
+    torch.cuda.synchronize()
+    assert rel_max_err(out, plain()) < 1e-5
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_stencil_formula_matches_plain(kf8, name):
+    from sctl_tpu_torch.kernel_cases import formula_cases, rel_max_err
+    run, plain, _, _ = formula_cases(kf8, stages=("p2p_stencil",))[
+        f"p2p_stencil[{name}]"]
+    out = run()
+    torch.cuda.synchronize()
+    assert rel_max_err(out, plain()) < 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -130,23 +170,26 @@ def test_float64_on_card_raises(cuda_device):
         surface_pair(Laplace3D_FxU, surf, pts, f, 8)
 
 
-def test_kifmm_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("p,route", [(6, "blocked"), (8, "grid")])
+def test_kifmm_card_matches_cpu(cuda_device, p, route):
     """The whole slice at depth 4, f32: the card (CUDA kernels) against
-    the CPU (plain versions) on the same tables.  The bar is the f32
-    route's: rounding differences are amplified by the pinv operators
-    (rcond 3e-5), as between the JAX package's f32 routes."""
+    the CPU (plain versions) on the same tables, at p=6 (the blocked
+    M2L) and p=8 (the grid M2L).  The bar is the f32 route's: rounding
+    differences are amplified by the pinv operators (rcond 3e-5), as
+    between the JAX package's f32 routes."""
     from sctl_tpu_torch.fmm import KIFMM, KIFMMOperators
     from sctl_tpu_torch.ops import Laplace3D_FxU
     rng = np.random.default_rng(5)
     x = rng.random((40_000, 3))
     f = rng.normal(size=(40_000, 1))
-    cpu = KIFMM(Laplace3D_FxU, p=6, depth=4, device="cpu",
+    cpu = KIFMM(Laplace3D_FxU, p=p, depth=4, device="cpu",
                 dtype=torch.float32).setup(x, x)
     tables = {k: getattr(cpu._ops, k) for k in KIFMMOperators.TABLES}
-    ops = KIFMMOperators(Laplace3D_FxU, 6, cpu.rcond, cuda_device,
+    ops = KIFMMOperators(Laplace3D_FxU, p, cpu.rcond, cuda_device,
                          torch.float32, tables=tables)
-    card = KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
+    card = KIFMM(Laplace3D_FxU, p=p, depth=4, device=cuda_device,
                  dtype=torch.float32, operators=ops).setup(x, x)
+    assert card._ops.m2l_route == route
     u_cpu, u_card = cpu.eval(f), card.eval(f)
     assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4
 
@@ -175,9 +218,10 @@ def test_p2p_ulist_matches_plain(ulist, name):
 
 
 def test_kifmm_depth2_card_matches_cpu(cuda_device):
-    """Depth 2 on the card (S2M, L2T and, at about 300 points a box, the
-    near field through the U-list kernel) against the CPU's plain
-    versions on the same tables; bar 2e-4, as above."""
+    """Depth 2 on the card (S2M and L2T through the U-list kernel and,
+    at about 300 points a box, the near field through the halo
+    stencil) against the CPU's plain versions on the same tables; bar
+    2e-4, as above."""
     from sctl_tpu_torch.fmm import KIFMM, KIFMMOperators
     from sctl_tpu_torch.ops import Laplace3D_FxU
     rng = np.random.default_rng(8)
@@ -190,7 +234,7 @@ def test_kifmm_depth2_card_matches_cpu(cuda_device):
                          torch.float32, tables=tables)
     card = KIFMM(Laplace3D_FxU, p=6, depth=2, device=cuda_device,
                  dtype=torch.float32, operators=ops).setup(x, x)
-    assert not card.surface_route and not card.stencil_route
+    assert not card.surface_route and card.near_route == "stencil"
     u_cpu, u_card = cpu.eval(f), card.eval(f)
     assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4
 
@@ -214,6 +258,6 @@ def test_kifmm_stokes_dxu_card_matches_cpu(cuda_device):
                          torch.float32, tables=tables)
     card = KIFMM(Stokes3D_DxU, p=4, depth=3, device=cuda_device,
                  dtype=torch.float32, operators=ops).setup(x, x, n_src=n)
-    assert card.surface_route and card.stencil_route
+    assert card.surface_route and card.near_route == "stencil9"
     u_cpu, u_card = cpu.eval(f), card.eval(f)
     assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4

@@ -218,9 +218,9 @@ def test_depth2_ulist_route_matches_jax(n):
     """Depth 2 (64 boxes, not a multiple of 128), float32: S2M and L2T
     through the U-list kernel's plain version, and at 20,000 points
     (about 300 a box, beyond the slab stencil's block) the near field
-    too, against the JAX KIFMM at depth 2 with use_pallas_sl=True, whose
-    S2M and L2T take pallas_p2p.p2p_ulist in interpret mode.  Bar 6e-4
-    of the maximum (tests/test_fmm.py:443)."""
+    through the halo stencil's, against the JAX KIFMM at depth 2 with
+    use_pallas_sl=True, whose S2M and L2T take pallas_p2p.p2p_ulist in
+    interpret mode.  Bar 6e-4 of the maximum (tests/test_fmm.py:443)."""
     xs, xt, f = _depth2_case(4, n)
     jk = J_KIFMM(J_LAP, p=6, depth=2, dtype=jnp.float32,
                  use_pallas_p2p=False, use_pallas_m2l=False,
@@ -231,7 +231,7 @@ def test_depth2_ulist_route_matches_jax(n):
     kf = KIFMM(LAP, p=6, depth=2, device="cpu", dtype=torch.float32,
                operators=ops).setup(xs, xt)
     assert not kf.surface_route
-    assert kf.stencil_route == (n == 3000)
+    assert kf.near_route == ("stencil9" if n == 3000 else "stencil")
     assert rel(kf.eval(f), u_j) < 6e-4
 
 
