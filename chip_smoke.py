@@ -8,8 +8,8 @@ Phases, each printed on flushed lines with the seconds since start:
 1. device   the card's name, count, power limit, torch and CUDA versions;
             exits non-zero without a CUDA device.
 2. build    the nvcc build of sctl_tpu_torch/csrc/*.cu for sm_90a, with
-            its wall time and the ptxas register / shared-memory / spill
-            lines.
+            its wall time, the ptxas register / shared-memory / spill
+            lines and the two M2L kernels' dynamic shared memory.
 3. setup    KIFMM(Laplace3D_FxU, p=6, depth=6, float32) on 1e7 uniform
             points from numpy.random.default_rng(0), as bench.py's
             bench_fmm.
@@ -26,7 +26,12 @@ Phases, each printed on flushed lines with the seconds since start:
             sampled targets against a float64 direct sum on the card
             (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
             Every kernel's launch count in the four evaluations must be
-            > 0.  Then each kernel alone on the run's own tensors.
+            > 0.  Then each kernel alone on the run's own tensors, and the
+            M2L kernel (3xTF32 on the tensor cores) at each level 3-6 on
+            the run's own stack: its time against its CUDA-core and
+            tensor-core bounds, its split, the bytes its blocks copy
+            (tile counts; ncu's DRAM bytes where ncu runs), and its error
+            against float64, at most twice the float32 plain version's.
 4b. depth 2 ParticleFMM(Laplace3D_FxU) on 45,000 uniform points from
             numpy.random.default_rng(1): the tree path at automatic depth
             2, whose 64 boxes take S2M and L2T through the U-list kernel
@@ -93,7 +98,8 @@ Phases, each printed on flushed lines with the seconds since start:
             error at 1000 sampled targets against the float64 p2p (bar
             2e-4).  m2l_grid and p2p_stencil against their plain versions
             at reduced cases (p2p_stencil for the six tree formulas; bar
-            1e-5, as phase 4) and alone at the run's shapes.  The level-5
+            1e-5, as phase 4) and alone at the run's shapes; m2l_grid at
+            each level 3-5 as phase 4 does the blocked kernel.  The level-5
             M2L three ways on one random grid (m2l_grid, the blocked
             kernel at the same ranks, the per-parity sweep at the same
             ranks) and the near field through p2p_stencil and through
@@ -134,6 +140,9 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 RSQRT_PER_S = 16 * 132 * 1.98e9
+# dense TF32 on the tensor cores (the data sheet); the M2L kernels run
+# their f32 products as three TF32 passes (3xTF32)
+TF32_FLOPS = 495e12
 
 ROUTES = {
     "surface_pair": ("sctl_tpu_torch/csrc/surface_pair.cu",
@@ -187,9 +196,21 @@ def bound(work):
             t_ops = max(work["pairs"] * work["pair_flops"] / F32_FLOPS,
                         work["pairs"] / RSQRT_PER_S)
     else:
-        t_ops = work["flops"] / F32_FLOPS
+        t_ops = min(op_bounds(work).values()) / 1e3
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
+
+
+def op_bounds(work):
+    """An M2L kernel's operations bounds, ms: its flops on the CUDA
+    cores at the f32 rate and, for the 3xTF32 kernels, as three TF32
+    passes on the tensor cores; none for a pair kernel."""
+    if "flops" not in work:
+        return {}
+    out = {"bound_cuda_core_ms": 1e3 * work["flops"] / F32_FLOPS}
+    if work.get("tf32x3"):
+        out["bound_tensor_core_ms"] = 1e3 * 3 * work["flops"] / TF32_FLOPS
+    return out
 
 
 def ops_limit(work):
@@ -231,8 +252,10 @@ def phase_device(torch):
 def phase_build():
     from sctl_tpu_torch.ops import _build
     _build.build(force=True)
-    _build.library()
-    log("build: done")
+    lib = _build.library()
+    log(f"build: done; dynamic shared memory a block: m2l_grid_blocked "
+        f"{lib.sctl_m2l_grid_blocked_smem()} B, m2l_grid "
+        f"{lib.sctl_m2l_grid_smem()} B")
 
 
 def phase_kernels(torch, kf, cases=None):
@@ -250,18 +273,21 @@ def phase_kernels(torch, kf, cases=None):
         plain_ms = cuda_ms(torch, plain, 3)
         lib_ms = None if library is None else cuda_ms(torch, library, 20)
         b_ms, b_by = bound(work)
+        ob = op_bounds(work)
         shape = "x".join(str(s) for s in out.shape)
         log(f"kernel {name}: out {shape}, max rel err {err:.3e} "
             f"(bar {bar:g}), kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by})" + "".join(
+                f", {k} {v:.4f}" for k, v in ob.items()))
         if not err < bar:
             raise SystemExit(f"chip_smoke: {name} disagrees with its "
                              f"plain version: {err:.3e}")
         rows[name] = dict(case=shape, max_abs_err=abs_err,
                           max_rel_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          **ob)
     return rows
 
 
@@ -369,7 +395,6 @@ def phase_main(torch, kf, xs, f, rng, counters):
 
     # each kernel alone at the main path's shapes (after the counts
     # were read)
-    from sctl_tpu_torch.kernel_cases import main_path_work
     from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
     from sctl_tpu_torch.ops.p2p import p2p_stencil9, to_slab
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
@@ -388,23 +413,166 @@ def phase_main(torch, kf, xs, f, rng, counters):
             kf.cap_s),
         "l2t_surface": lambda: l2t_surface(
             Laplace3D_FxU, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t),
-        "m2l_grid_blocked": lambda: m2l_grid_blocked(qbp, ops.m2l_blk),
+        "m2l_grid_blocked": lambda: m2l_grid_blocked(qbp, ops.m2l_blk,
+                                                     ops.m2l_blk_tc),
         "p2p_stencil9": lambda: p2p_stencil9(
             Laplace3D_FxU, n, kf.SL, kf.cap_t, kf.xt_rast, kf.xs_slab,
             f_s),
     }
+    main_rows = alone_rows(torch, kf, full, launches, "main")
+    del qbp
+    main_rows["m2l_grid_blocked"]["levels"] = m2l_levels(torch, kf, "main")
+    return main_rows
+
+
+def alone_rows(torch, kf, full, launches, label):
+    """Each kernel of `full` alone at the set-up KIFMM's shapes: its ms
+    against its bound (the M2L kernels' two operations bounds too)."""
+    from sctl_tpu_torch.kernel_cases import main_path_work
     work = main_path_work(kf)
-    main_rows = {}
+    rows = {}
     for name, fn in full.items():
         ms = cuda_ms(torch, fn, 5)
         b_ms, b_by = bound(work[name])
-        main_rows[name] = dict(launches=launches[name], main_path_ms=ms,
-                               main_path_bound_ms=b_ms,
-                               main_path_bound_by=b_by)
-        log(f"main: {name} alone at the main path's shapes (M2L: level "
-            f"{DEPTH}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), work "
-            f"{work[name]}")
-    return main_rows
+        ob = {f"main_path_{k}": v for k, v in op_bounds(work[name]).items()}
+        rows[name] = dict(launches=launches[name], main_path_ms=ms,
+                          main_path_bound_ms=b_ms, main_path_bound_by=b_by,
+                          **ob)
+        log(f"{label}: {name} alone at the run's shapes (M2L: level "
+            f"{kf.depth}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+            + "".join(f", {k} {v:.4f}" for k, v in ob.items())
+            + f", work {work[name]}")
+    return rows
+
+
+def m2l_levels(torch, kf, label):
+    """The route's M2L kernel at each level 3..depth of the set-up
+    KIFMM, on one random grid of the level's shape with the route's own
+    operator stack: its time (CUDA events, 5 launches) against its two
+    operations bounds, its split, the bytes its blocks copy into shared
+    memory (from the tile counts) beside the bytes the function needs,
+    and its error against a float64 evaluation of the same inputs
+    beside the float32 plain version's; the kernel must be within
+    KERNEL_BAR of the plain version and at most twice the plain
+    version's float64 error.  -> {level: row}."""
+    from sctl_tpu_torch.kernel_cases import (m2l_grid_blocked_work,
+                                             m2l_grid_work, m2l_kernel,
+                                             rel_max_err)
+    from sctl_tpu_torch.ops import m2l
+    ops, name = kf._ops, m2l_kernel(kf)
+    dev = kf.device
+    rows = {}
+    for lvl in range(3, kf.depth + 1):
+        n = 1 << lvl
+        h = n // 2
+        if name == "m2l_grid_blocked":
+            K, N = ops.m2l_blk.shape[1:]
+            qp = torch.zeros((h + 2,) * 3 + (K,), device=dev)
+            qp[1:-1, 1:-1, 1:-1] = torch.randn((h, h, h, K), device=dev)
+            mats, fn = ops.m2l_blk, m2l.m2l_grid_blocked
+            run = lambda: fn(qp, mats, ops.m2l_blk_tc)
+            plain = m2l.m2l_grid_blocked_plain
+            work = m2l_grid_blocked_work(h, mats)
+            stages = (-(-h ** 3 // m2l.TC_BM) * -(-N // m2l.BLOCKED_BN)
+                      * 26 * -(-K // m2l.TC_BK))
+            per = 4 * m2l.TC_BK * (m2l.TC_BM + 2 * m2l.BLOCKED_BN)
+            out_floats = h ** 3 * N
+        else:
+            r2, r = ops.m2l_at.shape[1:]
+            qp = torch.zeros((n + 6,) * 3 + (r2,), device=dev)
+            qp[3:-3, 3:-3, 3:-3] = torch.randn((n, n, n, r2), device=dev)
+            mats, fn = ops.m2l_at, m2l.m2l_grid
+            run = lambda: fn(qp, mats, ops.m2l_at_tc)
+            plain = m2l.m2l_grid_plain
+            work = m2l_grid_work(n, r, r2)
+            stages = (8 * -(-h ** 3 // m2l.TC_BM) * -(-r // m2l.GRID_BN)
+                      * m2l.N_VALID * -(-r2 // m2l.TC_BK))
+            per = 4 * m2l.TC_BK * (m2l.TC_BM + 2 * m2l.GRID_BN)
+            out_floats = n ** 3 * r
+        out = run()
+        torch.cuda.synchronize()
+        nsplit = fn.last_nsplit
+        ref = plain(qp, mats)
+        e_plain = rel_max_err(out, ref)
+        r64 = plain(qp.double(), mats.double())
+        e_k, e_p = rel_max_err(out, r64), rel_max_err(ref, r64)
+        del ref, r64
+        ms = cuda_ms(torch, run, 5)
+        ob = op_bounds(work)
+        # partial outputs: written by the blocks, read by the sum
+        copied = stages * per + 4 * out_floats * (2 * nsplit if nsplit > 1
+                                                  else 1)
+        rows[lvl] = dict(ms=ms, nsplit=nsplit, flops=work["flops"],
+                         max_rel_err_plain=e_plain, err_f64=e_k,
+                         plain_err_f64=e_p, copied_bytes=copied,
+                         needed_bytes=work["bytes"], **ob)
+        log(f"{label}: {name} at level {lvl} ({'x'.join(map(str, out.shape))}"
+            f", split {nsplit}): {ms:.4f} ms, bounds "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ob.items())
+            + f"; vs plain {e_plain:.3e} (bar {KERNEL_BAR:g}); vs float64 "
+            f"{e_k:.3e}, the float32 plain version's {e_p:.3e} (ratio "
+            f"{e_k / e_p:.2f}, bar 2); bytes copied into shared memory "
+            f"{copied / 1e9:.3f} GB (tile counts), needed "
+            f"{work['bytes'] / 1e9:.3f} GB")
+        if not (e_plain < KERNEL_BAR and e_k <= 2 * e_p):
+            raise SystemExit(f"chip_smoke: {name} at level {lvl}: "
+                             f"{e_plain:.3e} from the plain version, "
+                             f"{e_k:.3e} against float64 ({e_p:.3e})")
+        del qp, out
+        torch.cuda.empty_cache()
+    top = rows[kf.depth]
+    top["dram"] = ncu_dram(name, kf.depth, mats.shape)
+    log(f"{label}: {name} DRAM bytes at level {kf.depth}: {top['dram']}")
+    return rows
+
+
+def ncu_dram(name, lvl, shape):
+    """DRAM bytes read and written by one launch of the M2L kernel
+    `name` at level `lvl` with a random stack of `shape`, as Nsight
+    Compute measures them, in a child process; where ncu is missing or
+    fails, why (the estimate from the tile counts stands then).  After
+    one failure the run does not try again."""
+    import os
+    import shutil
+    if ncu_dram.failed:
+        return ncu_dram.failed
+    ncu = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
+    if not os.path.exists(ncu):
+        ncu_dram.failed = "not measured: no ncu on this machine"
+        return ncu_dram.failed
+    n = 1 << lvl
+    grid = name == "m2l_grid"
+    q = (f"({n} + 6,) * 3 + ({shape[1]},)" if grid
+         else f"({n // 2} + 2,) * 3 + ({shape[1]},)")
+    code = (
+        "import torch\n"
+        "from sctl_tpu_torch.ops import m2l\n"
+        f"q = torch.randn({q}, device='cuda')\n"
+        f"m = torch.randn({tuple(shape)}, device='cuda')\n"
+        f"t = m2l.{'grid' if grid else 'blocked'}_operands(m)\n"
+        f"m2l.{name}(q, m, t)\n"
+        "torch.cuda.synchronize()\n")
+    try:
+        run = subprocess.run(
+            [ncu, "--csv", "-k", "regex:m2l_", "--metrics",
+             "dram__bytes_read.sum,dram__bytes_write.sum", sys.executable,
+             "-c", code], capture_output=True, text=True, timeout=240)
+    except subprocess.TimeoutExpired:
+        ncu_dram.failed = "not measured: ncu timed out"
+        return ncu_dram.failed
+    vals = {}
+    for ln in run.stdout.splitlines():
+        for metric in ("dram__bytes_read.sum", "dram__bytes_write.sum"):
+            if metric in ln:
+                vals[metric] = ln.split('","')[-3:]
+    if run.returncode or not vals:
+        tail = (run.stdout + run.stderr).strip().splitlines()[-2:]
+        ncu_dram.failed = f"not measured: ncu rc {run.returncode}: {tail}"
+        return ncu_dram.failed
+    return vals
+
+
+ncu_dram.failed = None
 
 
 def reset(counters):
@@ -758,7 +926,7 @@ def m2l_routes_at(torch, kf, lvl, ways):
     {label: (ms, relative difference from the first)}.  A blocked stack
     the route lacks is built for this and freed."""
     from sctl_tpu_torch.kernel_cases import rel_max_err
-    from sctl_tpu_torch.ops.m2l import blocked_m2l_mats
+    from sctl_tpu_torch.ops.m2l import blocked_m2l_mats, blocked_operands
     ops = kf._ops
     nd = ops.n_surf * ops.k0t
     n = 1 << lvl
@@ -766,11 +934,12 @@ def m2l_routes_at(torch, kf, lvl, ways):
     r, r2 = ops.m2l_a.shape[1:]
     cr, cr2 = ops.blk_r, ops.blk_r2
     q = torch.randn((n, n, n, nd), device=kf.device)
-    own = ops.m2l_blk
-    if "blocked" in ways and own is None:
+    own = ops.m2l_blk, ops.m2l_blk_tc
+    if "blocked" in ways and own[0] is None:
         ops.m2l_blk = torch.as_tensor(blocked_m2l_mats(
             ops.ca_unit, ops.offsets, ops.parity_valid, cr, cr2),
             dtype=torch.float32, device=kf.device)
+        ops.m2l_blk_tc = blocked_operands(ops.m2l_blk)
     fns = {"grid": (f"m2l_grid at capped ranks {cr}/{cr2}",
                     lambda: kf._m2l_grid(q)),
            "blocked": (f"blocked kernel at capped ranks {cr}/{cr2}",
@@ -785,7 +954,7 @@ def m2l_routes_at(torch, kf, lvl, ways):
         label, fn = fns[way]
         diff = rel_max_err(fn().reshape(-1, nd), ref)
         out[label] = (cuda_ms(torch, fn, 2), diff)
-    ops.m2l_blk = own
+    ops.m2l_blk, ops.m2l_blk_tc = own
     del ref
     torch.cuda.empty_cache()
     return out
@@ -1001,8 +1170,7 @@ def phase_p8(torch, counters):
     import numpy as np
     from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
     from sctl_tpu_torch.fmm.kifmm import unit_tables
-    from sctl_tpu_torch.kernel_cases import (formula_cases, kernel_cases,
-                                             main_path_work, rel_max_err)
+    from sctl_tpu_torch.kernel_cases import formula_cases, kernel_cases
     from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
     from sctl_tpu_torch.ops.m2l import m2l_grid
     from sctl_tpu_torch.ops.p2p import p2p_stencil, to_halo
@@ -1078,22 +1246,13 @@ def phase_p8(torch, counters):
                                        device="cuda")
     fp, _ = kf.pad_density(f_dev)
     f_h = to_halo(fp, kf.rast_to_mort, n)
-    full = {"m2l_grid": lambda: m2l_grid(qp, ops.m2l_at),
+    full = {"m2l_grid": lambda: m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc),
             "p2p_stencil": lambda: p2p_stencil(
                 kf.ker_s2t, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo,
                 f_h)}
-    work = main_path_work(kf)
-    main_rows = {}
-    for name, fn in full.items():
-        ms = cuda_ms(torch, fn, 5)
-        b_ms, b_by = bound(work[name])
-        main_rows[name] = dict(launches=launches[name], main_path_ms=ms,
-                               main_path_bound_ms=b_ms,
-                               main_path_bound_by=b_by)
-        log(f"p8: {name} alone at the run's shapes (M2L: level "
-            f"{kf.depth}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), work "
-            f"{work[name]}")
+    main_rows = alone_rows(torch, kf, full, launches, "p8")
     del qp, f_h
+    main_rows["m2l_grid"]["levels"] = m2l_levels(torch, kf, "p8")
     for way, (ms, diff) in m2l_routes_at(
             torch, kf, kf.depth, ("grid", "blocked", "sweep")).items():
         log(f"p8: M2L at level {kf.depth}, {way}: {ms:.3f} ms, relative "
@@ -1185,9 +1344,12 @@ def main():
                         main_path_ms=m["main_path_ms"],
                         main_path_bound_ms=m["main_path_bound_ms"],
                         main_path_bound_by=m["main_path_bound_by"],
-                        **{k: r[k] for k in ("cases", "launches_per_apply",
-                                             "main_path_ops_limit")
-                           if k in r}))
+                        **{k: v for k, v in {**r, **m}.items() if k in (
+                            "cases", "launches_per_apply",
+                            "main_path_ops_limit", "bound_cuda_core_ms",
+                            "bound_tensor_core_ms",
+                            "main_path_bound_cuda_core_ms",
+                            "main_path_bound_tensor_core_ms", "levels")}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

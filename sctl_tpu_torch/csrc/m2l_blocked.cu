@@ -7,106 +7,83 @@
 // qp is the zero-margin parent grid ((h+2)^3, K = 8*r2), W the block
 // operator stack (26, K, N = 8*r), out (h^3, N).
 //
-// Bound on the H100: f32 operations on the CUDA cores.  At level 6 of
-// the 1e7-point run (h = 32, K = 1024, N = 576) it is
-// 2 * 32^3 * 26 * 1024 * 576 = 1.0e12 flop, 15 ms at 67 TFLOP/s;
-// the bytes (qp 0.15 GB, W 61 MB, out 75 MB) take 0.09 ms.
+// Bound on the H100: operations.  At level 6 of the 1e7-point run (h =
+// 32, K = 1024, N = 576) the nonzero operator blocks need 9.1e11 flop:
+// 13.6 ms on the CUDA cores at 67 TFLOP/s, 5.5 ms as three TF32 passes
+// on the tensor cores at 495 TFLOP/s; the bytes (qp 0.16 GB, W 61 MB,
+// out 75 MB) take 0.09 ms.
 //
-// Design: a register-blocked SGEMM whose A rows are gathered by index
-// arithmetic (no window is materialized).  A block owns a 128 x 64
-// output tile and accumulates over the 26 directions and K in steps of
-// 16 through shared memory; each thread keeps an 8 x 4 tile in
-// registers.  Full float32 on the CUDA cores: the TPU's three-pass
-// bf16 split (pallas_m2l.py:44-53) exists for its matrix unit, and
-// TF32 would lose the f32 accuracy the FMM needs.
-#include "common.cuh"
+// Design: the tensor-core engine of m2l_tc.cuh (3xTF32, wgmma, a cp.async
+// ring), whose A rows are gathered here by index arithmetic: row p + 1 + D_k
+// of qp, no window materialized.  B is the stack transposed to K-major and
+// split into TF32 hi and lo parts at setup, (2, 26, N, K).  A block owns 128
+// parents x 144 columns (N = 576 at p = 6 is four tiles); the grid's third
+// axis splits the 26 K ranges into partial outputs that the wrapper adds (no
+// atomics, so a run repeats bit for bit), chosen so that every level fills
+// the card.
+#include "m2l_tc.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
-constexpr int kThreads = (BM / TM) * (BN / TN);   // 256
+constexpr int BN = 144, STAGES = 4;
 
-__global__ void __launch_bounds__(kThreads)
+struct Gather {
+  const float* qp;
+  const int* shifts;       // 26 row shifts, in shared memory
+  int h, M, N, K;
+  static constexpr int D = 26;
+  __device__ int row(int p) const {
+    if (p >= M) return -1;
+    const int hp = h + 2;
+    return ((p / (h * h) + 1) * hp + (p / h) % h + 1) * hp + p % h + 1;
+  }
+  __device__ long shift(int j) const { return shifts[j]; }
+  __device__ int op(int j) const { return j; }
+  __device__ long out_row(int p) const { return p; }
+};
+
+__global__ void __launch_bounds__(m2l_tc::kThreads, 1)
 m2l_blocked_kernel(const float* __restrict__ qp,
-                   const float* __restrict__ mats,
+                   const float* __restrict__ mats_tc,
                    const int* __restrict__ dirs, float* __restrict__ out,
-                   int h, int K, int N) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int M = h * h * h, hp = h + 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  // this thread's A-load row (gathered) and k range
-  const int arow = tid >> 1, ak = (tid & 1) * (BK / 2);
-  const int p = m0 + arow;
-  const bool avalid = p < M;
-  const int px = p / (h * h), py = (p / h) % h, pz = p % h;
-  // this thread's B-load row and columns
-  const int brow = tid / (BN / 4), bc = (tid % (BN / 4)) * 4;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int d = 0; d < 26; ++d) {
-    const long src =
-        ((long)((px + 1 + dirs[3 * d]) * hp + py + 1 + dirs[3 * d + 1]) *
-             hp + pz + 1 + dirs[3 * d + 2]) * K;
-    const float* Wd = mats + (long)d * K * N;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int k = k0 + ak + i;
-        As[ak + i][arow] = (avalid && k < K) ? qp[src + k] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + brow, c = n0 + bc + j;
-        Bs[brow][bc + j] = (k < K && c < N) ? Wd[(long)k * N + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-        const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bb[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+                   int h, int K, int N, int chunk) {
+  __shared__ int shifts[Gather::D];
+  const int hp = h + 2;
+  if (threadIdx.x < Gather::D) {
+    const int* d = dirs + 3 * threadIdx.x;
+    shifts[threadIdx.x] = (d[0] * hp + d[1]) * hp + d[2];
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c < N) out[(long)r * N + c] = acc[i][j];
-    }
-  }
+  __syncthreads();
+  const int M = h * h * h;
+  const int iters = Gather::D * ((K + m2l_tc::BK - 1) / m2l_tc::BK);
+  const int it0 = blockIdx.z * chunk, it1 = min(iters, it0 + chunk);
+  const Gather g{qp, shifts, h, M, N, K};
+  m2l_tc::run<BN, STAGES>(g, mats_tc, mats_tc + (long)Gather::D * N * K,
+                          out + (long)blockIdx.z * M * N, it0, it1);
 }
 
 }  // namespace
 
-// qp ((h+2)^3, K), mats (26, K, N), dirs (26, 3) int32 on the device,
-// out (h^3, N); float32.
-SCTL_API int sctl_m2l_grid_blocked(const float* qp, const float* mats,
+// qp ((h+2)^3, K); mats_tc (2, 26, N, K): the operator stack's TF32 hi
+// and lo parts, K-major; dirs (26, 3) int32 on the device; out
+// (nsplit, h^3, N): split s sums the iterations [s chunk, (s+1) chunk) of the
+// 26 ceil(K / 32) (K slice, direction) steps; float32, K % 4 == 0,
+// N % 8 == 0.
+SCTL_API int sctl_m2l_grid_blocked(const float* qp, const float* mats_tc,
                                    const int* dirs, float* out, int h,
-                                   int K, int N, cudaStream_t stream) {
+                                   int K, int N, int nsplit, int chunk,
+                                   cudaStream_t stream) {
+  constexpr int smem = m2l_tc::smem_bytes<BN, STAGES>();
+  cudaError_t err = allow_smem(m2l_blocked_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const int M = h * h * h;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  m2l_blocked_kernel<<<grid, kThreads, 0, stream>>>(qp, mats, dirs, out, h,
-                                                    K, N);
+  dim3 grid((M + m2l_tc::BM - 1) / m2l_tc::BM, (N + BN - 1) / BN, nsplit);
+  m2l_blocked_kernel<<<grid, m2l_tc::kThreads, smem, stream>>>(
+      qp, mats_tc, dirs, out, h, K, N, chunk);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a block of the kernel, in bytes.
+SCTL_API int sctl_m2l_grid_blocked_smem() {
+  return m2l_tc::smem_bytes<BN, STAGES>();
 }

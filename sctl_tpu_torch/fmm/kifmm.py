@@ -56,7 +56,8 @@ from ..ops._launch_checks import CHUNK_PAIRS
 from ..ops.kernels import (KERNELS, KernelSpec, Laplace3D_FxdU,
                            Laplace3D_FxU, Stokes3D_FSxU)
 from ..ops.kernels_np import full_matrix_np
-from ..ops.m2l import blocked_m2l_mats, m2l_grid, m2l_grid_blocked
+from ..ops.m2l import (blocked_m2l_mats, blocked_operands, grid_operands,
+                       m2l_grid, m2l_grid_blocked)
 from ..ops.m2l import vlist_offsets as _vlist_offsets
 from ..ops.p2p import (p2p_stencil, p2p_stencil9, p2p_ulist, stencil9_fits,
                        to_halo, to_slab)
@@ -193,8 +194,9 @@ class KIFMMOperators:
     keeps the route by translation kernel: blocked for Laplace, parity
     for Stokes.  All run the route's ranks (`_rank_caps`).  Timed on an
     H100 (PERF.md, chip_smoke.py phases 4, 6c and 7): Laplace p=6 and
-    p=8 and Stokes p=6 in float32; for Stokes at level 6 the sweep beat
-    the blocked kernel."""
+    p=8 and Stokes p=6 in float32; for Stokes at level 6 the blocked
+    kernel on the tensor cores now beats the sweep, but its stack is
+    over the gate (PERF.md, open questions)."""
 
     TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
               "cb_unit", "cc_unit", "vb_unit", "ca_unit")
@@ -360,6 +362,13 @@ class KIFMMOperators:
                         if self.m2l_route == "blocked" else None)
         self.m2l_at = (t(self.ca_unit[:, :r, :r2].transpose(0, 2, 1))
                        if self.m2l_route == "grid" else None)
+        # on a card, that stack split once into the TF32 hi and lo parts
+        # its tensor-core kernel reads
+        card = self.device.type == "cuda"
+        self.m2l_blk_tc = (blocked_operands(self.m2l_blk)
+                           if card and self.m2l_blk is not None else None)
+        self.m2l_at_tc = (grid_operands(self.m2l_at)
+                          if card and self.m2l_at is not None else None)
         # per-parity sweep tables: for child parity c (4x + 2y + z) its
         # 189 offsets d, c + d = 2 eb + ep
         vidx, ebs, eps = [], [], []
@@ -807,7 +816,7 @@ class KIFMM:
         qb = qr2.reshape(h, 2, h, 2, h, 2, r2).permute(
             0, 2, 4, 1, 3, 5, 6).reshape(h, h, h, 8 * r2)
         qbp = F.pad(qb, (0, 0, 1, 1, 1, 1, 1, 1)).contiguous()
-        accb = m2l_grid_blocked(qbp, ops.m2l_blk)
+        accb = m2l_grid_blocked(qbp, ops.m2l_blk, ops.m2l_blk_tc)
         acc = accb.reshape(h, h, h, 2, 2, 2, r).permute(
             0, 3, 1, 4, 2, 5, 6).reshape((2 * h) ** 3, r)
         return acc @ ops.m2l_u[:, :r].T
@@ -819,7 +828,7 @@ class KIFMM:
         ops = self._ops
         r, r2 = ops.blk_r, ops.blk_r2
         qp = F.pad(q_grid @ ops.m2l_v[:, :r2], (0, 0, 3, 3, 3, 3, 3, 3))
-        return m2l_grid(qp, ops.m2l_at) @ ops.m2l_u[:, :r].T
+        return m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc) @ ops.m2l_u[:, :r].T
 
     def _m2l_parity_sweep(self, q_grid, h, r, r2):
         """Per child parity c, the 189 valid offsets as contiguous

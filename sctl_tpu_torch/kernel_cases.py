@@ -27,8 +27,11 @@ Data come from numpy's generator with a fixed seed.  Used by
 A `work` dict counts what the data need: pairs whose source has a
 density (for P2P only neighbour boxes that exist) with the kernel's
 per-pair operations (`KernelSpec.flops`, the JAX package's counts),
-the flops of the nonzero operator blocks, and each input read and each
-output written once.
+the flops of the nonzero operator blocks (with `tf32x3`: the M2L
+kernels run them as three TF32 passes on the tensor cores), and each
+input read and each output written once.  The M2L cases' operator
+stacks are split for the tensor cores outside the timed call, as
+`KIFMMOperators` does at setup.
 """
 
 from __future__ import annotations
@@ -37,9 +40,9 @@ import numpy as np
 import torch
 
 from .ops.kernels import KERNELS
-from .ops.m2l import (N_VALID, m2l_grid, m2l_grid_blocked,
-                      m2l_grid_blocked_plain, m2l_grid_plain, m2l_windows,
-                      parity_offsets)
+from .ops.m2l import (N_VALID, blocked_operands, grid_operands, m2l_grid,
+                      m2l_grid_blocked, m2l_grid_blocked_plain,
+                      m2l_grid_plain, m2l_windows, parity_offsets)
 from .ops.p2p import (p2p, p2p_plain, p2p_stencil, p2p_stencil9,
                       p2p_stencil9_plain, p2p_stencil_plain, p2p_ulist,
                       p2p_ulist_plain, to_halo, to_slab)
@@ -81,18 +84,20 @@ def p2p_stencil_work(kernel, pairs: int, n: int, cap: int,
 
 def m2l_grid_work(n: int, r: int, r2: int) -> dict:
     """Flops of each box's 189 (r2, r) products over the n^3 grid,
-    bytes of qp, the 316-offset stack and the output."""
-    return dict(flops=2 * n ** 3 * N_VALID * r * r2,
+    bytes of qp, the 316-offset stack and the output; `tf32x3`: the
+    flops run as three TF32 passes on the tensor cores."""
+    return dict(flops=2 * n ** 3 * N_VALID * r * r2, tf32x3=True,
                 bytes=4 * ((n + 6) ** 3 * r2 + 316 * r2 * r + n ** 3 * r))
 
 
 def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
     """Flops of the nonzero (r2, r) blocks of the 26 operators over h^3
-    parents, bytes of qp, the operators and the output."""
+    parents, bytes of qp, the operators and the output; `tf32x3` as in
+    `m2l_grid_work`."""
     _, K, N = mats_blk.shape
     blk = mats_blk.reshape(26, 8, K // 8, 8, N // 8)
     nz = int((blk.abs().amax(dim=(2, 4)) > 0).sum())
-    return dict(flops=2 * h ** 3 * nz * (K // 8) * (N // 8),
+    return dict(flops=2 * h ** 3 * nz * (K // 8) * (N // 8), tf32x3=True,
                 bytes=4 * ((h + 2) ** 3 * K + mats_blk.numel()
                            + h ** 3 * N))
 
@@ -292,8 +297,9 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         qp[1:-1, 1:-1, 1:-1] = rng.normal(size=(h, h, h, K))
         qp = f32(qp)
         wins = torch.stack(m2l_windows(qp))
+        mtc = blocked_operands(mats)        # at setup, as KIFMMOperators
         cases[m2l] = (
-            lambda: m2l_grid_blocked(qp, mats),
+            lambda: m2l_grid_blocked(qp, mats, mtc),
             lambda: m2l_grid_blocked_plain(qp, mats),
             lambda: torch.matmul(wins, mats).sum(0),
             m2l_grid_blocked_work(h, mats))
@@ -304,8 +310,10 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         qp[3:-3, 3:-3, 3:-3] = rng.normal(size=(n, n, n, r2))
         qp = f32(qp)
         wins, mcat = _parity_windows(qp, mats)
+        mtc = grid_operands(mats)
         cases[m2l] = (
-            lambda: m2l_grid(qp, mats), lambda: m2l_grid_plain(qp, mats),
+            lambda: m2l_grid(qp, mats, mtc),
+            lambda: m2l_grid_plain(qp, mats),
             lambda: torch.matmul(wins, mcat), m2l_grid_work(n, r, r2))
 
     kn = roles.get(near)

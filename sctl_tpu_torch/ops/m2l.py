@@ -17,8 +17,13 @@ operator assembled from the child-pair V-list tables, near child pairs
 zero.
 
 On a CUDA tensor `m2l_grid` launches csrc/m2l_grid.cu and
-`m2l_grid_blocked` csrc/m2l_blocked.cu; on a CPU tensor each runs its
-plain version.
+`m2l_grid_blocked` csrc/m2l_blocked.cu, both on the tensor-core engine
+of csrc/m2l_tc.cuh (3xTF32: each f32 operand split into TF32 hi and lo
+parts, the products lo hi + hi lo + hi hi summed in f32); on a CPU
+tensor each runs its plain version.  The kernels take their operator
+stack split once (`tf32x3_operands`, built at setup by
+`KIFMMOperators`); `m2l_grid_tf32x3` and `m2l_grid_blocked_tf32x3`
+repeat the split's arithmetic in plain PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._build import launch
 from ._launch_checks import check_kernel_args, n_sms, on_cuda
@@ -73,6 +79,59 @@ def _parity_offsets_on(device: torch.device) -> torch.Tensor:
     return torch.tensor(parity_offsets(), device=device)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero, as
+    cvt.rna.tf32.f32), by integer rounding of the bits: the low 13
+    mantissa bits zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """float32 x -> (hi, lo), TF32 both, hi = tf32_round(x) and lo =
+    tf32_round(x - hi): |x - hi - lo| <= 2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_operands(mats_k: torch.Tensor) -> torch.Tensor:
+    """K-major operator stack (n_ops, N, K) float32 -> (2, n_ops, N, K):
+    its TF32 hi and lo parts, the B operand of the tensor-core kernels.
+    Built once per stack (KIFMMOperators does it at setup)."""
+    return torch.stack(tf32_split(mats_k.contiguous()))
+
+
+def _tf32x3(plain, qp, mats):
+    """The kernels' arithmetic in plain PyTorch: both operands split
+    into TF32 hi and lo parts, the three products lo hi, hi lo, hi hi
+    each summed in f32 by `plain`, added smallest first."""
+    qh, ql = tf32_split(qp)
+    mh, ml = tf32_split(mats)
+    return plain(ql, mh) + plain(qh, ml) + plain(qh, mh)
+
+
+# The engine's tiles (csrc/m2l_tc.cuh BM, BK; the kernels' BN).
+TC_BM, TC_BK = 128, 32
+BLOCKED_BN, GRID_BN = 144, 80
+# A block sums at most this many (K slice, shift) steps, each added to
+# its f32 sum once: longer sums lose accuracy (csrc/m2l_tc.cuh); and at
+# least _MIN_STEPS, so that its pipeline fills.
+_MAX_STEPS, _MIN_STEPS = 256, 8
+
+
+def _splits(device, tiles: int, steps: int, nsplit=None):
+    """(nsplit, chunk) of a launch of `tiles` output tiles whose K
+    range is `steps` (K slice, shift) steps: split s sums the steps
+    [s chunk, (s+1) chunk).  By default enough splits for two blocks an
+    SM and for at most _MAX_STEPS steps a block, none under
+    _MIN_STEPS; `nsplit` asks for a count."""
+    if nsplit is None:
+        nsplit = max(-(-2 * n_sms(device) // tiles),
+                     -(-steps // _MAX_STEPS))
+        nsplit = min(nsplit, max(1, steps // _MIN_STEPS))
+    chunk = -(-steps // max(1, min(nsplit, steps)))
+    return -(-steps // chunk), chunk
+
+
 def m2l_grid_plain(qp, mats_t):
     """Plain version of `m2l_grid`: per parity, one (h^3, r2) @ (r2, r)
     product for each of its 189 offsets, added in order."""
@@ -91,18 +150,30 @@ def m2l_grid_plain(qp, mats_t):
     return out
 
 
-# output tile of a block of csrc/m2l_grid.cu (rows are target boxes,
-# columns the rank r)
-_GRID_BM, _GRID_BN = 128, 80
+def m2l_grid_tf32x3(qp, mats_t):
+    """`m2l_grid`'s kernel arithmetic (3xTF32) in plain PyTorch."""
+    return _tf32x3(m2l_grid_plain, qp, mats_t)
 
 
-def m2l_grid(qp, mats_t):
+def grid_operands(mats_t: torch.Tensor) -> torch.Tensor:
+    """(316, r2, r) stack of `m2l_grid` -> its kernel operand (2, 316,
+    r', r2'): A_o = mats_t[o]^T, K-major, split into TF32 hi and lo,
+    r2 padded to a multiple of 4 and r to a multiple of 2 (the kernel's
+    16- and 8-byte accesses)."""
+    r2, r = mats_t.shape[-2:]
+    return tf32x3_operands(F.pad(mats_t.transpose(1, 2),
+                                 (0, -r2 % 4, 0, r % 2)))
+
+
+def m2l_grid(qp, mats_t, mats_tc=None, nsplit=None):
     """qp (n+6, n+6, n+6, r2): the V-projected grid with 3-wide zero
     margins; mats_t (316, r2, r): A_d^T in `vlist_offsets()` order ->
     (n, n, n, r) in raster order: out[b] = sum over the 189 offsets d
     valid for b's parity of qp[b + 3 + d] @ mats_t[d].  float32 on the
-    card; the card's grid splits the offsets when the boxes alone would
-    leave SMs idle, and the splits' partial sums are added here."""
+    card, where mats_tc is mats_t's kernel operand (`grid_operands`;
+    built here when not given); the card's grid splits the offsets'
+    K range into partial sums (`_splits`; `nsplit` asks for a count),
+    added here."""
     n = qp.shape[0] - 6
     r2, r = mats_t.shape[-2:]
     if (n < 2 or n % 2 or qp.shape != (n + 6,) * 3 + (r2,)
@@ -111,22 +182,31 @@ def m2l_grid(qp, mats_t):
                          f"{tuple(mats_t.shape)}")
     if not on_cuda(qp, mats_t):
         return m2l_grid_plain(qp, mats_t)
-    check_kernel_args("m2l_grid", qp=qp, mats_t=mats_t)
-    h3 = (n // 2) ** 3
-    blocks = 8 * -(-h3 // _GRID_BM) * -(-r // _GRID_BN)
-    nsplit = min(N_VALID, max(1, -(-2 * n_sms(qp.device) // blocks)))
-    chunk = -(-N_VALID // nsplit)
-    nsplit = -(-N_VALID // chunk)
-    part = torch.empty((nsplit, n, n, n, r), dtype=torch.float32,
+    if mats_tc is None:
+        mats_tc = grid_operands(mats_t)
+    check_kernel_args("m2l_grid", qp=qp, mats_t=mats_t, mats_tc=mats_tc)
+    k4, r_even = r2 + -r2 % 4, r + r % 2
+    if mats_tc.shape != (2, 316, r_even, k4):
+        raise ValueError(f"m2l_grid: mats_tc {tuple(mats_tc.shape)} for "
+                         f"mats_t {tuple(mats_t.shape)}")
+    if k4 != r2:
+        qp = F.pad(qp, (0, k4 - r2))
+    tiles = 8 * -(-(n // 2) ** 3 // TC_BM) * -(-r_even // GRID_BN)
+    ns, chunk = _splits(qp.device, tiles, N_VALID * -(-k4 // TC_BK),
+                        nsplit)
+    part = torch.empty((ns, n, n, n, r_even), dtype=torch.float32,
                        device=qp.device)
-    launch("sctl_m2l_grid", qp.data_ptr(), mats_t.data_ptr(),
+    launch("sctl_m2l_grid", qp.data_ptr(), mats_tc.data_ptr(),
            _parity_offsets_on(qp.device).data_ptr(), part.data_ptr(), n,
-           r2, r, nsplit, chunk)
+           k4, r_even, ns, chunk)
     m2l_grid.launches += 1
-    return part[0] if nsplit == 1 else part.sum(0)
+    m2l_grid.last_nsplit = ns
+    out = part[0] if ns == 1 else part.sum(0)
+    return out if r_even == r else out[..., :r].contiguous()
 
 
 m2l_grid.launches = 0
+m2l_grid.last_nsplit = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,10 +268,26 @@ def m2l_grid_blocked_plain(qp, mats_blk):
     return out.reshape(h, h, h, -1)
 
 
-def m2l_grid_blocked(qp, mats_blk):
+def m2l_grid_blocked_tf32x3(qp, mats_blk):
+    """`m2l_grid_blocked`'s kernel arithmetic (3xTF32) in plain
+    PyTorch."""
+    return _tf32x3(m2l_grid_blocked_plain, qp, mats_blk)
+
+
+def blocked_operands(mats_blk: torch.Tensor) -> torch.Tensor:
+    """(26, K, N) stack of `m2l_grid_blocked` -> its kernel operand
+    (2, 26, N, K): the stack K-major, split into TF32 hi and lo."""
+    return tf32x3_operands(mats_blk.transpose(1, 2))
+
+
+def m2l_grid_blocked(qp, mats_blk, mats_tc=None, nsplit=None):
     """qp (h+2, h+2, h+2, 8*r2) zero-margin parent grid; mats_blk
     (26, 8*r2, 8*r) in `_blk_dirs()` order -> (h, h, h, 8*r)
-    parent-blocked down-check contributions."""
+    parent-blocked down-check contributions.  float32 on the card,
+    where mats_tc is mats_blk's kernel operand (`blocked_operands`;
+    built here when not given); the card's grid splits the directions'
+    K range into partial sums (`_splits`; `nsplit` asks for a count),
+    added here."""
     h, K = qp.shape[0] - 2, qp.shape[-1]
     N = mats_blk.shape[-1]
     if (h < 1 or qp.shape != (h + 2,) * 3 + (K,)
@@ -200,14 +296,25 @@ def m2l_grid_blocked(qp, mats_blk):
                          f"mats_blk {tuple(mats_blk.shape)}")
     if not on_cuda(qp, mats_blk):
         return m2l_grid_blocked_plain(qp, mats_blk)
-    check_kernel_args("m2l_grid_blocked", qp=qp, mats_blk=mats_blk)
-    out = torch.empty((h, h, h, N), dtype=torch.float32,
-                      device=qp.device)
-    dirs = _blk_dirs_on(qp.device)
-    launch("sctl_m2l_grid_blocked", qp.data_ptr(), mats_blk.data_ptr(),
-           dirs.data_ptr(), out.data_ptr(), h, K, N)
+    if mats_tc is None:
+        mats_tc = blocked_operands(mats_blk)
+    check_kernel_args("m2l_grid_blocked", qp=qp, mats_blk=mats_blk,
+                      mats_tc=mats_tc)
+    if mats_tc.shape != (2, 26, N, K):
+        raise ValueError(f"m2l_grid_blocked: mats_tc "
+                         f"{tuple(mats_tc.shape)} for mats_blk "
+                         f"{tuple(mats_blk.shape)}")
+    tiles = -(-h ** 3 // TC_BM) * -(-N // BLOCKED_BN)
+    ns, chunk = _splits(qp.device, tiles, 26 * -(-K // TC_BK), nsplit)
+    part = torch.empty((ns, h, h, h, N), dtype=torch.float32,
+                       device=qp.device)
+    launch("sctl_m2l_grid_blocked", qp.data_ptr(), mats_tc.data_ptr(),
+           _blk_dirs_on(qp.device).data_ptr(), part.data_ptr(), h, K, N,
+           ns, chunk)
     m2l_grid_blocked.launches += 1
-    return out
+    m2l_grid_blocked.last_nsplit = ns
+    return part[0] if ns == 1 else part.sum(0)
 
 
 m2l_grid_blocked.launches = 0
+m2l_grid_blocked.last_nsplit = 0

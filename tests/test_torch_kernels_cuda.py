@@ -21,7 +21,15 @@ the card's host without the JAX package's test configuration:
 
 The f32 bar is 1e-5 of the maximum: the kernels sum in another order
 than the plain versions, and rsqrtf differs from torch.rsqrt by about
-2 ulp.
+2 ulp.  The two M2L kernels run f32 as three TF32 passes on the tensor
+cores; they are also held against a float64 evaluation of the same
+inputs, where their error may be at most twice the float32 plain
+version's: at levels 3 to 6 of the p=6 run's blocked stack and the p=8
+run's grid stack, with the split of the K range into partial sums as
+the wrappers choose it and with none (one partial sum; against the
+plain version only: a block's sum over more than 256 stages is what
+the split avoids), the h = 8 case, a ragged shape of each, and a
+repeat of one launch bit for bit.
 """
 
 import numpy as np
@@ -52,14 +60,18 @@ def cuda_device():
 
 
 @pytest.fixture(scope="module")
-def cases(cuda_device):
+def kf6(cuda_device):
     from sctl_tpu_torch.fmm import KIFMM
-    from sctl_tpu_torch.kernel_cases import kernel_cases
     from sctl_tpu_torch.ops import Laplace3D_FxU
     x = np.random.default_rng(3).random((16 ** 3 * 38, 3))
-    kf = KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
-               dtype=torch.float32).setup(x, x)
-    return kernel_cases(kf)
+    return KIFMM(Laplace3D_FxU, p=6, depth=4, device=cuda_device,
+                 dtype=torch.float32).setup(x, x)
+
+
+@pytest.fixture(scope="module")
+def cases(kf6):
+    from sctl_tpu_torch.kernel_cases import kernel_cases
+    return kernel_cases(kf6)
 
 
 # the kernels of the p=8 path (ParticleFMM(accuracy=8))
@@ -261,3 +273,107 @@ def test_kifmm_stokes_dxu_card_matches_cpu(cuda_device):
     assert card.surface_route and card.near_route == "stencil9"
     u_cpu, u_card = cpu.eval(f), card.eval(f)
     assert np.abs(u_card - u_cpu).max() / np.abs(u_cpu).max() < 2e-4
+
+
+# ---- the two M2L kernels on the tensor cores (3xTF32) ----------------
+
+def _grid_input(n_side, margin, width, seed):
+    """A zero-margin grid with a random interior, on the card."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n_side + 2 * margin,) * 3 + (width,), np.float32)
+    q[margin:-margin, margin:-margin, margin:-margin] = rng.normal(
+        size=(n_side,) * 3 + (width,))
+    return torch.as_tensor(q, device="cuda")
+
+
+def _check_m2l(out, plain, qp, mats, f64=True):
+    """out against the plain version (1e-5 of the maximum) and, with
+    f64, against a float64 evaluation: at most twice the float32 plain
+    version's error."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    ref = plain(qp, mats)
+    assert rel_max_err(out, ref) < 1e-5
+    if f64:
+        r64 = plain(qp.double(), mats.double())
+        assert rel_max_err(out, r64) <= 2 * rel_max_err(ref, r64)
+
+
+@pytest.mark.parametrize("split", ["auto", "off"])
+@pytest.mark.parametrize("h", [4, 8, 16, 32])
+def test_m2l_grid_blocked_levels(kf6, h, split):
+    """The blocked kernel at levels 3 to 6 of the p=6 run (parent grids
+    h = 4 to 32, K = 1024, N = 576) with the run's own stack."""
+    from sctl_tpu_torch.ops.m2l import (m2l_grid_blocked,
+                                        m2l_grid_blocked_plain)
+    ops = kf6._ops
+    qp = _grid_input(h, 1, ops.m2l_blk.shape[1], h)
+    out = m2l_grid_blocked(qp, ops.m2l_blk, ops.m2l_blk_tc,
+                           nsplit=None if split == "auto" else 1)
+    torch.cuda.synchronize()
+    _check_m2l(out, m2l_grid_blocked_plain, qp, ops.m2l_blk,
+               f64=split == "auto")
+
+
+@pytest.mark.parametrize("split", ["auto", "off"])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_m2l_grid_levels(kf8, n, split):
+    """`m2l_grid` at levels 3 to 5 of the p=8 run (the caps r = 80,
+    r2 = 256) with the run's own stack."""
+    from sctl_tpu_torch.ops.m2l import m2l_grid, m2l_grid_plain
+    ops = kf8._ops
+    assert ops.m2l_at.shape[1:] == (256, 80)
+    qp = _grid_input(n, 3, 256, n)
+    out = m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc,
+                   nsplit=None if split == "auto" else 1)
+    torch.cuda.synchronize()
+    _check_m2l(out, m2l_grid_plain, qp, ops.m2l_at, f64=split == "auto")
+
+
+@pytest.mark.parametrize("h,K,N", [(8, 1024, 576), (4, 8 * 512, 8 * 248)])
+def test_m2l_grid_blocked_random_stack(cuda_device, h, K, N):
+    """The blocked kernel on a random stack: the h = 8 case at the p=6
+    ranks, and the Stokes ranks (K = 8 * 512, N = 8 * 248, not a
+    multiple of the 144-wide column tile) at h = 4."""
+    from sctl_tpu_torch.ops.m2l import (blocked_operands, m2l_grid_blocked,
+                                        m2l_grid_blocked_plain)
+    rng = np.random.default_rng(K + N)
+    mats = torch.as_tensor((rng.normal(size=(26, K, N)) / np.sqrt(K))
+                           .astype(np.float32), device=cuda_device)
+    qp = _grid_input(h, 1, K, h)
+    out = m2l_grid_blocked(qp, mats, blocked_operands(mats))
+    torch.cuda.synchronize()
+    _check_m2l(out, m2l_grid_blocked_plain, qp, mats)
+
+
+def test_m2l_grid_ragged(cuda_device):
+    """`m2l_grid` at r = 72, r2 = 100: columns past r in the 80-wide
+    tile and K past r2 in the last 32-wide step are masked."""
+    from sctl_tpu_torch.ops.m2l import m2l_grid, m2l_grid_plain
+    rng = np.random.default_rng(11)
+    mats = torch.as_tensor((rng.normal(size=(316, 100, 72)) / 10)
+                           .astype(np.float32), device=cuda_device)
+    qp = _grid_input(8, 3, 100, 11)
+    out = m2l_grid(qp, mats)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 8, 8, 72)
+    _check_m2l(out, m2l_grid_plain, qp, mats)
+
+
+@pytest.mark.parametrize("name", ["m2l_grid_blocked", "m2l_grid"])
+def test_m2l_repeats_bit_for_bit(kf6, kf8, name):
+    """One launch repeated gives the same bits: the partial sums are
+    added in a fixed order, with no atomics."""
+    from sctl_tpu_torch.ops import m2l
+    if name == "m2l_grid_blocked":
+        ops = kf6._ops
+        qp = _grid_input(16, 1, ops.m2l_blk.shape[1], 1)
+        run = lambda: m2l.m2l_grid_blocked(qp, ops.m2l_blk, ops.m2l_blk_tc)
+    else:
+        ops = kf8._ops
+        qp = _grid_input(16, 3, 256, 2)
+        run = lambda: m2l.m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc)
+    a = run()
+    b = run()
+    torch.cuda.synchronize()
+    assert getattr(m2l, name).last_nsplit > 1
+    assert torch.equal(a, b)
