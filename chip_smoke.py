@@ -21,7 +21,9 @@ Phases, each printed on flushed lines with the seconds since start:
             CUDA events over 20 launches after a warm-up.
 5. main     the KIFMM's evaluation: one warm and three timed
             evaluations with fresh densities, per-stage CUDA-event
-            times, peak device memory, one profiled evaluation (device
+            times (the P2P stage as the route's stencil, "P2P near", and
+            the plain overflow sidebands, "P2P sidebands"), peak device
+            memory, one profiled evaluation (device
             time by kernel, busy share), and the relative error at 1000
             sampled targets against a float64 direct sum on the card
             (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
@@ -43,11 +45,17 @@ Phases, each printed on flushed lines with the seconds since start:
             torus_patches(nu=48, nv=20, q=6, R=2, r=0.5), 103,680
             unknowns, float32, far field through the adaptive FMM.
             Setup seconds by stage; the U-list kernel against its plain
-            version at the far FMM's widths on 32 boxes for each of its
-            three kernel formulas (bar 1e-5, as phase 3); the operator
-            apply (median of 5, and by stage from CUDA events), and how
-            far two applies of one density differ; the
-            U-list kernel's own time per apply against its bound; the
+            version at the far FMM's widths on 32 boxes for each of the
+            six tree formulas (bar 1e-5, as phase 3) and against the
+            plain version in float64 (bar 5e-6); the operator apply
+            (median of 5, and by stage from CUDA events), and how far
+            two applies of one density differ; the U-list kernel's own
+            time per apply against its bound, its launches in one apply
+            (one: the lists are compacted at setup), the apply's U
+            stage and the kernel against float64 on the apply's own
+            inputs (at most twice the float32 plain version's error:
+            on these near-surface double-layer pairs float32 itself
+            reads about 6e-6); the
             GMRES solve to 1e-6 (median of 2 after a warm solve).  Fails
             unless the residual recomputed with one more apply is at most
             1.5e-6, the error at 16 interior points against the exact
@@ -78,7 +86,10 @@ Phases, each printed on flushed lines with the seconds since start:
             densities, per-stage CUDA-event times, one profiled
             evaluation, peak device memory and the error at 1000 sampled
             targets against the float64 p2p (bar 2e-4), with that
-            oracle's time against its bound.  At depth 6 also the error with the M2L sweep at
+            oracle's time against its bound; at depth 5 the halo stencil
+            alone on the run's columns, over the boxes' real slots and
+            over every padded slot (what the counts save).  At depth 6
+            also the error with the M2L sweep at
             the exact ranks instead of the capped ones, and the level-6
             M2L three ways (the sweep at capped and at exact ranks, the
             blocked kernel at capped ranks): times and differences.
@@ -97,14 +108,18 @@ Phases, each printed on flushed lines with the seconds since start:
             times, one profiled evaluation, peak device memory, and the
             error at 1000 sampled targets against the float64 p2p (bar
             2e-4).  m2l_grid and p2p_stencil against their plain versions
-            at reduced cases (p2p_stencil for the six tree formulas; bar
-            1e-5, as phase 4) and alone at the run's shapes; m2l_grid at
-            each level 3-5 as phase 4 does the blocked kernel.  The level-5
-            M2L three ways on one random grid (m2l_grid, the blocked
-            kernel at the same ranks, the per-parity sweep at the same
-            ranks) and the near field through p2p_stencil and through
-            p2p_ulist on the same 27-box gathered inputs: times and
-            differences.  Last, rung 2 itself: KIFMM(p=8, depth=3) at
+            at reduced cases (p2p_stencil for the six tree formulas, also
+            against the plain version in float64, bar 5e-6; bar 1e-5, as
+            phase 4) and alone at the run's shapes; m2l_grid at each
+            level 3-5 as phase 4 does the blocked kernel; p2p_stencil
+            over the real slots and over every padded slot, and its
+            Laplace issue-slot floor (the
+            SASS instructions a pair of its inner loop, cuobjdump).  The
+            level-5 M2L three ways on one random grid (m2l_grid, the
+            blocked kernel at the same ranks, the per-parity sweep at
+            the same ranks) and the near field through p2p_stencil and
+            through p2p_ulist over each box's 27 neighbours' real slots:
+            times and differences.  Last, rung 2 itself: KIFMM(p=8, depth=3) at
             4,000 points against the float64 p2p (bar 1e-4,
             tests/test_accuracy_ladder.py:32-33).
 
@@ -174,6 +189,9 @@ BIE_TOL = 1e-6
 BIE_RESID_BAR = 1.5e-6
 BIE_INTERIOR_BAR = 1e-4
 BIE_MAX_ITER = 120
+# p2p_ulist on one BIE apply's own inputs against float64: at most this
+# times the float32 plain version's error on the same inputs
+ULIST_MAIN_RATIO = 1.1
 P8_N = 10_000_000
 P8 = 8
 RUNG2_N = 4000
@@ -258,7 +276,10 @@ def phase_build():
         f"{lib.sctl_m2l_grid_smem()} B")
 
 
-def phase_kernels(torch, kf, cases=None):
+def phase_kernels(torch, kf, cases=None, f64_bar=None):
+    """Each case's kernel against its plain version (and, with f64_bar,
+    against the plain version in float64 on the same inputs: the
+    redesigned pair kernels' cases take `plain(torch.float64)`)."""
     from sctl_tpu_torch.kernel_cases import kernel_cases, rel_max_err
     cases = kernel_cases(kf) if cases is None else cases
     rows = {}
@@ -269,6 +290,15 @@ def phase_kernels(torch, kf, cases=None):
         ref = plain()
         err = rel_max_err(out, ref)
         abs_err = float((out.double() - ref.double()).abs().max())
+        err64 = None
+        if f64_bar is not None:
+            err64 = rel_max_err(out, plain(torch.float64))
+            log(f"kernel {name}: against its plain version in float64 "
+                f"{err64:.3e} (bar {f64_bar:g}; the float32 plain "
+                f"version {rel_max_err(ref, plain(torch.float64)):.3e})")
+            if not err64 < f64_bar:
+                raise SystemExit(f"chip_smoke: {name} against float64: "
+                                 f"{err64:.3e}")
         ms = cuda_ms(torch, run, 20)
         plain_ms = cuda_ms(torch, plain, 3)
         lib_ms = None if library is None else cuda_ms(torch, library, 20)
@@ -287,7 +317,8 @@ def phase_kernels(torch, kf, cases=None):
         rows[name] = dict(case=shape, max_abs_err=abs_err,
                           max_rel_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                          **ob)
+                          **ob, **({} if err64 is None
+                                   else {"max_rel_err_f64": err64}))
     return rows
 
 
@@ -646,9 +677,11 @@ def _bie_setup(torch):
         f"{k} {v:.2f}" for k, v in op.setup_times.items()))
     log(f"bie setup: unknowns {op.dim(0)}, far nodes {len(op.Xf)}, leaves "
         f"{af.n_leaf}, levels {af.L}, cap_s {af.cap_s}, cap_t "
-        f"{af.cap_t}, rcond {af.rcond:g}, U list {af.u_cap} leaves x "
-        f"{af.cap_s} = S "
-        f"{af.ul_S}, {af.ul_chunk} leaves per launch, W/X pairs "
+        f"{af.cap_t}, rcond {af.rcond:g}, U list up to {af.u_cap} source "
+        f"leaves a leaf, compacted to {af.ul_xs.shape[1]} real sources "
+        f"({af.ul_xs.shape[1] / af.n_leaf:.1f} a leaf; the padded slabs "
+        f"held {af.n_leaf * af.u_cap * af.cap_s} slots), one launch an "
+        f"apply, W/X pairs "
         f"{sum(len(w[0]) for w in af.wpairs.values())}, V pairs "
         f"{sum(int((v[0] >= 0).sum()) for v in af.vtab.values())}; "
         f"near pairs "
@@ -672,18 +705,19 @@ def _median_time(torch, fn, reps):
 
 def phase_bie(torch, counters):
     import numpy as np
-    from sctl_tpu_torch.kernel_cases import ulist_cases, ulist_main_work
+    from sctl_tpu_torch.kernel_cases import (rel_max_err, ulist_cases,
+                                             ulist_main_work)
     from sctl_tpu_torch.linalg import gmres_device
     from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
                                     direct_eval_blocked)
-    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
     torch.cuda.reset_peak_memory_stats()
     lst, op = _bie_setup(torch)
     af = op._far_fmm
 
     # the fifth kernel case: p2p_ulist at the far FMM's widths
     cases = ulist_cases(af)
-    crows = phase_kernels(torch, None, cases)
+    crows = phase_kernels(torch, None, cases, f64_bar=DIRECT_BAR)
 
     X, _, _ = lst.get_node_coord()
     src = np.array([[6.0, 0.0, 0.0]])
@@ -755,23 +789,43 @@ def phase_bie(torch, counters):
         f"(bar {BIE_INTERIOR_BAR:g}); peak device memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
-    # the U-list kernel alone, on one apply's inputs, chunk by chunk
+    # the U-list kernel alone on one apply's inputs, its launches in one
+    # apply, and its output against its plain version in float64
     fp = af.pad_density(torch.randn((len(op.Xf), 3), generator=gen,
                                     device="cuda"))
-    chunks = list(af.ulist_chunks(fp))
-    ul_ms = cuda_ms(torch, lambda: [p2p_ulist(af.ker_s2t, *c)
-                                    for c in chunks], 5)
+    args = af.ulist_args(fp)
+    ul_ms = cuda_ms(torch, lambda: p2p_ulist(af.ker_s2t, *args), 5)
+    p2p_ulist.launches = 0
+    A(sig0)
+    per_apply = p2p_ulist.launches
+    u64 = p2p_ulist_plain(af.ker_s2t, *[
+        a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in args])
+    err64 = rel_max_err(p2p_ulist(af.ker_s2t, *args), u64)
+    plain64 = rel_max_err(p2p_ulist_plain(af.ker_s2t, *args), u64)
+    del u64
     work = ulist_main_work(af)
     b_ms, b_by = bound(work)
-    per_apply = len(chunks)
-    log(f"bie U list: p2p_ulist {ul_ms:.4f} ms per apply over {per_apply} "
-        f"launches, bound {b_ms:.4f} ms ({b_by}, {ops_limit(work)}), "
-        f"needed pairs {work['pairs']}, padded slots "
-        f"{af.n_leaf * af.ul_T * af.ul_S}, work {work} (bytes "
+    jax_slots = (af.n_leaf * -(-af.cap_t // 8) * 8
+                 * -(-af.u_cap * af.cap_s // 128) * 128)
+    log(f"bie U list: p2p_ulist {ul_ms:.4f} ms per apply in {per_apply} "
+        f"launch(es), the apply's U stage {stages['U']:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {ops_limit(work)}), needed pairs "
+        f"{work['pairs']} (the JAX layout's padded slabs: {jax_slots} pair "
+        f"slots), work {work} (bytes "
         f"{1e3 * work['bytes'] / HBM_BPS:.4f} ms, operations "
         f"{1e3 * work['pairs'] * work['pair_flops'] / F32_FLOPS:.4f} ms); "
-        f"launches in the "
+        f"against its plain version in float64 {err64:.3e} (the float32 "
+        f"plain version {plain64:.3e}, ratio {err64 / plain64:.2f}, bar "
+        f"{ULIST_MAIN_RATIO:g}); launches in the "
         f"phase {launches['p2p_ulist']} over {n_apply} applies")
+    # the cases hold 5e-6; on the apply's own near-surface double-layer
+    # pairs float32 arithmetic itself reads about 6e-6 (the plain
+    # version), so there the kernel is held to the plain version's error
+    if per_apply != 1 or not err64 <= ULIST_MAIN_RATIO * plain64:
+        raise SystemExit(f"chip_smoke: the BIE U list: {per_apply} "
+                         f"launches an apply, float64 error {err64:.3e} "
+                         f"(the float32 plain version {plain64:.3e})")
     if not (np.isfinite(resid) and resid <= BIE_RESID_BAR
             and np.isfinite(interior) and interior <= BIE_INTERIOR_BAR
             and int(iters) < BIE_MAX_ITER):
@@ -784,7 +838,9 @@ def phase_bie(torch, counters):
     row = dict(crows["Stokes3D-DxU"])
     row.update(main_path_ms=ul_ms, main_path_bound_ms=b_ms,
                main_path_bound_by=b_by, main_path_ops_limit=ops_limit(work),
-               launches_per_apply=per_apply,
+               launches_per_apply=per_apply, u_stage_ms=stages["U"],
+               main_path_max_rel_err_f64=err64,
+               main_path_plain_max_rel_err_f64=plain64,
                cases={k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
                               plain_ms=v["plain_ms"],
                               bound_ms=v["bound_ms"])
@@ -1038,6 +1094,7 @@ def phase_stokes(torch, counters):
     from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
     from sctl_tpu_torch.kernel_cases import p2p_work
     from sctl_tpu_torch.ops import Stokes3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import to_halo
     rng = np.random.default_rng(2)
     x = rng.random((STOKES_N, 3))
     f = rng.normal(size=(STOKES_N, 3))
@@ -1084,6 +1141,13 @@ def phase_stokes(torch, counters):
         f" (host arrays in and out)")
     _evals(torch, kf, f_dev, "stokes facade")
     launches = read(counters)
+    st6c = None
+    if kf.near_route == "stencil":
+        fp, _ = kf.pad_density(f_dev)
+        st6c = stencil_times(torch, kf, to_halo(fp, kf.rast_to_mort,
+                                                1 << kf.depth),
+                             "stokes facade")
+        del fp
     log(f"stokes facade: peak device memory of setup and evaluations "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check("stokes facade", kf, u, launches)
@@ -1125,43 +1189,146 @@ def phase_stokes(torch, counters):
     torch.cuda.empty_cache()
     stokes_depths(torch, ops)
     return launches, dict(main_path_ms=oracle_ms, main_path_bound_ms=b_ms,
-                          main_path_bound_by=b_by)
+                          main_path_bound_by=b_by), st6c
 
 
 def near_ways(torch, kf, fp):
     """The near field of the set-up KIFMM on padded densities fp two
     ways: the halo stencil p2p_stencil on the run's own columns, and
-    p2p_ulist on each box's 27 neighbours' slots gathered side by side
-    (S = 27 cap_s padded to 128, zero coordinates where a neighbour
-    lies outside the domain; 1 << 22 slots a launch), the gathers built
-    here and not timed -> (stencil ms, ulist ms, relative difference,
-    launches of p2p_ulist)."""
-    import torch.nn.functional as F
-    from sctl_tpu_torch.kernel_cases import rel_max_err
+    p2p_ulist over each box's 27 neighbours' real slots as one flat
+    list (coordinates as the boxes hold them, densities read through
+    the slot index), in one launch, the list built here and not timed
+    -> (stencil ms, ulist ms, relative difference, launches of
+    p2p_ulist)."""
+    from sctl_tpu_torch.kernel_cases import neighbour_lists, rel_max_err
     from sctl_tpu_torch.ops.p2p import p2p_ulist
-    B, cs = kf.src_tree.n_boxes, kf.cap_s
-    S = -(-27 * cs // 128) * 128
-    ok = (kf.nb >= 0).float()
-    nbc = kf.nb.clamp(min=0)
-    chunk = max(1, (1 << 22) // S)
-
-    def gather(a, g):                  # (B, cs, k) -> (G, k, S)
-        a = a[nbc[g]] * ok[g, :, None, None]
-        return F.pad(a.permute(0, 3, 1, 2).reshape(a.shape[0], a.shape[-1],
-                                                   -1),
-                     (0, S - 27 * cs)).contiguous()
-
-    xt = kf.xt_pad.transpose(1, 2).contiguous()
-    groups = [slice(g0, g0 + chunk) for g0 in range(0, B, chunk)]
-    ins = [(xt[g], gather(kf.xs_pad, g), gather(fp, g)) for g in groups]
-    ulist = lambda: torch.cat([p2p_ulist(kf.ker_s2t, a, b, None, c)
-                               for a, b, c in ins])
-    diff = rel_max_err(ulist(), kf._p2p_near(fp))
+    args = neighbour_lists(kf, fp)
+    ulist = lambda: p2p_ulist(kf.ker_s2t, *args)
+    p2p_ulist.launches = 0
+    u = ulist()
+    launches = p2p_ulist.launches
+    diff = rel_max_err(u, kf._p2p_near(fp))
+    del u
     out = (cuda_ms(torch, lambda: kf._p2p_near(fp), 3),
-           cuda_ms(torch, ulist, 3), diff, len(ins))
-    del ins
+           cuda_ms(torch, ulist, 3), diff, launches)
+    del args
     torch.cuda.empty_cache()
     return out
+
+
+def sass_loops(*name_parts):
+    """For each of `name_parts`: (instructions, MUFU.RSQ) of the
+    innermost loop with the most MUFU.RSQ in the SASS of the first
+    kernel whose mangled name holds it (cuobjdump -sass of the built
+    library), or None; {} where cuobjdump is missing.  One MUFU.RSQ is
+    one pair of the Laplace single layer, so the ratio is the issue
+    slots a pair."""
+    import shutil
+    from sctl_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR
+                                                  / _build.LIB_NAME)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    body = sass.split("Function : ")
+    return {part: _inner_loop(next(
+        (b for b in body[1:] if part in b.split("\n", 1)[0]), ""))
+        for part in name_parts}
+
+
+def _inner_loop(fn):
+    """(instructions, MUFU.RSQ) of one kernel's SASS listing's innermost
+    loop with the most MUFU.RSQ, or None."""
+    import re
+    ins, labels = [], {}
+    for ln in fn.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            labels[m.group(1)] = None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for k, v in labels.items():
+                if v is None:
+                    labels[k] = addr
+            ins.append((addr, m.group(2)))
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", text)
+        if not m:
+            continue
+        tgt = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if tgt is None or tgt > addr:
+            continue
+        body_ins = [t for a, t in ins if tgt <= a <= addr]
+        mufu = sum("MUFU.RSQ" in t for t in body_ins)
+        if mufu:
+            loops.append((tgt, addr, len(body_ins), mufu))
+    inner = [lp for lp in loops if not any(
+        o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return None
+    _, _, n_ins, mufu = max(inner, key=lambda lp: lp[3])
+    return n_ins, mufu
+
+
+def stencil_times(torch, kf, f_h, label):
+    """The halo stencil alone on the set-up KIFMM's own columns, over
+    each box's real slots by its counts (the main path) and over every
+    padded slot (no counts: the slots PR 7's kernel evaluated), with
+    their difference at the real target slots and the bound of the real
+    pairs."""
+    from sctl_tpu_torch.kernel_cases import main_path_work, rel_max_err
+    from sctl_tpu_torch.ops.p2p import p2p_stencil
+    n = 1 << kf.depth
+    args = (kf.ker_s2t, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo, f_h,
+            kf.ns_halo)
+    real = lambda: p2p_stencil(*args, kf.cnt_s_rast, kf.cnt_t_rast)
+    every = lambda: p2p_stencil(*args)
+    live = (torch.arange(kf.cap_t, device=kf.device)
+            < kf.cnt_t_rast[..., None])[..., None]
+    diff = rel_max_err(every() * live, real())
+    ms, every_ms = cuda_ms(torch, real, 3), cuda_ms(torch, every, 3)
+    work = main_path_work(kf)["p2p_stencil"]
+    b_ms, b_by = bound(work)
+    log(f"{label}: p2p_stencil {ms:.4f} ms over the real slots (2 targets "
+        f"a thread), {every_ms:.4f} ms over every padded slot, difference "
+        f"{diff:.3e}; bound {b_ms:.4f} ms ({b_by}, {ops_limit(work)}), "
+        f"pairs {work['pairs']}")
+    return dict(ms=ms, every_slot_ms=every_ms, bound_ms=b_ms,
+                pairs=work["pairs"])
+
+
+def issue_floor(pairs):
+    """The Laplace single layer's issue-slot floor of the halo stencil:
+    the SASS instructions a pair in its inner
+    loop at 128 lane-instructions a clock per SM, at the clock of the
+    rsqrt bound -> dict, or None without cuobjdump.  Beside it the slab
+    stencil's loop, which runs ukernels.cuh's default formula form."""
+    name = "p2p_stencil_kernelILi0E"
+    loops = sass_loops(name, "p2p_stencil9_kernelILi0E")
+    if loops.get(name) is None:
+        log("p8: issue-slot floor not measured (no cuobjdump or no loop)")
+        return None
+    n_ins, mufu = loops[name]
+    s9 = loops.get("p2p_stencil9_kernelILi0E")
+    if s9 is not None:
+        log(f"p8: the slab stencil's Laplace loop (the default formula "
+            f"form, one target a thread): {s9[0]} SASS instructions for "
+            f"{s9[1]} MUFU.RSQ, {s9[0] / s9[1]:.2f} a pair")
+    per_pair = n_ins / mufu
+    ms = 1e3 * pairs * per_pair / (128 * RSQRT_PER_S / 16)
+    log(f"p8: p2p_stencil issue-slot floor (Laplace FxU): "
+        f"inner loop {n_ins} SASS instructions for {mufu} MUFU.RSQ, "
+        f"{per_pair:.2f} a pair -> {ms:.4f} ms for {pairs} pairs at 128 "
+        f"lane-instructions a clock per SM (the rsqrt bound "
+        f"{1e3 * pairs / RSQRT_PER_S:.4f} ms)")
+    return dict(sass_per_pair=per_pair, loop_instructions=n_ins,
+                loop_rsqrt=mufu, issue_floor_ms=ms)
 
 
 def phase_p8(torch, counters):
@@ -1230,13 +1397,17 @@ def phase_p8(torch, counters):
 
     # the two new kernels against their plain versions, reduced
     cases = kernel_cases(kf)
-    rows = phase_kernels(torch, None, {k: cases[k] for k in
-                                       ("m2l_grid", "p2p_stencil")})
+    rows = phase_kernels(torch, None, {"m2l_grid": cases["m2l_grid"]})
+    rows.update(phase_kernels(torch, None,
+                              {"p2p_stencil": cases["p2p_stencil"]},
+                              f64_bar=DIRECT_BAR))
     frows = phase_kernels(torch, None,
-                          formula_cases(kf, stages=("p2p_stencil",)))
+                          formula_cases(kf, stages=("p2p_stencil",)),
+                          f64_bar=DIRECT_BAR)
     rows["p2p_stencil"]["cases"] = {
         k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
-                plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+                plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                max_rel_err_f64=v["max_rel_err_f64"])
         for k, v in frows.items()}
 
     # each alone at the run's shapes (level 5 for M2L)
@@ -1249,8 +1420,11 @@ def phase_p8(torch, counters):
     full = {"m2l_grid": lambda: m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc),
             "p2p_stencil": lambda: p2p_stencil(
                 kf.ker_s2t, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo,
-                f_h)}
+                f_h, None, kf.cnt_s_rast, kf.cnt_t_rast)}
     main_rows = alone_rows(torch, kf, full, launches, "p8")
+    st = stencil_times(torch, kf, f_h, "p8")
+    main_rows["p2p_stencil"].update(every_slot_ms=st["every_slot_ms"],
+                                    **(issue_floor(st["pairs"]) or {}))
     del qp, f_h
     main_rows["m2l_grid"]["levels"] = m2l_levels(torch, kf, "p8")
     for way, (ms, diff) in m2l_routes_at(
@@ -1259,8 +1433,8 @@ def phase_p8(torch, counters):
             f"difference from the route {diff:.3e}")
     st_ms, ul_ms, diff, n_ul = near_ways(torch, kf, fp)
     log(f"p8: near field through p2p_stencil {st_ms:.3f} ms, through "
-        f"p2p_ulist on the gathered 27-box inputs {ul_ms:.3f} ms "
-        f"({n_ul} launches); relative difference {diff:.3e}")
+        f"p2p_ulist on each box's 27 neighbours' real slots {ul_ms:.3f} ms"
+        f" ({n_ul} launch(es)); relative difference {diff:.3e}")
     del fmm, kf, u, fp, f_dev
     torch.cuda.empty_cache()
 
@@ -1319,12 +1493,13 @@ def main():
     torch.cuda.empty_cache()
     l6a, rows["p2p"] = phase_direct(torch, all_counters)
     l6b = phase_tree(torch, all_counters)
-    l6c, main_rows["p2p"] = phase_stokes(torch, all_counters)
+    l6c, main_rows["p2p"], st6c = phase_stokes(torch, all_counters)
     main_rows["p2p"]["launches"] = 0
     torch.cuda.empty_cache()
     l7, r7, m7 = phase_p8(torch, all_counters)
     rows.update(r7)
     main_rows.update({k: dict(v, launches=0) for k, v in m7.items()})
+    main_rows["p2p_stencil"]["stokes_6c"] = st6c
     for name in ROUTES:
         main_rows[name]["launches"] += sum(
             lc.get(name, 0) for lc in (l4b, l5, l6a, l6b, l6c, l7))
@@ -1345,7 +1520,11 @@ def main():
                         main_path_bound_ms=m["main_path_bound_ms"],
                         main_path_bound_by=m["main_path_bound_by"],
                         **{k: v for k, v in {**r, **m}.items() if k in (
-                            "cases", "launches_per_apply",
+                            "cases", "launches_per_apply", "u_stage_ms",
+                            "max_rel_err_f64", "main_path_max_rel_err_f64",
+                            "main_path_plain_max_rel_err_f64",
+                            "every_slot_ms",
+                            "sass_per_pair", "issue_floor_ms", "stokes_6c",
                             "main_path_ops_limit", "bound_cuda_core_ms",
                             "bound_tensor_core_ms",
                             "main_path_bound_cuda_core_ms",

@@ -1,53 +1,75 @@
-// Near-field P2P over 9 shifted halo columns.
+// Near-field P2P over 9 shifted halo columns, real slots only.
 //
 // Replaces: sctl_tpu/ops/pallas_p2p.py `p2p_stencil` (pl.pallas_call
 // at :340).  Boxes in raster order; column (x, y) of the halo arrays
 // holds its n boxes' cap source slots z-major between cap-wide zero
 // margins (ops/p2p.py `to_halo`), so target box (x, y, z)'s neighbours
-// in column (x+dx, y+dy) are the window [z cap, (z+3) cap).  For its
-// target slot t:
-//   out[x, y, z, t, :] = sum_{dx, dy in -1..1, column in the domain}
-//       sum_{s in the window} K(xt[x, y, z, :, t] - xs[x+dx, y+dy, :, s])
-//                             f[x+dx, y+dy, :, s]
-// with r2 = 0 masked; slot padding and margins carry zero density.
-// Unscaled.  The formula is a template parameter (ukernels.cuh): the six
-// kernels with a tree path; the double layers read the normals.
+// in column (x+dx, y+dy) are the boxes z-1 .. z+1 at slots
+// [(z'+1) cap, (z'+2) cap).  A box's real points are its first cnt
+// slots (cnt_s, cnt_t: int32 per box, raster order, clipped here to
+// cap and cap_t; null means every slot).  For a real target slot
+// t < cnt_t[x, y, z]:
+//   out[x, y, z, t, :] = sum_{dx, dy, dz in -1..1, box in the domain}
+//       sum_{s < cnt_s[box]} K(xt[x, y, z, :, t] - xs[box slot s])
+//                            f[box slot s]
+// with r2 = 0 masked; target slots at or past cnt_t are written 0.
+// Padded slots carry zero density in the JAX function, so skipping
+// them changes only the order of the f32 sums.  Unscaled.  The formula
+// is a template parameter (ukernels.cuh): the six kernels with a tree
+// path; the double layers read the normals.
 //
-// Bound on the H100: the pairs, one rsqrt each at 16 per SM per clock
-// (the formula's f32 operations at 67 TFLOP/s bound only the Stokes
-// double layer and FxT).  ParticleFMM(accuracy=8) at 1e7 uniform points
-// (depth 5, cap 344, cap_t 328): 32^3 * 328 * 27 * 344 = 9.98e10 slot
-// pairs, 23.9 ms; the pairs of real points, which the bound counts, are
-// about three quarters of them.  The bytes (0.3 GB) take 0.1 ms.
+// Bound on the H100: the real pairs, one rsqrt each at 16 per SM per
+// clock (the formula's f32 operations at 67 TFLOP/s bound the Stokes
+// kernels instead).  ParticleFMM(accuracy=8) at 1e7 uniform points
+// (depth 5, cap 344, cap_t 328): 7.71e10 real pairs, 18.4 ms; the bytes
+// (0.3 GB) take 0.1 ms.  What holds the kernel is the issue rate (128
+// lane-instructions a clock per SM), not the rsqrt units: the default
+// formula form's rsqrtf carries a denormal fix-up around a predicated
+// MUFU, and PR 7's kernel also paid the loop's bookkeeping for each of
+// its 9.98e10 slot pairs.  The Laplace single layer's unrolled loop
+// here spends 11 SASS instructions a pair: three subtractions, three
+// for r2, MUFU.RSQ, a compare and a select, the FMA, and a share of one
+// shared load and of the loop (chip_smoke.py reads it with cuobjdump;
+// PERF.md section 6).
 //
-// Design: one block per (target box, chunk of up to 512 target slots),
-// one thread per target slot.  For each of the 9 neighbour columns that
-// lie in the domain (the test is uniform over the block) the block
-// streams the column's window, clipped to the boxes that exist, through
-// shared memory in tiles of 512 slots: float4 (x, y, z, f_0) and one
-// plane per further density and normal component.  Each staged slot
-// serves every target of the block with broadcast shared loads, the
-// distance, one masked rsqrt and the formula.  So, unlike
-// p2p_stencil9.cu, whose block holds a whole (4 + 2) SL slab window,
-// shared memory does not bound the widths: any (cap, cap_t) runs.  Each
-// thread sums a tile's pairs into a fresh f32 register sum and adds
-// that to its total: in p2p_direct.cu a single running f32 sum a thread
+// Design: one block per (target box, chunk of targets).  Each thread
+// holds R = 2 target points and their sums in registers, and S = 2
+// neighbouring lanes split each staged tile's sources between them, so
+// one shared load of a source serves two pairs and the loop's
+// bookkeeping is paid once for two.  A warp covers 32 targets; the block
+// ceil(cap_t / 2) 2 threads rounded to a warp.  (One, two and four
+// targets a thread, with one or two lanes a target group, all read
+// within the run-to-run noise once the formula was lean; PERF.md
+// section 6.)  For each of the 9 neighbour columns in the domain, the
+// block stages the real slots of its (up to) three boxes as one run, in
+// tiles of 512: float4 (x, y, z, f_0) and one plane per further density
+// and normal component.  Warps whose targets are all past cnt_t skip the
+// pairs.  The formula is ukernels.cuh's lean form (flush-to-zero rsqrt,
+// fused sums) and the source loop is unrolled to about 8 pairs a pass.
+// Each thread sums a tile's pairs into fresh f32 partial sums and adds
+// them to its totals: in p2p_direct.cu a single running f32 sum a thread
 // reached 5.006e-6 of the maximum against a float64 sum (Stokes DxU),
-// over its 5e-6 bar.
+// over its 5e-6 bar.  The two lanes of a target group meet by one warp
+// shuffle: no atomics, so a launch repeats bit for bit.
 #include "common.cuh"
 #include "ukernels.cuh"
 
 namespace {
 
-constexpr int kTile = 512;   // source slots staged at a time
+constexpr int kTile = 512;         // source slots staged at a time
+constexpr int kMaxThreads = 512;
+constexpr int R = 2;               // targets a thread
+constexpr int S = 2;               // lanes sharing a target group's sources
 
 template <int KER>
-__global__ void p2p_stencil_kernel(const float* __restrict__ xt,
-                                   const float* __restrict__ xs,
-                                   const float* __restrict__ ns,
-                                   const float* __restrict__ f,
-                                   float* __restrict__ out, int n, int cap,
-                                   int cap_t) {
+__global__ void __launch_bounds__(kMaxThreads)
+p2p_stencil_kernel(const float* __restrict__ xt,
+                   const float* __restrict__ xs,
+                   const float* __restrict__ ns,
+                   const float* __restrict__ f,
+                   const int* __restrict__ cnt_s,
+                   const int* __restrict__ cnt_t, float* __restrict__ out,
+                   int n, int cap, int cap_t) {
   using D = sctl::Dims<KER>;
   constexpr int K0 = D::k0, K1 = D::k1, NN = D::nrm ? 3 : 0;
   constexpr int E = K0 - 1 + NN;           // planes beyond the float4
@@ -56,74 +78,119 @@ __global__ void p2p_stencil_kernel(const float* __restrict__ xt,
   const long box = blockIdx.x;             // (x n + y) n + z
   const int x = (int)(box / ((long)n * n)), y = (int)(box / n % n),
             z = (int)(box % n);
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = t < cap_t;
+  const int sub = threadIdx.x % S;         // this lane's share of a tile
+  const int blk_t0 = blockIdx.y * (blockDim.x / S) * R;
+  const int t0 = blk_t0 + (int)(threadIdx.x / S) * R;
+  const int nt = cnt_t ? max(0, min(cnt_t[box], cap_t)) : cap_t;
+  const bool live = t0 < nt;
   const float* xb = xt + box * 3 * cap_t;
-  const float px = live ? xb[t] : 0.f, py = live ? xb[cap_t + t] : 0.f,
-              pz = live ? xb[2 * cap_t + t] : 0.f;
+  float px[R], py[R], pz[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = min(t0 + r, cap_t - 1);
+    px[r] = xb[t];
+    py[r] = xb[cap_t + t];
+    pz[r] = xb[2 * cap_t + t];
+  }
+  float acc[R][K1];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < K1; ++j) acc[r][j] = 0.f;
+
   const long L = (long)(n + 2) * cap;      // slots of a column
-  // the window's boxes that exist: z-1 .. z+1 within [0, n), at column
-  // positions one past their index (the first margin)
-  const int s_lo = max(z - 1, 0) * cap + cap;
-  const int s_hi = min(z + 1, n - 1) * cap + 2 * cap;
-  float acc[K1];
+  // blocks without a real target only write zeros (uniform branch)
+  for (int c9 = blk_t0 < nt ? 0 : 9; c9 < 9; ++c9) {
+    const int cx = x + c9 / 3 - 1, cy = y + c9 % 3 - 1;
+    if (cx < 0 || cx >= n || cy < 0 || cy >= n) continue;
+    const long col = (long)cx * n + cy;
+    // the real slots of boxes z-1 .. z+1 that exist, as one run of
+    // three segments at halo positions (z'+1) cap
+    int beg[3], len[3];
 #pragma unroll
-  for (int j = 0; j < K1; ++j) acc[j] = 0.f;
-  for (int dx = -1; dx <= 1; ++dx) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int cx = x + dx, cy = y + dy;
-      if (cx < 0 || cx >= n || cy < 0 || cy >= n) continue;
-      const long col = (long)cx * n + cy;
-      const float* xc = xs + col * 3 * L;
-      const float* fc = f + col * K0 * L;
-      const float* nc = NN ? ns + col * 3 * L : nullptr;
-      for (int s0 = s_lo; s0 < s_hi; s0 += kTile) {
-        const int m = min(kTile, s_hi - s0);
-        __syncthreads();                   // the last tile is consumed
-        for (int i = threadIdx.x; i < m; i += blockDim.x) {
-          const long g = (long)s0 + i;
-          win[i] = make_float4(xc[g], xc[L + g], xc[2 * L + g], fc[g]);
+    for (int j = 0; j < 3; ++j) {
+      const int zz = z - 1 + j;
+      const bool in = zz >= 0 && zz < n;
+      beg[j] = (zz + 1) * cap;
+      len[j] = !in ? 0 : cnt_s ? max(0, min(cnt_s[col * n + zz], cap))
+                               : cap;
+    }
+    const int m_all = len[0] + len[1] + len[2];
+    const float* xc = xs + col * 3 * L;
+    const float* fc = f + col * K0 * L;
+    const float* nc = NN ? ns + col * 3 * L : nullptr;
+    for (int s0 = 0; s0 < m_all; s0 += kTile) {
+      const int m = min(kTile, m_all - s0);
+      __syncthreads();                     // the last tile is consumed
+      for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        const int v = s0 + i;
+        const long g = v < len[0] ? beg[0] + v
+                       : v < len[0] + len[1] ? beg[1] + (v - len[0])
+                                             : beg[2] + (v - len[0] - len[1]);
+        win[i] = make_float4(xc[g], xc[L + g], xc[2 * L + g], fc[g]);
 #pragma unroll
-          for (int c = 1; c < K0; ++c) ext[c - 1][i] = fc[c * L + g];
+        for (int c = 1; c < K0; ++c) ext[c - 1][i] = fc[c * L + g];
 #pragma unroll
-          for (int c = 0; c < NN; ++c) ext[K0 - 1 + c][i] = nc[c * L + g];
-        }
-        __syncthreads();
-        if (!live) continue;
-        float part[K1];
-#pragma unroll
-        for (int j = 0; j < K1; ++j) part[j] = 0.f;
-        for (int i = 0; i < m; ++i) {
-          const float4 q = win[i];
-          float fv[K0], nv[3];
-          fv[0] = q.w;
-#pragma unroll
-          for (int c = 1; c < K0; ++c) fv[c] = ext[c - 1][i];
-#pragma unroll
-          for (int c = 0; c < NN; ++c) nv[c] = ext[K0 - 1 + c][i];
-          sctl::uker_acc<KER>(px - q.x, py - q.y, pz - q.z, fv, nv, part);
-        }
-#pragma unroll
-        for (int j = 0; j < K1; ++j) acc[j] += part[j];
+        for (int c = 0; c < NN; ++c) ext[K0 - 1 + c][i] = nc[c * L + g];
       }
+      __syncthreads();
+      if (!live) continue;
+      float part[R][K1];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < K1; ++j) part[r][j] = 0.f;
+#pragma unroll (8 / R)
+      for (int i = sub; i < m; i += S) {
+        const float4 q = win[i];
+        float fv[K0], nv[3];
+        fv[0] = q.w;
+#pragma unroll
+        for (int c = 1; c < K0; ++c) fv[c] = ext[c - 1][i];
+#pragma unroll
+        for (int c = 0; c < NN; ++c) nv[c] = ext[K0 - 1 + c][i];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          sctl::uker_acc<KER, true>(px[r] - q.x, py[r] - q.y, pz[r] - q.z,
+                                    fv, nv, part[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < K1; ++j) acc[r][j] += part[r][j];
     }
   }
-  if (!live) return;
-  float* o = out + (box * cap_t + t) * K1;
+  // the S lanes of a target group: a butterfly over neighbouring lanes
 #pragma unroll
-  for (int j = 0; j < K1; ++j) o[j] = acc[j];
+  for (int o = 1; o < S; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < K1; ++j)
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
+  if (sub) return;
+  float* o = out + box * cap_t * K1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = t0 + r;
+    if (t >= cap_t) break;
+#pragma unroll
+    for (int j = 0; j < K1; ++j) o[t * K1 + j] = t < nt ? acc[r][j] : 0.f;
+  }
 }
 
 template <int KER>
 struct Launch {
   static int run(const float* xt, const float* xs, const float* ns,
-                 const float* f, float* out, int n, int cap, int cap_t,
-                 cudaStream_t stream) {
-    const int up = (cap_t + 31) / 32 * 32;
-    const int threads = up < kTile ? up : kTile;
-    dim3 grid(n * n * n, (cap_t + threads - 1) / threads);
-    p2p_stencil_kernel<KER><<<grid, threads, 0, stream>>>(xt, xs, ns, f, out,
-                                                          n, cap, cap_t);
+                 const float* f, const int* cnt_s, const int* cnt_t,
+                 float* out, int n, int cap, int cap_t, cudaStream_t stream) {
+    // ceil(cap_t / R) S threads rounded to a warp, at most kMaxThreads
+    const int up = ((cap_t + R - 1) / R * S + 31) / 32 * 32;
+    const int threads = up < kMaxThreads ? up : kMaxThreads;
+    const int per_block = threads / S * R;
+    dim3 grid(n * n * n, (cap_t + per_block - 1) / per_block);
+    p2p_stencil_kernel<KER><<<grid, threads, 0, stream>>>(
+        xt, xs, ns, f, cnt_s, cnt_t, out, n, cap, cap_t);
     return (int)cudaGetLastError();
   }
 };
@@ -132,14 +199,17 @@ struct Launch {
 
 // xt (n, n, n, 3, cap_t), xs (n, n, 3, (n+2) cap), ns (n, n, 3,
 // (n+2) cap) (double layers only, else null), f (n, n, k0, (n+2) cap),
-// out (n, n, n, cap_t, k1); float32.  ker: the formula index of
-// ukernels.cuh, one of the six kernels with a tree path.
+// cnt_s, cnt_t (n, n, n) int32 real slots a box (null: all), out (n, n,
+// n, cap_t, k1); float32.  ker: the formula index of ukernels.cuh, one
+// of the six kernels with a tree path.
 SCTL_API int sctl_p2p_stencil(const float* xt, const float* xs,
-                              const float* ns, const float* f, float* out,
-                              int ker, int n, int cap, int cap_t,
+                              const float* ns, const float* f,
+                              const int* cnt_s, const int* cnt_t,
+                              float* out, int ker, int n, int cap, int cap_t,
                               cudaStream_t stream) {
   using namespace sctl;
   return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, out, n, cap,
-                                             cap_t, stream);
+                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, cnt_s,
+                                             cnt_t, out, n, cap, cap_t,
+                                             stream);
 }

@@ -1,84 +1,119 @@
-// Per-box U-list P2P.
+// Per-box U-list P2P over compacted source lists.
 //
 // Replaces: sctl_tpu/ops/pallas_p2p.py `p2p_ulist` (pl.pallas_call at
-// :496, body `_ulist_kernel_body`).  For box g, target slot t < T:
-//   out[g, t, :] = sum_{s < S} K(xt[g, :, t] - xs[g, :, s]) f[g, :, s]
-// over the box's gathered source slots (zero density in padding, so
-// padded slots add nothing); r2 = 0 is masked; unscaled.  The kernel
-// formula is a template parameter (ukernels.cuh): the six kernels with
-// a tree path (the uniform KIFMM's S2M, L2T and near field below the
-// shared-surface and slab kernels' widths) and the BIE's Stokes3D-DxU
-// and -FSxU; the double layers read the source normals.
+// :496, body `_ulist_kernel_body`), which sums each box's targets over
+// a padded slab of gathered source slots (zero density in padding).
+// Here box g's sources are the run [srng[g, 0], srng[g, 1]) of one flat
+// list: points and normals as (3, N) planes, densities as rows of f
+// read through fidx (row fidx[j] for source j; null: row j), so the
+// caller gathers nothing per call.  For a real target slot
+// t < tcnt[g] (null: every slot):
+//   out[g, t, :] = sum_{srng[g, 0] <= j < srng[g, 1]}
+//                  K(xt[g, :, t] - xs[:, j]) f[fidx[j], :]
+// with r2 = 0 masked; slots at or past tcnt[g] are written 0.  Unscaled.
+// The padded slab's slots carry zero density, so leaving them out
+// changes only the order of the f32 sums.  The kernel formula is a
+// template parameter (ukernels.cuh): the six kernels with a tree path
+// (the BIE's Stokes3D-DxU, and the uniform KIFMM's S2M and L2T below
+// the shared-surface kernels' widths); the double layers read the
+// source normals.
 //
-// Bound on the H100: the bytes of the real slots.  The BIE far field's
-// U list (G = 3,536 leaves, T = 64, S = 10,752 slots, Stokes DxU) is
-// about 2.4e9 padded pair slots per operator apply for 4.2e7 needed
-// pairs; counted on the needed pairs and the real slots' bytes, the
-// bytes bound it (PERF.md §6), and the padding is what the kernel
-// spends its time on.
+// Bound on the H100: the bytes.  The BIE far field's U list (3,536
+// leaves, about 10 targets and 840 sources each, Stokes DxU) has
+// 4.17e7 pairs an apply: 0.002 ms of rsqrt, 0.005 ms of its f32
+// operations, and 0.032 ms for its targets, outputs and sources read
+// once (a source once in each list that holds it).  The padded slabs
+// of the JAX layout (64 target and 10,752 source slots a leaf) were
+// 2.4e9 pair slots and a 456 MB gather an apply.
 //
-// Design: one block of 256 threads per (box, 64 targets).  The block
-// stages 256 source slots at a time in shared memory (coordinates,
-// normals, densities); the 4 groups of 64 threads split each tile
-// between them, so every thread of a warp reads the same slot (a
-// shared-memory broadcast) for its own target, with the sums in f32
-// registers.  The 4 partial sums of a target meet in shared memory at
-// the end.  Per-pair differences, not moment expansions, keep float32
-// exact to the pair's scale.
+// Design: one launch an apply, one block of 128 threads per (box,
+// chunk of up to 64 targets).  Each thread holds 2 targets; the box's
+// ng = ceil(nt / 2) target groups split the 128 threads, so 128 / ng
+// threads share each group's sources (thread = group + ng * share).
+// The block stages its sources 256 at a time in shared memory
+// (coordinates, normals, densities through fidx); each thread sums its
+// share of a tile into fresh f32 partial sums and adds them to its
+// totals; the formula is ukernels.cuh's lean form (flush-to-zero
+// rsqrt, fused sums).  The shares of a group meet in shared memory by a
+// halving tree in a fixed order: no atomics, so a launch repeats bit
+// for bit.
+// Per-pair differences in the target box's frame, not moment
+// expansions, keep float32 exact to the pair's scale.
 #include "common.cuh"
 #include "ukernels.cuh"
 
 namespace {
 
-constexpr int kTB = 64;           // targets per block
-constexpr int kThreads = 256;
-constexpr int kSplit = kThreads / kTB;
-constexpr int kTS = 256;          // source slots per shared tile
+constexpr int kThreads = 128;
+constexpr int kR = 2;             // targets a thread
+constexpr int kTB = 64;           // targets a block
+constexpr int kTS = 256;          // sources a shared tile
 
 template <int KER>
 __global__ void __launch_bounds__(kThreads)
-p2p_ulist_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
-                 const float* __restrict__ ns, const float* __restrict__ f,
-                 float* __restrict__ out, int T, int S) {
+p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
+                 const float* __restrict__ xs, const float* __restrict__ ns,
+                 const float* __restrict__ f, const int* __restrict__ fidx,
+                 const int* __restrict__ srng, float* __restrict__ out,
+                 int T, long N) {
   using D = sctl::Dims<KER>;
   constexpr int K0 = D::k0, K1 = D::k1;
   constexpr bool kNormals = D::nrm;
   __shared__ float sx[3][kTS];
   __shared__ float sn[kNormals ? 3 : 1][kTS];
   __shared__ float sf[K0][kTS];
-  __shared__ float red[kSplit - 1][K1][kTB];
+  __shared__ float red[kThreads][kR * K1];
 
   const long g = blockIdx.x;
-  const int tl = threadIdx.x % kTB, part = threadIdx.x / kTB;
-  const int t = blockIdx.y * kTB + tl;
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.y * kTB;          // the block's first target slot
+  const int nt_box = tcnt ? max(0, min(tcnt[g], T)) : T;
+  const int nt = max(0, min(nt_box - c0, kTB));
+  const int ng = (nt + kR - 1) / kR;        // target groups
+  const int nsub = ng ? kThreads / ng : 0;  // threads a group
+  const int grp = ng ? tid % ng : 0, sub = ng ? tid / ng : 0;
+  const bool live = ng && sub < nsub;
   const float* xtg = xt + g * 3 * T;
-  const float* xsg = xs + g * 3 * S;
-  const float* nsg = kNormals ? ns + g * 3 * S : nullptr;
-  const float* fg = f + g * K0 * S;
-  const bool live = t < T;
-  const float x = live ? xtg[t] : 0.f;
-  const float y = live ? xtg[T + t] : 0.f;
-  const float z = live ? xtg[2 * T + t] : 0.f;
-  float acc[K1];
+  float px[kR], py[kR], pz[kR];
 #pragma unroll
-  for (int j = 0; j < K1; ++j) acc[j] = 0.f;
+  for (int r = 0; r < kR; ++r) {
+    const int t = min(c0 + grp * kR + r, T - 1);
+    px[r] = xtg[t];
+    py[r] = xtg[T + t];
+    pz[r] = xtg[2 * T + t];
+  }
+  float acc[kR][K1];
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int j = 0; j < K1; ++j) acc[r][j] = 0.f;
 
-  for (int s0 = 0; s0 < S; s0 += kTS) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTS; i += kThreads) {
-      const int s = s0 + i;
-      const bool in = s < S;
+  const int sb = srng[2 * g];
+  const int m_all = ng ? max(0, srng[2 * g + 1] - sb) : 0;
+  for (int s0 = 0; s0 < m_all; s0 += kTS) {
+    const int m = min(kTS, m_all - s0);
+    __syncthreads();                        // the last tile is consumed
+    for (int i = tid; i < m; i += kThreads) {
+      const long j = (long)sb + s0 + i;
+      const long row = fidx ? fidx[j] : j;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) sx[c][i] = in ? xsg[c * S + s] : 0.f;
+      for (int c = 0; c < 3; ++c) sx[c][i] = xs[c * N + j];
       if constexpr (kNormals) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) sn[c][i] = in ? nsg[c * S + s] : 0.f;
+        for (int c = 0; c < 3; ++c) sn[c][i] = ns[c * N + j];
       }
 #pragma unroll
-      for (int c = 0; c < K0; ++c) sf[c][i] = in ? fg[c * S + s] : 0.f;
+      for (int c = 0; c < K0; ++c) sf[c][i] = f[row * K0 + c];
     }
     __syncthreads();
-    for (int i = part; i < kTS; i += kSplit) {
+    if (!live) continue;
+    float part[kR][K1];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int j = 0; j < K1; ++j) part[r][j] = 0.f;
+#pragma unroll 4
+    for (int i = sub; i < m; i += nsub) {
       float fv[K0], nv[3];
 #pragma unroll
       for (int c = 0; c < K0; ++c) fv[c] = sf[c][i];
@@ -86,50 +121,70 @@ p2p_ulist_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
 #pragma unroll
         for (int c = 0; c < 3; ++c) nv[c] = sn[c][i];
       }
-      sctl::uker_acc<KER>(x - sx[0][i], y - sx[1][i], z - sx[2][i], fv, nv,
-                          acc);
-    }
-  }
-  if (part > 0) {
 #pragma unroll
-    for (int j = 0; j < K1; ++j) red[part - 1][j][tl] = acc[j];
+      for (int r = 0; r < kR; ++r)
+        sctl::uker_acc<KER, true>(px[r] - sx[0][i], py[r] - sx[1][i],
+                                  pz[r] - sx[2][i], fv, nv, part[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int j = 0; j < K1; ++j) acc[r][j] += part[r][j];
+  }
+
+  // the shares of each group: a halving tree over sub, fixed order
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int j = 0; j < K1; ++j) red[tid][r * K1 + j] = acc[r][j];
+  for (int width = nsub; width > 1;) {
+    const int half = (width + 1) / 2;
+    __syncthreads();
+    if (live && sub < width - half) {
+#pragma unroll
+      for (int k = 0; k < kR * K1; ++k) red[tid][k] += red[tid + half * ng][k];
+    }
+    width = half;
   }
   __syncthreads();
-  if (part == 0 && live) {
+  float* og = out + (g * T + c0) * K1;
+  const int nslot = min(kTB, T - c0);
+  for (int t = tid; t < nslot; t += kThreads) {
+    const int gr = t / kR;
 #pragma unroll
-    for (int j = 0; j < K1; ++j) {
-      float v = acc[j];
-#pragma unroll
-      for (int p = 0; p < kSplit - 1; ++p) v += red[p][j][tl];
-      out[(g * T + t) * K1 + j] = v;
-    }
+    for (int j = 0; j < K1; ++j)
+      og[t * K1 + j] = t < nt ? red[gr][(t % kR) * K1 + j] : 0.f;
   }
 }
 
 template <int KER>
 struct Launch {
-  static int run(const float* xt, const float* xs, const float* ns,
-                 const float* f, float* out, int G, int T, int S,
+  static int run(const float* xt, const int* tcnt, const float* xs,
+                 const float* ns, const float* f, const int* fidx,
+                 const int* srng, float* out, int G, int T, long N,
                  cudaStream_t stream) {
     dim3 grid(G, (T + kTB - 1) / kTB);
-    p2p_ulist_kernel<KER><<<grid, kThreads, 0, stream>>>(xt, xs, ns, f, out,
-                                                         T, S);
+    p2p_ulist_kernel<KER><<<grid, kThreads, 0, stream>>>(
+        xt, tcnt, xs, ns, f, fidx, srng, out, T, N);
     return (int)cudaGetLastError();
   }
 };
 
 }  // namespace
 
-// xt (G, 3, T), xs (G, 3, S), ns (G, 3, S) (double layers only, else
-// null), f (G, k0, S), out (G, T, k1); float32.  ker: the formula index
-// of ukernels.cuh, one of the six kernels with a tree path.
-SCTL_API int sctl_p2p_ulist(const float* xt, const float* xs,
-                            const float* ns, const float* f, float* out,
-                            int ker, int G, int T, int S,
+// xt (G, 3, T), tcnt (G) int32 or null, xs (3, N), ns (3, N) (double
+// layers only, else null), f (rows, k0), fidx (N) int32 or null, srng
+// (G, 2) int32, out (G, T, k1); float32.  ker: the formula index of
+// ukernels.cuh, one of the six kernels with a tree path.
+SCTL_API int sctl_p2p_ulist(const float* xt, const int* tcnt,
+                            const float* xs, const float* ns, const float* f,
+                            const int* fidx, const int* srng, float* out,
+                            int ker, int G, int T, int N,
                             cudaStream_t stream) {
   using namespace sctl;
-  if (G == 0) return 0;
+  if (G == 0 || T == 0) return 0;
   return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, out, G, T,
-                                             S, stream);
+                          kStkDxU, kStkFSxU>(ker, xt, tcnt, xs, ns, f, fidx,
+                                             srng, out, G, T, (long)N,
+                                             stream);
 }

@@ -14,7 +14,12 @@
 //   7 Stokes3D-FxUP   Stokes3D-FxU, and p += (r.f) rinv^3  (k1 = 4)
 //
 // The numbers are `FORMULA` of uker.py.  Every formula is templated on
-// the scalar type, so float and double kernels share it.
+// the scalar type, so float and double kernels share it.  LEAN (float
+// only) selects the instruction-lean form of the kernels redesigned for
+// Hopper's issue rate (p2p_stencil.cu, p2p_ulist.cu): the flush-to-zero
+// rsqrt, without the denormal fix-up the default rsqrtf carries (four
+// instructions a pair), and each product fused into the sum on its own
+// (two FMAs, not a multiply, an FMA and an add).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -50,12 +55,25 @@ __device__ __forceinline__ float rinv_of(float r2) {
 __device__ __forceinline__ double rinv_of(double r2) {
   return r2 > 0.0 ? rsqrt(r2) : 0.0;
 }
+// The lean form: rsqrt.approx.ftz (MUFU.RSQ alone) and one select.  A
+// subnormal r2 (a pair closer than 1.1e-19) counts as coincident, 0.
+__device__ __forceinline__ float rinv_ftz(float r2) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(r2));
+  return r2 >= 1.17549435e-38f ? r : 0.f;
+}
 
 // acc[k1] += K(r) f for one pair; n is read only by the double layers.
-template <int KER, typename T>
+template <int KER, bool LEAN = false, typename T>
 __device__ __forceinline__ void uker_acc(T dx, T dy, T dz, const T* f,
                                          const T* n, T* acc) {
-  const T rinv = rinv_of(dx * dx + dy * dy + dz * dz);
+  const T r2 = dx * dx + dy * dy + dz * dz;
+  T rinv;
+  if constexpr (LEAN) {
+    rinv = rinv_ftz(r2);
+  } else {
+    rinv = rinv_of(r2);
+  }
   if constexpr (KER == kLapFxU) {
     acc[0] += f[0] * rinv;
     return;
@@ -91,9 +109,18 @@ __device__ __forceinline__ void uker_acc(T dx, T dy, T dz, const T* f,
       } else {
         T w = rdotf * rinv3;
         if constexpr (KER == kStkFSxU) w += f[3] * rinv3;
-        acc[0] += f[0] * rinv + dx * w;
-        acc[1] += f[1] * rinv + dy * w;
-        acc[2] += f[2] * rinv + dz * w;
+        if constexpr (LEAN) {
+          acc[0] += f[0] * rinv;
+          acc[1] += f[1] * rinv;
+          acc[2] += f[2] * rinv;
+          acc[0] += dx * w;
+          acc[1] += dy * w;
+          acc[2] += dz * w;
+        } else {
+          acc[0] += f[0] * rinv + dx * w;
+          acc[1] += f[1] * rinv + dy * w;
+          acc[2] += f[2] * rinv + dz * w;
+        }
         if constexpr (KER == kStkFxUP) acc[3] += rdotf * rinv3;
       }
     }

@@ -17,8 +17,9 @@ a 2-D surface in 3-D), where a uniform tree's dense grids blow up:
   X         leaf source points -> node down-check -> dc2e.
   L2T, W    equivalent surfaces -> leaf targets.
   U         leaf-leaf near field through the hand-written CUDA kernel
-            `p2p_ulist` (ops/p2p.py), chunked as the JAX package chunks
-            it (:823-868).
+            `p2p_ulist` (ops/p2p.py), one launch over each target leaf's
+            source leaves' real points, compacted at setup (the JAX
+            package gathers padded slabs per call, :823-868).
 
 Every stage but U is plain torch, as the JAX package runs it outside
 Pallas.  Tensors on the card go through the CUDA kernel, tensors on the
@@ -47,7 +48,7 @@ from ..ops.kernels import KernelSpec
 from ..ops.p2p import p2p_ulist
 from ..tree import morton as mt
 from ..tree.tree import PtTree, _normalize
-from .kifmm import (KIFMMOperators, _apply_groups, _mark, _round_up,
+from .kifmm import (KIFMMOperators, _apply_groups, _mark,
                     _tensor, _vlist_offsets, kernel_roles)
 
 D = mt.MAX_DEPTH_3D
@@ -304,6 +305,7 @@ class AdaptiveFMM:
         # leaf-local coordinates, formed in float64: every float32 pair
         # difference then carries the leaf's scale, not the domain's
         self.n_leaf = n_leaf
+        self.leaf_ctr = ctr                             # each leaf's frame
         xs_p = tree.X_sorted[sidx]                      # (n_leaf, cap_s, 3)
         self.xs_loc = t(xs_p - ctr[:, None, :])
         self.ns_pad = t(ns_sorted[sidx])
@@ -365,41 +367,45 @@ class AdaptiveFMM:
                 off_ = node_ctr[lv][sn] - ctr[tl]
                 self.wpairs[lv] = (ti(tl), ti(sn), t(off_))
                 self.xpairs[lv] = (ti(sn), ti(tl), t(-off_))
-        self._setup_ulist(U_pairs, xs_p, ctr)
+        self._setup_ulist(U_pairs, xs_p, ctr, np.diff(t_dsp))
         return self
 
-    def _setup_ulist(self, U_pairs, xs_p, ctr):
-        """The U list's gathered source slabs: per target leaf its
-        source leaves' slots side by side, S padded to 128, T to 8,
-        in the target leaf's frame; chunked at (1 << 22) // S leaves
-        per launch (adaptive.py:836)."""
-        n_leaf = self.n_leaf
-        ulist, Ku = _pad_rows(U_pairs[:, 0], U_pairs[:, 1], n_leaf)
-        self.u_cap = Ku
+    def _setup_ulist(self, U_pairs, xs_p, ctr, t_cnt):
+        """The U list compacted to real points: per target leaf, its
+        source leaves' real slots as one run of a flat list, in the
+        target leaf's frame (formed in float64, then cast), with each
+        source's leaf-slot row for the densities (`ul_fidx`), the runs
+        (`ul_rng`) and the real target counts (`ul_tcnt`).  `ul_rows`
+        and `ul_ok` keep the padded list (JAX's `data["ulist"]`)."""
+        n_leaf, cs = self.n_leaf, self.cap_s
+        ulist, self.u_cap = _pad_rows(U_pairs[:, 0], U_pairs[:, 1], n_leaf)
         ok = ulist >= 0
         rc = np.where(ok, ulist, 0)
-        cs = self.cap_s
-        S0 = Ku * cs
-        self.ul_S = S = _round_up(S0, 128)
-        self.ul_T = Tp = _round_up(self.cap_t, 8)
-        self.ul_chunk = max(1, min(n_leaf, (1 << 22) // S))
         self.ul_rows = torch.as_tensor(rc, device=self.device)
         self.ul_ok = torch.as_tensor(ok, device=self.device).to(self.dtype)
-
-        def slab(a):                           # (n_leaf, w, cap_s) -> slabs
-            return a[self.ul_rows].permute(0, 2, 1, 3).reshape(
-                n_leaf, a.shape[1], S0)
-
-        pad = lambda a: torch.nn.functional.pad(a, (0, S - S0))
-        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,
+        # (target leaf, source leaf) in list order, each source leaf's
+        # real slots side by side
+        tl = np.repeat(np.arange(n_leaf), ok.sum(axis=1))
+        sl = ulist[ok]
+        cnt = self.tree.leaf_cnt[sl].astype(np.int64)
+        run = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        slot = np.repeat(sl * cs, cnt) + np.arange(cnt.sum()) - run
+        per_leaf = np.bincount(tl, weights=cnt, minlength=n_leaf) \
+            .astype(np.int64)
+        ends = np.cumsum(per_leaf)
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32),
                                         device=self.device)
-        xs = slab(f64(xs_p).transpose(1, 2)) - f64(ctr)[:, :, None]
-        self.ul_xs = pad(xs.to(self.dtype))
-        self.ul_ns = (pad(slab(self.ns_pad.transpose(1, 2)).to(self.dtype))
+        self.ul_fidx = i32(slot)
+        self.ul_rng = i32(np.stack([ends - per_leaf, ends], 1))
+        self.ul_tcnt = i32(t_cnt)
+        xs = xs_p.reshape(-1, 3)[slot] - ctr[np.repeat(tl, cnt)]
+        self.ul_xs = torch.as_tensor(np.ascontiguousarray(xs.T),
+                                     device=self.device).to(self.dtype)
+        self.ul_ns = (self.ns_pad.reshape(-1, 3)[self.ul_fidx.long()].T
+                      .to(self.dtype).contiguous()
                       if self.ker_s2t.needs_normal else None)
-        self.ul_xt = torch.nn.functional.pad(
-            self.xt_loc, (0, 0, 0, Tp - self.cap_t)).transpose(1, 2) \
-            .to(self.dtype).contiguous()
+        self.ul_xt = self.xt_loc.transpose(1, 2).to(self.dtype) \
+            .contiguous()
 
     # -- density / output plumbing ----------------------------------------
     def pad_density(self, f: torch.Tensor) -> torch.Tensor:
@@ -512,33 +518,23 @@ class AdaptiveFMM:
                              * kl.scale_factor)
         _mark(marks, "W")
 
-        # ---- U list: the CUDA kernel over gathered source slabs ----
+        # ---- U list: the CUDA kernel over the compacted lists ----
         u_near = self._ulist(fp_io)
-        u_out += u_near[:, :self.cap_t].to(dt) * self.ker_s2t.scale_factor
+        u_out += u_near.to(dt) * self.ker_s2t.scale_factor
         _mark(marks, "U")
         return u_out.to(self.dtype)
 
-    def ulist_chunks(self, fp: torch.Tensor):
-        """Leaf-slot densities -> the U-list kernel's arguments, one
-        (xt, xs, ns, f) tuple per launch: each chunk's target leaves
-        with their source leaves' densities gathered into the slab."""
-        S, S0 = self.ul_S, self.u_cap * self.cap_s
-        f_pt = fp.transpose(1, 2)                        # (n_leaf, k0, cs)
-        for g0 in range(0, fp.shape[0], self.ul_chunk):
-            g = slice(g0, g0 + self.ul_chunk)
-            rows = self.ul_rows[g]
-            fb = f_pt[rows] * self.ul_ok[g][:, :, None, None]
-            fb = torch.nn.functional.pad(
-                fb.permute(0, 2, 1, 3).reshape(rows.shape[0], -1, S0),
-                (0, S - S0)).contiguous()
-            yield (self.ul_xt[g], self.ul_xs[g].contiguous(),
-                   None if self.ul_ns is None
-                   else self.ul_ns[g].contiguous(), fb)
+    def ulist_args(self, fp: torch.Tensor):
+        """Leaf-slot densities -> the U-list kernel's arguments for the
+        whole list (one launch): the kernel reads the densities through
+        `ul_fidx`, so nothing is gathered here."""
+        return (self.ul_xt, self.ul_xs, self.ul_ns,
+                fp.reshape(-1, fp.shape[-1]), self.ul_rng, self.ul_tcnt,
+                self.ul_fidx)
 
     def _ulist(self, fp: torch.Tensor) -> torch.Tensor:
-        """U-list near field -> (n_leaf, T, k1), unscaled."""
-        return torch.cat([p2p_ulist(self.ker_s2t, *c)
-                          for c in self.ulist_chunks(fp)])
+        """U-list near field -> (n_leaf, cap_t, k1), unscaled."""
+        return p2p_ulist(self.ker_s2t, *self.ulist_args(fp))
 
 
 def _v_budget(device: torch.device) -> int:

@@ -21,13 +21,14 @@ The evaluation follows the JAX package's TPU route stage by stage:
   P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`) where
        its block holds the box capacities, else the stencil over 9
        shifted halo columns (ops/p2p.py `p2p_stencil`), which takes
-       any capacities
+       any capacities and reads each box's real slots only, by the
+       per-box counts set up once (`cnt_s_rast`, `cnt_t_rast`)
 
 The shared-surface kernels need a box count that is a multiple of 128
 (depth >= 3) and box capacities their shared memory holds (a few
 hundred points a leaf, fewer for the double layers); otherwise S2M and
-L2T go through the per-box U-list kernel
-(ops/p2p.py `p2p_ulist`), as the JAX package does
+L2T go through the per-box U-list kernel over each box's real slots
+(ops/p2p.py `p2p_ulist`), as the JAX package does over padded ones
 (sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The slab stencil's
 block holds at most 256 target slots and a slab window within the
 shared memory (a few hundred points a leaf, fewer for the kernels with
@@ -59,8 +60,8 @@ from ..ops.kernels_np import full_matrix_np
 from ..ops.m2l import (blocked_m2l_mats, blocked_operands, grid_operands,
                        m2l_grid, m2l_grid_blocked)
 from ..ops.m2l import vlist_offsets as _vlist_offsets
-from ..ops.p2p import (p2p_stencil, p2p_stencil9, p2p_ulist, stencil9_fits,
-                       to_halo, to_slab)
+from ..ops.p2p import (box_ranges, p2p_stencil, p2p_stencil9, p2p_ulist,
+                       stencil9_fits, to_halo, to_slab)
 from ..ops.sl import (l2t_surface, l2t_surface_fits, surface_pair,
                       surface_pair_fits)
 from ..ops.uker import TREE_KERNELS, check_supported
@@ -481,11 +482,6 @@ def _apply_groups(ker: KernelSpec, xt, xs, f, ns=None):
         for g in range(0, G, step)])
 
 
-def _pad_to(a: torch.Tensor, n: int) -> torch.Tensor:
-    """Zero-pad the last axis of `a` to length n, contiguous."""
-    return F.pad(a, (0, n - a.shape[-1])).contiguous()
-
-
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -614,6 +610,19 @@ class KIFMM:
         self.rast_to_mort = ti(inv)
         self.xt_rast = t(xt_p[inv].reshape(n, n, n, self.cap_t, 3)
                          .transpose(0, 1, 2, 4, 3))
+        # each box's real points (its first slots), clipped to the caps:
+        # the halo stencil and the U-list kernel skip the slots past them
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        cnt_s = np.minimum(src.box_cnt, self.cap_s)
+        cnt_t = np.minimum(trg.box_cnt, self.cap_t)
+        self.cnt_s_rast = i32(cnt_s[inv].reshape(n, n, n))
+        self.cnt_t_rast = i32(cnt_t[inv].reshape(n, n, n))
+        self.cnt_t_box = i32(cnt_t)
+        # the U-list routes' source runs: each box's real slots (S2M) and
+        # its copy of the equivalent surface (L2T)
+        self.rng_s = box_ranges(i32(cnt_s), self.cap_s)
+        self.rng_e = box_ranges(i32(np.full(src.n_boxes, ops.n_surf)),
+                                ops.n_surf)
         self.SL = -(-9 * self.cap_s // 128) * 128
         # routes by shape: the shared-surface kernels take a box count
         # that is a multiple of 128 and capacities their shared memory
@@ -640,10 +649,9 @@ class KIFMM:
         self.trg_perm = ti(trg.perm)
         self.pad_idx = ti(s_idx)
         self.pad_valid = t(s_valid)
-        take = np.minimum(trg.box_cnt, self.cap_t)
-        first = np.repeat(trg.box_dsp[:-1], take)
-        off = np.arange(take.sum()) - np.repeat(np.cumsum(take) - take,
-                                                take)
+        first = np.repeat(trg.box_dsp[:-1], cnt_t)
+        off = np.arange(cnt_t.sum()) - np.repeat(np.cumsum(cnt_t) - cnt_t,
+                                                 cnt_t)
         self.unsort_pos = ti(first + off)
         self.pad_take = ti(np.nonzero(t_valid.reshape(-1))[0])
         # overflow sidebands
@@ -720,7 +728,8 @@ class KIFMM:
     def _eval_impl(self, fp, fp_ovf, marks: Optional[list] = None):
         """Padded densities -> (u_pad (B, cap_t, k1), u_ovf (Bt, cap2t,
         k1)).  With `marks` a list, a CUDA event is recorded after each
-        stage: S2M, M2M, M2L, L2L, L2T, P2P."""
+        stage: S2M, M2M, M2L, L2L, L2T, P2P near (the route's stencil)
+        and P2P sidebands (the overflow boxes' plain pair sums)."""
         ops = self._ops
         L = self.depth
         ns = ops.n_surf
@@ -736,17 +745,12 @@ class KIFMM:
                                   self.cap_s, self.ns_sl)
             u_check = out_sl.permute(2, 1, 0).reshape(B, -1)
         else:
-            # box-local check surface (T) against the box's slots (S)
-            S = _round_up(self.cap_s, 128)
-            box_major = lambda a: _pad_to(
-                a.reshape(a.shape[0], B, -1).transpose(0, 1), S)
-            xc_b = _pad_to(self.surf_out_L.T, _round_up(ns, 8))
-            u = p2p_ulist(km, xc_b.expand(B, -1, -1).contiguous(),
-                          box_major(self.xs_sl),
-                          None if self.ns_sl is None
-                          else box_major(self.ns_sl),
-                          _pad_to(fp.transpose(1, 2), S))
-            u_check = u[:, :ns].reshape(B, -1)
+            # box-local check surface (targets) against the box's real
+            # slots (sources)
+            xc_b = self.surf_out_L.T.expand(B, -1, -1).contiguous()
+            u = p2p_ulist(km, xc_b, self.xs_sl, self.ns_sl,
+                          fp.reshape(-1, k0), self.rng_s)
+            u_check = u.reshape(B, -1)
         u_check = u_check * km.scale_factor
         if self.n_ovf_s:
             sb = self.sov_boxes
@@ -879,13 +883,13 @@ class KIFMM:
             out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct)
             u_far = out_sl.reshape(kl.kdim1, B, ct).permute(1, 2, 0)
         else:
-            # box-local targets (T) against the equivalent surface (S)
-            S = _round_up(ns, 128)
-            xe_b = _pad_to(self.surf_out_L.T, S)
+            # box-local real targets against the box's copy of the
+            # equivalent surface
             u_far = p2p_ulist(
                 kl, self.xt_sl.reshape(3, B, ct).transpose(0, 1)
-                .contiguous(), xe_b.expand(B, -1, -1).contiguous(), None,
-                _pad_to(q_dn.reshape(B, ns, kl.kdim0).transpose(1, 2), S))
+                .contiguous(), self.surf_out_L.T.repeat(1, B), None,
+                q_dn.reshape(B * ns, kl.kdim0), self.rng_e,
+                self.cnt_t_box)
         u_far = u_far * kl.scale_factor
         if self.n_ovf_t:
             tb = self.tov_boxes
@@ -897,8 +901,9 @@ class KIFMM:
             u_ovf = q_dn.new_zeros((1, self.tov_cap, kl.kdim1))
         _mark(marks, "L2T")
 
-        # ---- P2P near field ----
+        # ---- P2P near field, then the overflow sidebands ----
         u_near = self._p2p_near(fp)
+        _mark(marks, "P2P near")
         nb = self.nb
         if self.n_ovf_s:
             # sideband sources -> padded targets of their 27 neighbours
@@ -934,7 +939,7 @@ class KIFMM:
                         fp_ovf[sos] * oks[:, None, None],
                         self.ns_ov2[sos] if nrm else None)
             u_ovf = u_ovf + u_on * ker.scale_factor
-        _mark(marks, "P2P")
+        _mark(marks, "P2P sidebands")
         return u_total, u_ovf
 
     def _p2p_near(self, fp):
@@ -951,5 +956,6 @@ class KIFMM:
             f_h = to_halo(fp, self.rast_to_mort, n)
             u_r = p2p_stencil(self.ker_s2t, n, self.cap_s, self.cap_t,
                               self.xt_rast, self.xs_halo, f_h,
-                              self.ns_halo)
+                              self.ns_halo, self.cnt_s_rast,
+                              self.cnt_t_rast)
         return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]

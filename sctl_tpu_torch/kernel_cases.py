@@ -10,16 +10,23 @@ capacities are larger), so the plain versions stay small.
 (its M2L kernel, blocked or grid, and its near-field stencil), or for
 one given formula (`formula_cases` runs every formula each pair kernel
 takes).
-Source slots hold a density as often as the KIFMM's leaves fill theirs
-on average; the others are zero, as the padding of the main path is.
+The shared-surface cases' source slots hold a density as often as the
+KIFMM's leaves fill theirs on average; the stencil cases' boxes hold
+their real points in their first slots, as many as drawn around the
+KIFMM's mean counts (Poisson), and the halo stencil gets those counts.
+The others are zero, as the padding of the main path is.
 
 The U-list kernel's cases (`ulist_cases`) take their widths from a
-set-up `AdaptiveFMM` instead: T = its target capacity, S = its U-list
-budget (source leaves per target leaf times the source capacity,
-padded to 128), on a reduced G = 32 boxes, one case per kernel formula.
+set-up `AdaptiveFMM` instead: T = its target capacity, each box's real
+targets and sources drawn around its U lists' means, on a reduced G =
+32 boxes, one case per kernel formula.
 The direct sum's cases (`p2p_cases`) are ParticleFMM's direct path
 reduced: 4096 targets among 39,000 sources in the unit cube, for every
 formula in float32 and float64.
+
+`neighbour_lists` gives the U-list kernel the near field of a set-up
+KIFMM (each box's 27 neighbours' real slots as one list), for holding
+the two near-field ways against each other at the main path's size.
 
 Data come from numpy's generator with a fixed seed.  Used by
 `chip_smoke.py` and the card tests.
@@ -75,11 +82,14 @@ def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int,
                            + kernel.src_floats * n * n * (n + 2) * SL))
 
 
-def p2p_stencil_work(kernel, pairs: int, n: int, cap: int,
-                     cap_t: int) -> dict:
+def p2p_stencil_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
+                     n_src: int) -> dict:
+    """The real pairs; bytes of the real targets and sources, the two
+    count arrays and the whole output (zeros past the counts), each
+    once."""
     return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * ((3 + kernel.kdim1) * n ** 3 * cap_t
-                           + kernel.src_floats * n * n * (n + 2) * cap))
+                bytes=4 * (3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
+                           + kernel.src_floats * n_src + 2 * n ** 3))
 
 
 def m2l_grid_work(n: int, r: int, r2: int) -> dict:
@@ -104,9 +114,9 @@ def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
 
 def p2p_ulist_work(kernel, pairs: int, n_trg: int, n_src: int) -> dict:
     """One rsqrt and the kernel's operations per needed pair; bytes of
-    the real targets and their output and of the real source slots
-    (point, density, and the normal for the double layer), each once:
-    the padded slots carry nothing the function needs."""
+    the real targets and their output and of the real sources (point,
+    density, and the normal for the double layer, a source once in
+    each list that holds it), each once."""
     return dict(pairs=pairs, pair_flops=kernel.flops,
                 bytes=4 * ((3 + kernel.kdim1) * n_trg
                            + kernel.src_floats * n_src))
@@ -122,21 +132,19 @@ def p2p_work(kernel, dtype: torch.dtype, n_trg: int, n_src: int) -> dict:
                             + kernel.src_floats * n_src))
 
 
-def _ulist_sources(af) -> np.ndarray:
-    """Real source points in each leaf's U list of an AdaptiveFMM."""
-    rows = af.ul_rows.cpu().numpy()
-    ok = af.ul_ok.cpu().numpy() > 0
-    return (af.tree.leaf_cnt[rows] * ok).sum(axis=1)
+def _ulist_counts(af):
+    """(real targets, real sources) of each leaf's U list of a set-up
+    AdaptiveFMM."""
+    rng = af.ul_rng.cpu().numpy().astype(np.int64)
+    return af.ul_tcnt.cpu().numpy().astype(np.int64), rng[:, 1] - rng[:, 0]
 
 
 def ulist_main_work(af) -> dict:
     """The U-list kernel's work in one apply of a set-up AdaptiveFMM:
     pairs of each leaf's real targets with its U list's real sources;
-    bytes of those targets and sources as the launches see them (a
+    bytes of those targets and sources as the launch reads them (a
     source once in each U list that holds it)."""
-    tcnt = np.bincount(af.t_take.cpu().numpy() // af.cap_t,
-                       minlength=af.n_leaf)
-    near = _ulist_sources(af)
+    tcnt, near = _ulist_counts(af)
     return p2p_ulist_work(af.ker_s2t, int((tcnt * near).sum()),
                           int(tcnt.sum()), int(near.sum()))
 
@@ -144,32 +152,39 @@ def ulist_main_work(af) -> dict:
 def ulist_cases(af, seed: int = 0) -> dict:
     """kernel name -> (kernel call, plain call, None, work) of
     `p2p_ulist` at the widths of the set-up AdaptiveFMM `af` on
-    ULIST_G boxes, on its device.  Targets fill a box of the leaves'
-    mean size, sources the 27 boxes around it; a source slot holds a
-    density as often as af's U-list slots hold a point."""
+    ULIST_G boxes, on its device: T = af's target capacity, each box's
+    real targets and sources drawn around af's means (Poisson), the
+    targets in a box of the leaves' mean size, the sources in the 27
+    boxes around it, their densities read through a shuffled index."""
     rng = np.random.default_rng(seed)
     dev = af.device
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                     device=dev)
-    G, T, S = ULIST_G, af.ul_T, af.ul_S
-    fill = _ulist_sources(af).mean() / S
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    G, T = ULIST_G, af.cap_t
+    tcnt_af, near_af = _ulist_counts(af)
+    tcnt = np.minimum(rng.poisson(tcnt_af.mean(), G), T)
+    scnt = rng.poisson(near_af.mean(), G)
+    N = int(scnt.sum())
+    ends = np.cumsum(scnt)
+    srng = i32(np.stack([ends - scnt, ends], 1))
     side = af.tree.scale / 2 ** np.mean(af.tree.leaf_levels)
-    xt = rng.random((G, 3, T)) * side
-    xs = (rng.random((G, 3, S)) * 3 - 1) * side
-    nrm = rng.normal(size=(G, 3, S))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    real = rng.random((G, S)) < fill
+    xt = f32(rng.random((G, 3, T)) * side)
+    xs = f32((rng.random((3, N)) * 3 - 1) * side)
+    nrm = f32(_unit_normals(rng, (3, N), 0))
+    fidx = rng.permutation(N + 7)[:N]
     cases = {}
     for name in TREE_KERNELS:
         ker = KERNELS[name]
-        f = rng.normal(size=(G, ker.kdim0, S)) * real[:, None, :]
-        a = (f32(xt), f32(xs), f32(nrm) if ker.needs_normal else None,
-             f32(f))
+        f = f32(rng.normal(size=(N + 7, ker.kdim0)))
+        a = (xt, xs, nrm if ker.needs_normal else None, f, srng, i32(tcnt),
+             i32(fidx))
         cases[name] = (
             lambda ker=ker, a=a: p2p_ulist(ker, *a),
-            lambda ker=ker, a=a: p2p_ulist_plain(ker, *a), None,
-            p2p_ulist_work(ker, T * int(real.sum()), G * T,
-                           int(real.sum())))
+            lambda dtype=None, ker=ker, a=a: p2p_ulist_plain(
+                ker, *_cast(a, dtype)), None,
+            p2p_ulist_work(ker, int((tcnt * scnt).sum()), int(tcnt.sum()),
+                           N))
     return cases
 
 
@@ -221,14 +236,24 @@ def main_path_work(kf) -> dict:
         work["p2p_stencil9"] = p2p_stencil9_work(kf.ker_s2t, pairs, n,
                                                  kf.cap_t, kf.SL)
     else:
-        work["p2p_stencil"] = p2p_stencil_work(kf.ker_s2t, pairs, n,
-                                               kf.cap_s, kf.cap_t)
+        work["p2p_stencil"] = p2p_stencil_work(
+            kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()), int(cs.sum()))
     if m2l_kernel(kf) == "m2l_grid_blocked":
         work["m2l_grid_blocked"] = m2l_grid_blocked_work(n // 2,
                                                          ops.m2l_blk)
     elif m2l_kernel(kf) == "m2l_grid":
         work["m2l_grid"] = m2l_grid_work(n, ops.blk_r, ops.blk_r2)
     return work
+
+
+def _cast(args, dtype):
+    """args with their floating tensors in `dtype` (None: unchanged): the
+    redesigned kernels' cases also evaluate their plain version in
+    float64 on the same inputs (`plain(torch.float64)`)."""
+    if dtype is None:
+        return args
+    return tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
 
 
 def _unit_normals(rng, shape, axis):
@@ -251,7 +276,9 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
                                     device=dev)
     cap_s, cap_t, SL = kf.cap_s, kf.cap_t, kf.SL
     lam = kf.scale / (1 << kf.depth)
-    fill = np.minimum(kf.src_tree.box_cnt, cap_s).mean() / cap_s
+    mean_s = np.minimum(kf.src_tree.box_cnt, cap_s).mean()
+    mean_t = np.minimum(kf.trg_tree.box_cnt, cap_t).mean()
+    fill = mean_s / cap_s
     surf = kf.surf_out_L
     ns = surf.shape[0]
     near = near_kernel(kf)
@@ -321,8 +348,11 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         n = P2P_N if near == "p2p_stencil9" else STENCIL_N
         lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
                       -1).reshape(-1, 1, 3)
+        # each box's real points are its first slots, as in the KIFMM
+        cnt_s = np.minimum(rng.poisson(mean_s, n ** 3), cap_s)
+        cnt_t = np.minimum(rng.poisson(mean_t, n ** 3), cap_t)
         xs_b = (lo + rng.random((n ** 3, cap_s, 3))) * lam
-        vs_b = rng.random((n ** 3, cap_s)) < fill
+        vs_b = np.arange(cap_s) < cnt_s[:, None]
         f_b = rng.normal(size=(n ** 3, cap_s, kn.kdim0)) * vs_b[..., None]
         xt_b = (lo + rng.random((n ** 3, cap_t, 3))) * lam
         ident = torch.arange(n ** 3, device=dev)
@@ -330,9 +360,9 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
                  if kn.needs_normal else None)
         xt_g = f32(xt_b.reshape(n, n, n, cap_t, 3)
                    .transpose(0, 1, 2, 4, 3))
-        pairs = cap_t * int(_near_counts(vs_b.sum(axis=1)
-                                         .reshape(n, n, n)).sum())
+        near_s = _near_counts(cnt_s.reshape(n, n, n)).reshape(-1)
         if near == "p2p_stencil9":
+            pairs = cap_t * int(near_s.sum())
             lay = lambda a: to_slab(f32(a), ident, n, SL)
             a = (kn, n, SL, cap_t, xt_g, lay(xs_b), lay(f_b),
                  None if nrm_b is None else lay(nrm_b))
@@ -341,11 +371,17 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
                            p2p_stencil9_work(kn, pairs, n, cap_t, SL))
         else:
             lay = lambda a: to_halo(f32(a), ident, n)
+            cnt = lambda c: torch.as_tensor(c.reshape(n, n, n).astype(
+                np.int32), device=dev)
             a = (kn, n, cap_s, cap_t, xt_g, lay(xs_b), lay(f_b),
-                 None if nrm_b is None else lay(nrm_b))
+                 None if nrm_b is None else lay(nrm_b), cnt(cnt_s),
+                 cnt(cnt_t))
             cases[near] = (lambda a=a: p2p_stencil(*a),
-                           lambda a=a: p2p_stencil_plain(*a), None,
-                           p2p_stencil_work(kn, pairs, n, cap_s, cap_t))
+                           lambda dtype=None, a=a: p2p_stencil_plain(
+                               *_cast(a, dtype)), None,
+                           p2p_stencil_work(kn, int((cnt_t * near_s).sum()),
+                                            n, cap_t, int(cnt_t.sum()),
+                                            int(cnt_s.sum())))
     return cases
 
 
@@ -407,3 +443,25 @@ def rel_max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| / max |b| in float64."""
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def neighbour_lists(kf, fp):
+    """The U-list kernel's arguments for the near field of a set-up
+    KIFMM on padded densities fp (B, cap_s, k0): each box's 27
+    neighbours' real slots as one flat list (coordinates as the boxes
+    hold them, densities read through the slot index), Morton order."""
+    B, cs = kf.src_tree.n_boxes, kf.cap_s
+    cnt = torch.as_tensor(np.minimum(kf.src_tree.box_cnt, cs),
+                          device=kf.device)
+    nbc = kf.nb.clamp(min=0)
+    c27 = torch.where(kf.nb >= 0, cnt[nbc], 0).reshape(-1)
+    run0 = torch.cumsum(c27, 0) - c27
+    slot = (torch.repeat_interleave(nbc.reshape(-1) * cs - run0, c27)
+            + torch.arange(int(c27.sum()), device=kf.device))
+    per_box = c27.reshape(B, 27).sum(1)
+    ends = torch.cumsum(per_box, 0)
+    return (kf.xt_pad.transpose(1, 2).contiguous(),
+            kf.xs_pad.reshape(-1, 3)[slot].T.contiguous(), None,
+            fp.reshape(-1, fp.shape[-1]),
+            torch.stack([ends - per_box, ends], 1).to(torch.int32),
+            kf.cnt_t_box, slot.to(torch.int32))

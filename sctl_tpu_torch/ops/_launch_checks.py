@@ -1,5 +1,6 @@
 """Argument checks shared by the kernel wrappers: a CUDA kernel takes
-contiguous float32 tensors on one card and nothing else."""
+contiguous float32 tensors (and int32 counts and indices) on one card
+and nothing else."""
 
 from __future__ import annotations
 
@@ -34,5 +35,17 @@ def check_kernel_args(name: str, **tensors: torch.Tensor) -> None:
             raise NotImplementedError(
                 f"{name}: {key} is {t.dtype}; the CUDA kernel takes "
                 "float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def check_index_args(name: str, **tensors) -> None:
+    """Counts, ranges and indices: contiguous int32 (None: absent)."""
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise NotImplementedError(
+                f"{name}: {key} is {t.dtype}; the CUDA kernel takes int32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")

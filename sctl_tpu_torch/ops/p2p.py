@@ -10,8 +10,10 @@ Boxes are in raster order.  Slab entry z' of column (x, y) holds the 9
 (SL slots, zeros in margins and padding), so the 27-box neighbourhood
 of target box z is the one window [z*SL, (z+3)*SL).  The halo layout
 keeps each column's own boxes only, cap slots a box between cap-wide
-zero margins (`to_halo`); the kernel reads the window [z*cap, (z+3)*cap)
-of each of the 9 neighbour columns where it lies.
+zero margins (`to_halo`); the kernel reads the real slots of boxes
+z-1..z+1 of each of the 9 neighbour columns where they lie, by the
+boxes' counts.  The U-list kernel reads each box's run of one flat
+source list (`box_ranges` for box-major slots).
 
 On a CUDA tensor `p2p` launches csrc/p2p_direct.cu (float32 or
 float64), `p2p_stencil9` csrc/p2p_stencil9.cu, `p2p_stencil`
@@ -25,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import launch
-from ._launch_checks import CHUNK_PAIRS, check_kernel_args, n_sms, on_cuda
+from ._launch_checks import (CHUNK_PAIRS, check_index_args,
+                             check_kernel_args, n_sms, on_cuda)
 from .kernels import KernelSpec
 from .uker import FORMULA, TREE_KERNELS, check_supported
 
@@ -200,7 +203,7 @@ def to_halo(a, rast_to_mort, n: int):
     layout of the `to_halo` closure, sctl_tpu/fmm/kifmm.py:861-867).
     Any cap: the JAX package rounds it up to a 64 or 128 multiple for
     the TPU's lane tiles, which the CUDA kernel does not need (its loads
-    take any slot; a padded slot is a pair computed for nothing)."""
+    take any slot and skip the slots past each box's count)."""
     B, cap, k = a.shape
     g = a[rast_to_mort].reshape(n, n, n, cap, k).permute(0, 1, 4, 2, 3)
     return F.pad(g.reshape(n, n, k, n * cap), (cap, cap))
@@ -215,10 +218,21 @@ def _nine_columns(a, n: int):
                        2).reshape(n * n, 9, a.shape[2], -1)
 
 
+def _slot_mask(cnt, cap: int):
+    """(..., ) per-box counts -> (..., cap) bool, slot < count."""
+    return torch.arange(cap, device=cnt.device) < cnt[..., None]
+
+
 def p2p_stencil_plain(kernel: KernelSpec, nside: int, cap: int,
-                      cap_t: int, xt_g, xs_h, f_h, ns_h=None):
-    """Plain version of `p2p_stencil`, in column chunks per z."""
+                      cap_t: int, xt_g, xs_h, f_h, ns_h=None, cnt_s=None,
+                      cnt_t=None):
+    """Plain version of `p2p_stencil`, in column chunks per z: the
+    densities of source slots past cnt_s are masked to zero and the
+    target slots past cnt_t come out zero."""
     n = nside
+    if cnt_s is not None:
+        m = _slot_mask(cnt_s, cap).reshape(n, n, 1, n * cap)
+        f_h = f_h * F.pad(m, (cap, cap)).to(f_h.dtype)
     xs9, f9 = _nine_columns(xs_h, n), _nine_columns(f_h, n)
     ns9 = None if ns_h is None else _nine_columns(ns_h, n)
     xt = xt_g.reshape(n * n, n, 3, cap_t)
@@ -235,18 +249,25 @@ def p2p_stencil_plain(kernel: KernelSpec, nside: int, cap: int,
             out[c, z] = kernel.apply_pairwise(
                 xt[c, z].transpose(1, 2), win(xs9, c, z),
                 None if ns9 is None else win(ns9, c, z), win(f9, c, z))
-    return out.reshape(n, n, n, cap_t, kernel.kdim1)
+    out = out.reshape(n, n, n, cap_t, kernel.kdim1)
+    if cnt_t is not None:
+        out = out * _slot_mask(cnt_t, cap_t)[..., None].to(out.dtype)
+    return out
 
 
 def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
-                xt_g, xs_h, f_h, ns_h=None):
+                xt_g, xs_h, f_h, ns_h=None, cnt_s=None, cnt_t=None):
     """Uniform-grid near-field P2P over 9 shifted halo columns.
 
     xt_g (n, n, n, 3, cap_t): target coordinates per box, raster order.
     xs_h (n, n, 3, (n+2)*cap): halo columns (`to_halo`).
-    f_h  (n, n, k0, (n+2)*cap): densities, zero in padding and margins.
+    f_h  (n, n, k0, (n+2)*cap): densities, zero in margins.
     ns_h (n, n, 3, (n+2)*cap): source normals in the same columns (None
          unless kernel.needs_normal).
+    cnt_s, cnt_t (n, n, n) int32, raster order: each box's real source
+         and target points, its first slots (None: every slot).  Source
+         slots past cnt_s are left out, target slots past cnt_t come
+         out zero.
     -> (n, n, n, cap_t, k1) unscaled potentials, raster order.  Any
     (cap, cap_t): the card's block streams the sources in tiles.
     """
@@ -256,23 +277,29 @@ def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
     if (xt_g.shape != (n, n, n, 3, cap_t) or xs_h.shape != col
             or f_h.shape != (n, n, kernel.kdim0, (n + 2) * cap)
             or (kernel.needs_normal
-                and (ns_h is None or ns_h.shape != col))):
+                and (ns_h is None or ns_h.shape != col))
+            or any(c is not None and c.shape != (n, n, n)
+                   for c in (cnt_s, cnt_t))):
         raise ValueError(f"p2p_stencil: xt_g {tuple(xt_g.shape)}, xs_h "
                          f"{tuple(xs_h.shape)}, f_h {tuple(f_h.shape)}, "
                          f"ns_h {None if ns_h is None else tuple(ns_h.shape)}"
-                         f", n {n}, cap {cap}, cap_t {cap_t}, kernel "
+                         f", counts {[None if c is None else tuple(c.shape)
+                                      for c in (cnt_s, cnt_t)]}, n {n}, cap "
+                         f"{cap}, cap_t {cap_t}, kernel "
                          f"{kernel.name}")
     ns_h = ns_h if kernel.needs_normal else None
-    tensors = [t for t in (xt_g, xs_h, f_h, ns_h) if t is not None]
+    tensors = [t for t in (xt_g, xs_h, f_h, ns_h, cnt_s, cnt_t)
+               if t is not None]
     if not on_cuda(*tensors):
         return p2p_stencil_plain(kernel, n, cap, cap_t, xt_g, xs_h, f_h,
-                                 ns_h)
+                                 ns_h, cnt_s, cnt_t)
     check_kernel_args("p2p_stencil", xt_g=xt_g, xs_h=xs_h, f_h=f_h,
                       **({} if ns_h is None else {"ns_h": ns_h}))
+    check_index_args("p2p_stencil", cnt_s=cnt_s, cnt_t=cnt_t)
     out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
                       device=xt_g.device)
     launch("sctl_p2p_stencil", xt_g.data_ptr(), xs_h.data_ptr(),
-           None if ns_h is None else ns_h.data_ptr(), f_h.data_ptr(),
+           _ptr(ns_h), f_h.data_ptr(), _ptr(cnt_s), _ptr(cnt_t),
            out.data_ptr(), FORMULA[kernel.name], n, cap, cap_t)
     p2p_stencil.launches += 1
     return out
@@ -281,56 +308,120 @@ def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
 p2p_stencil.launches = 0
 
 
-def p2p_ulist_plain(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
-    """Plain version of `p2p_ulist`, in box chunks."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def p2p_ulist_plain(kernel: KernelSpec, xt_b, xs, ns, f, srng, tcnt=None,
+                    fidx=None):
+    """Plain version of `p2p_ulist`: each box's sources gathered into a
+    slab as wide as the longest list (zero density past its own), in
+    box chunks; target slots past tcnt come out zero."""
     G, _, T = xt_b.shape
-    S = xs_b.shape[2]
-    out = xt_b.new_empty((G, T, kernel.kdim1))
+    beg = srng[:, 0].long()
+    cnt = (srng[:, 1].long() - beg).clamp(min=0)
+    S = int(cnt.max()) if G else 0
+    k = torch.arange(S, device=xt_b.device)
+    real = k < cnt[:, None]                                 # (G, S)
+    j = torch.where(real, beg[:, None] + k, 0)
+    rows = j if fidx is None else fidx.long()[j]
+    out = xt_b.new_zeros((G, T, kernel.kdim1))
     step = max(1, CHUNK_PAIRS // max(1, T * S))
     for g0 in range(0, G, step):
         g = slice(g0, g0 + step)
         out[g] = kernel.apply_pairwise(
-            xt_b[g].transpose(1, 2), xs_b[g].transpose(1, 2),
-            None if ns_b is None else ns_b[g].transpose(1, 2),
-            f_b[g].transpose(1, 2))
+            xt_b[g].transpose(1, 2), xs.T[j[g]],
+            None if ns is None else ns.T[j[g]],
+            f[rows[g]] * real[g, :, None].to(f.dtype))
+    if tcnt is not None:
+        out = out * _slot_mask(tcnt, T)[..., None].to(out.dtype)
     return out
 
 
-def p2p_ulist(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
-    """Per-box U-list P2P: box g's T targets against its S gathered
-    source slots.
-
-    xt_b (G, 3, T): target coordinates per box, T % 8 == 0.
-    xs_b (G, 3, S): gathered source coordinates, S % 128 == 0.
-    ns_b (G, 3, S): source normals (None unless kernel.needs_normal).
-    f_b  (G, k0, S): densities, zero in padded slots.
-    -> (G, T, k1) unscaled potentials.
-    """
-    check_supported(kernel.name, TREE_KERNELS)
+def _ulist_from_padded(kernel: KernelSpec, xt_b, xs_b, ns_b, f_b):
+    """The JAX function's padded slabs -> the flat form: (xs, ns, f,
+    srng), every slot of each box's slab a source."""
     G, _, T = xt_b.shape
     S = xs_b.shape[2]
-    k0 = kernel.kdim0
     if (xt_b.shape != (G, 3, T) or xs_b.shape != (G, 3, S)
-            or f_b.shape != (G, k0, S) or T % 8 or S % 128
+            or f_b.shape != (G, kernel.kdim0, S) or T % 8 or S % 128
             or (kernel.needs_normal
                 and (ns_b is None or ns_b.shape != (G, 3, S)))):
         raise ValueError(f"p2p_ulist: xt_b {tuple(xt_b.shape)}, xs_b "
                          f"{tuple(xs_b.shape)}, f_b {tuple(f_b.shape)}, "
                          f"ns_b {None if ns_b is None else tuple(ns_b.shape)}"
                          f", kernel {kernel.name}")
-    ns_b = ns_b if kernel.needs_normal else None
-    tensors = [t for t in (xt_b, xs_b, ns_b, f_b) if t is not None]
+    flat = lambda a: a.transpose(0, 1).reshape(a.shape[1], -1)
+    full = torch.full((G,), S, dtype=torch.int32, device=xt_b.device)
+    return (flat(xs_b), None if ns_b is None or not kernel.needs_normal
+            else flat(ns_b), f_b.transpose(1, 2).reshape(-1, kernel.kdim0),
+            box_ranges(full, S))
+
+
+def p2p_ulist(kernel: KernelSpec, xt_b, xs, ns, f, srng=None, tcnt=None,
+              fidx=None):
+    """Per-box U-list P2P: box g's targets against its run of one flat
+    source list.
+
+    xt_b (G, 3, T): target coordinates per box.
+    xs   (3, N): source coordinates; box g's sources are the columns
+         srng[g, 0] <= j < srng[g, 1].
+    ns   (3, N): source normals (None unless kernel.needs_normal).
+    f    (rows, k0): densities; source j reads row fidx[j] (fidx None:
+         row j).
+    srng (G, 2) int32: [begin, end) of each box's sources.
+    tcnt (G,) int32: each box's real targets, its first slots (None:
+         all T); the slots past it come out zero.
+    fidx (N,) int32 or None.
+    -> (G, T, k1) unscaled potentials.  One launch on the card.
+
+    Without srng, the JAX function's padded form: xs (G, 3, S), ns
+    (G, 3, S), f (G, k0, S) per box with zero density in padded slots,
+    T % 8 == 0 and S % 128 == 0 as the Pallas kernel takes them; every
+    slot is a source.
+    """
+    check_supported(kernel.name, TREE_KERNELS)
+    if srng is None:
+        xs, ns, f, srng = _ulist_from_padded(kernel, xt_b, xs, ns, f)
+    G, _, T = xt_b.shape
+    N = xs.shape[1]
+    if (xt_b.shape != (G, 3, T) or xs.shape != (3, N) or f.dim() != 2
+            or f.shape[1] != kernel.kdim0 or srng.shape != (G, 2)
+            or (tcnt is not None and tcnt.shape != (G,))
+            or (fidx is not None and fidx.shape != (N,))
+            or (kernel.needs_normal
+                and (ns is None or ns.shape != (3, N)))):
+        raise ValueError(f"p2p_ulist: xt_b {tuple(xt_b.shape)}, xs "
+                         f"{tuple(xs.shape)}, f {tuple(f.shape)}, ns "
+                         f"{None if ns is None else tuple(ns.shape)}, srng "
+                         f"{tuple(srng.shape)}, tcnt "
+                         f"{None if tcnt is None else tuple(tcnt.shape)}, "
+                         f"fidx {None if fidx is None else tuple(fidx.shape)}"
+                         f", kernel {kernel.name}")
+    ns = ns if kernel.needs_normal else None
+    tensors = [t for t in (xt_b, xs, ns, f, srng, tcnt, fidx)
+               if t is not None]
     if not on_cuda(*tensors):
-        return p2p_ulist_plain(kernel, xt_b, xs_b, ns_b, f_b)
-    check_kernel_args("p2p_ulist", xt_b=xt_b, xs_b=xs_b, f_b=f_b,
-                      **({} if ns_b is None else {"ns_b": ns_b}))
+        return p2p_ulist_plain(kernel, xt_b, xs, ns, f, srng, tcnt, fidx)
+    check_kernel_args("p2p_ulist", xt_b=xt_b, xs=xs, f=f,
+                      **({} if ns is None else {"ns": ns}))
+    check_index_args("p2p_ulist", srng=srng, tcnt=tcnt, fidx=fidx)
     out = torch.empty((G, T, kernel.kdim1), dtype=torch.float32,
                       device=xt_b.device)
-    launch("sctl_p2p_ulist", xt_b.data_ptr(), xs_b.data_ptr(),
-           None if ns_b is None else ns_b.data_ptr(), f_b.data_ptr(),
-           out.data_ptr(), FORMULA[kernel.name], G, T, S)
+    launch("sctl_p2p_ulist", xt_b.data_ptr(), _ptr(tcnt), xs.data_ptr(),
+           _ptr(ns), f.data_ptr(), _ptr(fidx), srng.data_ptr(),
+           out.data_ptr(), FORMULA[kernel.name], G, T, N)
     p2p_ulist.launches += 1
     return out
 
 
 p2p_ulist.launches = 0
+
+
+def box_ranges(counts, width: int):
+    """(B,) per-box counts -> (B, 2) int32 [begin, end) of each box's
+    first `counts` slots in a flat array of `width` slots a box: the
+    U-list kernel's source runs over box-major slots."""
+    beg = torch.arange(counts.shape[0], device=counts.device) * width
+    return torch.stack([beg, beg + counts.clamp(0, width)], 1) \
+        .to(torch.int32)

@@ -377,3 +377,160 @@ def test_m2l_repeats_bit_for_bit(kf6, kf8, name):
     torch.cuda.synchronize()
     assert getattr(m2l, name).last_nsplit > 1
     assert torch.equal(a, b)
+
+
+# ---- the redesigned pair kernels: the halo stencil over each box's
+# real slots, the U list over compacted lists ---------------------------
+
+def _stencil_ragged(ker, seed, n=4, cap=29, cap_t=37):
+    """A halo-stencil case at ragged widths (cap_t = 37, odd, so the
+    last thread holds one target; cap = 29), with source and target counts of 0, 1
+    and the caps among random ones; the slots past the counts hold
+    nonzero densities, which the kernel must skip."""
+    from sctl_tpu_torch.ops.p2p import to_halo
+    rng = np.random.default_rng(seed)
+    B = n ** 3
+    cnt_s = rng.integers(0, cap + 1, B)
+    cnt_t = rng.integers(0, cap_t + 1, B)
+    cnt_s[:4] = (0, 1, cap, cap)
+    cnt_t[:4] = (cap_t, 0, 1, cap_t)
+    lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
+                  -1).reshape(-1, 1, 3)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    ident = torch.arange(B, device="cuda")
+    halo = lambda a: to_halo(f32(a), ident, n)
+    nrm = rng.normal(size=(B, cap, 3))
+    nrm /= np.linalg.norm(nrm, axis=2, keepdims=True)
+    xt = (lo + rng.random((B, cap_t, 3))) / n
+    counts = lambda c: torch.as_tensor(c.reshape(n, n, n).astype(np.int32),
+                                       device="cuda")
+    return (ker, n, cap, cap_t,
+            f32(xt.reshape(n, n, n, cap_t, 3).transpose(0, 1, 2, 4, 3)),
+            halo((lo + rng.random((B, cap, 3))) / n),
+            halo(rng.normal(size=(B, cap, ker.kdim0))),
+            halo(nrm) if ker.needs_normal else None, counts(cnt_s),
+            counts(cnt_t))
+
+
+def _f64(args):
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def _check_redesigned(out, plain, args):
+    """1e-5 of the maximum against the plain version in float32 (as
+    above), 5e-6 against it in float64 on the same inputs
+    (tests_tpu/test_p2p_accuracy.py:45)."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    assert rel_max_err(out, plain(*args)) < 1e-5
+    assert rel_max_err(out, plain(*_f64(args))) < 5e-6
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_stencil_ragged_matches_plain(cuda_device, name):
+    """csrc/p2p_stencil.cu for the six tree formulas at ragged widths
+    and counts; the target slots past the counts are exactly zero."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil_plain
+    args = _stencil_ragged(KERNELS[name], 20)
+    out = p2p_stencil(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_stencil_plain, args)
+    cnt_t, cap_t = args[-1], args[3]
+    pad = torch.arange(cap_t, device="cuda") >= cnt_t[..., None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_stencil_wide_caps_match_plain(cuda_device):
+    """Caps past one block's targets and one shared tile's sources
+    (cap_t 700 in two target chunks, cap 600: windows over 512 slots),
+    the Stokes double layer."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil_plain
+    args = _stencil_ragged(KERNELS["Stokes3D-DxU"], 21, n=3, cap=600,
+                           cap_t=700)
+    out = p2p_stencil(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_stencil_plain, args)
+
+
+def test_p2p_stencil_repeats_bit_for_bit(cuda_device):
+    """One launch repeated gives the same bits: fixed order, no atomics."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil
+    args = _stencil_ragged(KERNELS["Stokes3D-FxU"], 22)
+    a, b = p2p_stencil(*args), p2p_stencil(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _ulist_ragged(ker, seed, G=12, T=70):
+    """A compacted U-list case at ragged widths: T = 70 (two target
+    chunks of the block, not a multiple of 2), target counts 0, 1, 64,
+    65 and T, source runs of 0 and 1 (a list with one real source)
+    among random ones up to 700, densities through a shuffled index
+    with rows no source reads."""
+    rng = np.random.default_rng(seed)
+    tcnt = rng.integers(0, T + 1, G)
+    tcnt[:6] = (0, 1, 64, 65, T, 7)
+    scnt = rng.integers(0, 700, G)
+    scnt[:6] = (5, 0, 1, 300, 700, 1)
+    N = int(scnt.sum())
+    ends = np.cumsum(scnt)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    nrm = rng.normal(size=(3, N))
+    nrm /= np.linalg.norm(nrm, axis=0, keepdims=True)
+    return (ker, f32(rng.random((G, 3, T))), f32(rng.random((3, N)) * 3 - 1),
+            f32(nrm) if ker.needs_normal else None,
+            f32(rng.normal(size=(N + 9, ker.kdim0))),
+            i32(np.stack([ends - scnt, ends], 1)), i32(tcnt),
+            i32(rng.permutation(N + 9)[:N]))
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_ulist_ragged_matches_plain(cuda_device, name):
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    args = _ulist_ragged(KERNELS[name], 23)
+    out = p2p_ulist(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_ulist_plain, args)
+    tcnt, T = args[6], args[1].shape[2]
+    pad = torch.arange(T, device="cuda") >= tcnt[:, None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_ulist_padded_form_matches_flat(cuda_device):
+    """The JAX function's padded form (every slot of a (G, 3, S) slab a
+    source) and the flat form over the same slots agree bit for bit:
+    one kernel body."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import box_ranges, p2p_ulist
+    ker = KERNELS["Stokes3D-DxU"]
+    rng = np.random.default_rng(24)
+    G, T, S = 5, 16, 256
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    xt, xs, ns = (f32(rng.random((G, 3, T))), f32(rng.random((G, 3, S))),
+                  f32(rng.normal(size=(G, 3, S))))
+    f = f32(rng.normal(size=(G, 3, S)) * (rng.random((G, 1, S)) < 0.7))
+    flat = lambda a: a.transpose(0, 1).reshape(3, -1).contiguous()
+    full = torch.full((G,), S, dtype=torch.int32, device="cuda")
+    a = p2p_ulist(ker, xt, xs, ns, f)
+    b = p2p_ulist(ker, xt, flat(xs), flat(ns),
+                  f.transpose(1, 2).reshape(-1, 3).contiguous(),
+                  box_ranges(full, S))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_p2p_ulist_repeats_bit_for_bit(cuda_device):
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    args = _ulist_ragged(KERNELS["Stokes3D-DxU"], 25)
+    a, b = p2p_ulist(*args), p2p_ulist(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
