@@ -17,8 +17,10 @@ Phases, each printed on flushed lines with the seconds since start:
             card, at the widths of that KIFMM with a reduced count
             (sctl_tpu_torch/kernel_cases.py).  Bar: 1e-5 of the maximum,
             since the kernels sum in another order than the plain
-            versions and rsqrtf is not torch.rsqrt.  Kernel time from
-            CUDA events over 20 launches after a warm-up.
+            versions and rsqrtf is not torch.rsqrt; the slab stencil
+            (compacted slab, counts) also against its plain version in
+            float64 (bar 5e-6).  Kernel time from CUDA events over 20
+            launches after a warm-up.
 5. main     the KIFMM's evaluation: one warm and three timed
             evaluations with fresh densities, per-stage CUDA-event
             times (the P2P stage as the route's stencil, "P2P near", and
@@ -28,7 +30,11 @@ Phases, each printed on flushed lines with the seconds since start:
             sampled targets against a float64 direct sum on the card
             (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
             Every kernel's launch count in the four evaluations must be
-            > 0.  Then each kernel alone on the run's own tensors, and the
+            > 0.  Then each kernel alone on the run's own tensors; the
+            slab stencil over the real slots (counts) and over every
+            slot, its blocks an SM (occupancy API) and its Laplace
+            issue-slot floor (the SASS instructions a pair of its inner
+            loop, cuobjdump); and the
             M2L kernel (3xTF32 on the tensor cores) at each level 3-6 on
             the run's own stack: its time against its CUDA-core and
             tensor-core bounds, its split, the bytes its blocks copy
@@ -68,9 +74,11 @@ Phases, each printed on flushed lines with the seconds since start:
             through the p2p kernel.  At 1000 sampled targets the float32
             result against the float64 p2p on the card (bar 5e-6,
             tests_tpu/test_p2p_accuracy.py:45), and the float64 p2p
-            against its plain version (bar 1e-12).  Then p2p against its
-            plain version for every formula in both types at 4096 x
-            39,000 (bars 1e-5 and 1e-12).
+            against its plain version (bar 1e-12).  p2p's block for each
+            formula in both types (targets a thread, blocks an SM from
+            the occupancy API).  Then p2p against its plain version for
+            every formula in both types at 4096 x 39,000 (bars 1e-5 and
+            1e-12), and its float32 Stokes3D-FxU issue-slot floor.
 6b. tree    ParticleFMM(float32) on 2e5 points from default_rng(4) at
             automatic depth for Laplace3D-DxU and -FxdU and Stokes3D-DxU
             and -FSxU: the tree path; error at 1000 sampled targets
@@ -86,7 +94,10 @@ Phases, each printed on flushed lines with the seconds since start:
             densities, per-stage CUDA-event times, one profiled
             evaluation, peak device memory and the error at 1000 sampled
             targets against the float64 p2p (bar 2e-4), with that
-            oracle's time against its bound; at depth 5 the halo stencil
+            oracle's time against its bound, its block (targets a
+            thread, blocks an SM, source splits) and its floor from the
+            DP instructions a pair of its loop at the DP pipe's rate;
+            at depth 5 the halo stencil
             alone on the run's columns, over the boxes' real slots and
             over every padded slot (what the counts save).  At depth 6
             also the error with the M2L sweep at
@@ -427,7 +438,7 @@ def phase_main(torch, kf, xs, f, rng, counters):
     # each kernel alone at the main path's shapes (after the counts
     # were read)
     from sctl_tpu_torch.ops.m2l import m2l_grid_blocked
-    from sctl_tpu_torch.ops.p2p import p2p_stencil9, to_slab
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, slab_gather
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     ops = kf._ops
     ns, B = ops.n_surf, kf.src_tree.n_boxes
@@ -437,7 +448,7 @@ def phase_main(torch, kf, xs, f, rng, counters):
     qbp = torch.zeros((h + 2,) * 3 + (8 * ops.blk_r2,), device=dev)
     qbp[1:-1, 1:-1, 1:-1] = torch.randn((h, h, h, 8 * ops.blk_r2),
                                         device=dev)
-    f_s = to_slab(fp, kf.rast_to_mort, n, kf.SL)
+    f_s = slab_gather(fp, kf.slab_idx)
     full = {
         "surface_pair": lambda: surface_pair(
             Laplace3D_FxU, kf.surf_out_L, kf.xs_sl, fp.reshape(1, -1),
@@ -448,10 +459,17 @@ def phase_main(torch, kf, xs, f, rng, counters):
                                                      ops.m2l_blk_tc),
         "p2p_stencil9": lambda: p2p_stencil9(
             Laplace3D_FxU, n, kf.SL, kf.cap_t, kf.xt_rast, kf.xs_slab,
-            f_s),
+            f_s, None, kf.cnt9, kf.cnt_t_rast),
     }
     main_rows = alone_rows(torch, kf, full, launches, "main")
     del qbp
+    st = stencil9_times(torch, kf, f_s, "main")
+    main_rows["p2p_stencil9"].update(
+        every_slot_ms=st["every_slot_ms"], blocks_per_sm=st["blocks_per_sm"],
+        lanes_per_target=st["lanes_per_target"],
+        **(issue_floor("p2p_stencil9", "p2p_stencil9_kernelILi0E",
+                       st["pairs"], "main") or {}))
+    del f_s
     main_rows["m2l_grid_blocked"]["levels"] = m2l_levels(torch, kf, "main")
     return main_rows
 
@@ -858,9 +876,9 @@ def phase_direct(torch, counters):
     """6a: ParticleFMM's direct path for every kernel, through p2p."""
     import numpy as np
     from sctl_tpu_torch.fmm import ParticleFMM
-    from sctl_tpu_torch.kernel_cases import p2p_cases
+    from sctl_tpu_torch.kernel_cases import P2P_S, P2P_T, p2p_cases
     from sctl_tpu_torch.ops import KERNELS, direct_eval_blocked
-    from sctl_tpu_torch.ops.p2p import p2p_plain
+    from sctl_tpu_torch.ops.p2p import p2p_layout, p2p_plain
     rng = np.random.default_rng(3)
     x = rng.random((DIRECT_N, 3))
     nrm = rng.normal(size=(DIRECT_N, 3))
@@ -902,8 +920,21 @@ def phase_direct(torch, counters):
                 and err32 < DIRECT_BAR and err64 < ORACLE_BAR):
             raise SystemExit(f"chip_smoke: direct path of {name} failed: "
                              f"{err32:.3e}, {err64:.3e}, {launches}")
+    log("direct: p2p's block a formula, float32 / float64: " + ", ".join(
+        f"{name} " + " / ".join(
+            "{targets_per_thread} targets a thread x {threads}, "
+            "{blocks_per_sm} blocks an SM".format(
+                **p2p_layout(ker, dt, "cuda"))
+            for dt in (torch.float32, torch.float64))
+        for name, ker in KERNELS.items()))
     crows = phase_kernels(torch, None, p2p_cases("cuda"))
     row = dict(crows[P2P_CASE])
+    lay = p2p_layout(KERNELS["Stokes3D-FxU"], torch.float32, "cuda")
+    row.update(blocks_per_sm=lay["blocks_per_sm"],
+               targets_per_thread=lay["targets_per_thread"],
+               **{"case_" + k: v for k, v in (issue_floor(
+                   "p2p", "p2p_direct_kernelIfLi3E", P2P_T * P2P_S,
+                   "direct") or {}).items()})
     row["cases"] = {k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             bound_by=v["bound_by"])
@@ -1094,7 +1125,8 @@ def phase_stokes(torch, counters):
     from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
     from sctl_tpu_torch.kernel_cases import p2p_work
     from sctl_tpu_torch.ops import Stokes3D_FxU, direct_eval_blocked
-    from sctl_tpu_torch.ops.p2p import to_halo
+    from sctl_tpu_torch.ops._launch_checks import n_sms
+    from sctl_tpu_torch.ops.p2p import p2p_grid, p2p_layout, to_halo
     rng = np.random.default_rng(2)
     x = rng.random((STOKES_N, 3))
     f = rng.normal(size=(STOKES_N, 3))
@@ -1106,8 +1138,21 @@ def phase_stokes(torch, counters):
     oracle_ms = cuda_ms(torch, oracle, 3)
     work = p2p_work(Stokes3D_FxU, torch.float64, N_SAMPLE, STOKES_N)
     b_ms, b_by = bound(work)
+    lay = p2p_layout(Stokes3D_FxU, torch.float64, "cuda")
+    nsplit, _ = p2p_grid(N_SAMPLE, STOKES_N,
+                         lay["threads"] * lay["targets_per_thread"],
+                         lay["tile"], lay["blocks_per_sm"] * n_sms("cuda"))
     log(f"stokes: the float64 p2p oracle ({N_SAMPLE} x {STOKES_N}) "
-        f"{oracle_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"{oracle_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+        f"{lay['targets_per_thread']} targets a thread x {lay['threads']}, "
+        f"{lay['blocks_per_sm']} blocks an SM, {nsplit} source splits")
+    oracle_row = dict(main_path_ms=oracle_ms, main_path_bound_ms=b_ms,
+                      main_path_bound_by=b_by,
+                      blocks_per_sm=lay["blocks_per_sm"],
+                      targets_per_thread=lay["targets_per_thread"],
+                      **(issue_floor("p2p", "p2p_direct_kernelIdLi3E",
+                                     work["pairs"], "stokes", f64=True)
+                         or {}))
     del x64, f64
     f_dev = torch.as_tensor(f, dtype=torch.float32, device="cuda")
 
@@ -1188,8 +1233,7 @@ def phase_stokes(torch, counters):
     del kf
     torch.cuda.empty_cache()
     stokes_depths(torch, ops)
-    return launches, dict(main_path_ms=oracle_ms, main_path_bound_ms=b_ms,
-                          main_path_bound_by=b_by), st6c
+    return launches, oracle_row, st6c
 
 
 def near_ways(torch, kf, fp):
@@ -1216,32 +1260,33 @@ def near_ways(torch, kf, fp):
     return out
 
 
-def sass_loops(*name_parts):
-    """For each of `name_parts`: (instructions, MUFU.RSQ) of the
-    innermost loop with the most MUFU.RSQ in the SASS of the first
-    kernel whose mangled name holds it (cuobjdump -sass of the built
-    library), or None; {} where cuobjdump is missing.  One MUFU.RSQ is
-    one pair of the Laplace single layer, so the ratio is the issue
-    slots a pair."""
+def sass_loop(name_part):
+    """(instructions, MUFU.RSQ, float64 instructions) of the innermost
+    loop with the most MUFU.RSQ in the SASS of the first kernel whose
+    mangled name holds `name_part` (cuobjdump -sass of the built
+    library, dumped once), or None, also where cuobjdump is missing.
+    One MUFU.RSQ is one pair, so the ratio is the issue slots a pair."""
     import shutil
     from sctl_tpu_torch.ops import _build
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR
-                                                  / _build.LIB_NAME)],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-    except (OSError, subprocess.CalledProcessError):
-        return {}
-    body = sass.split("Function : ")
-    return {part: _inner_loop(next(
-        (b for b in body[1:] if part in b.split("\n", 1)[0]), ""))
-        for part in name_parts}
+    if sass_loop.dump is None:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        try:
+            sass_loop.dump = subprocess.run(
+                [tool, "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
+                capture_output=True, text=True, check=True,
+                timeout=300).stdout.split("Function : ")[1:]
+        except (OSError, subprocess.CalledProcessError):
+            sass_loop.dump = []
+    return _inner_loop(next((b for b in sass_loop.dump
+                             if name_part in b.split("\n", 1)[0]), ""))
+
+
+sass_loop.dump = None
 
 
 def _inner_loop(fn):
-    """(instructions, MUFU.RSQ) of one kernel's SASS listing's innermost
-    loop with the most MUFU.RSQ, or None."""
+    """(instructions, MUFU.RSQ, float64 instructions) of one kernel's
+    SASS listing's innermost loop with the most MUFU.RSQ, or None."""
     import re
     ins, labels = [], {}
     for ln in fn.splitlines():
@@ -1266,14 +1311,15 @@ def _inner_loop(fn):
             continue
         body_ins = [t for a, t in ins if tgt <= a <= addr]
         mufu = sum("MUFU.RSQ" in t for t in body_ins)
+        dp = sum(bool(re.match(r"(@!?P\d+\s+)?D(ADD|MUL|FMA|SETP|MNMX)",
+                               t)) for t in body_ins)
         if mufu:
-            loops.append((tgt, addr, len(body_ins), mufu))
+            loops.append((tgt, addr, len(body_ins), mufu, dp))
     inner = [lp for lp in loops if not any(
         o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
     if not inner:
         return None
-    _, _, n_ins, mufu = max(inner, key=lambda lp: lp[3])
-    return n_ins, mufu
+    return max(inner, key=lambda lp: lp[3])[2:]
 
 
 def stencil_times(torch, kf, f_h, label):
@@ -1303,32 +1349,77 @@ def stencil_times(torch, kf, f_h, label):
                 pairs=work["pairs"])
 
 
-def issue_floor(pairs):
-    """The Laplace single layer's issue-slot floor of the halo stencil:
-    the SASS instructions a pair in its inner
-    loop at 128 lane-instructions a clock per SM, at the clock of the
-    rsqrt bound -> dict, or None without cuobjdump.  Beside it the slab
-    stencil's loop, which runs ukernels.cuh's default formula form."""
-    name = "p2p_stencil_kernelILi0E"
-    loops = sass_loops(name, "p2p_stencil9_kernelILi0E")
-    if loops.get(name) is None:
-        log("p8: issue-slot floor not measured (no cuobjdump or no loop)")
+def stencil9_times(torch, kf, f_s, label):
+    """The slab stencil alone on the set-up KIFMM's own compacted slab,
+    over each entry's real slots and each box's real targets by their
+    counts (the main path) and over every slot (no counts: the slot
+    pairs of the JAX function), with their difference at the real
+    target slots, the bound of the real pairs and the blocks an SM."""
+    from sctl_tpu_torch.kernel_cases import main_path_work, rel_max_err
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, stencil9_layout
+    n = 1 << kf.depth
+    args = (kf.ker_s2t, n, kf.SL, kf.cap_t, kf.xt_rast, kf.xs_slab, f_s,
+            kf.ns_slab)
+    real = lambda: p2p_stencil9(*args, kf.cnt9, kf.cnt_t_rast)
+    every = lambda: p2p_stencil9(*args)
+    live = (torch.arange(kf.cap_t, device=kf.device)
+            < kf.cnt_t_rast[..., None])[..., None]
+    diff = rel_max_err(every() * live, real())
+    ms, every_ms = cuda_ms(torch, real, 5), cuda_ms(torch, every, 3)
+    work = main_path_work(kf)["p2p_stencil9"]
+    b_ms, b_by = bound(work)
+    lay = stencil9_layout(kf.ker_s2t, kf.SL, kf.cap_t)
+    log(f"{label}: p2p_stencil9 {ms:.4f} ms over the real slots "
+        f"({lay['lanes_per_target']} lanes a target, {lay['threads']} "
+        f"threads a block, {lay['blocks_per_sm']} blocks an SM), "
+        f"{every_ms:.4f} ms over "
+        f"every slot, difference {diff:.3e}; bound {b_ms:.4f} ms ({b_by}, "
+        f"{ops_limit(work)}), pairs {work['pairs']}, real slab slots "
+        f"{int(kf.cnt9.sum())} of {kf.cnt9.numel() * kf.SL}")
+    return dict(ms=ms, every_slot_ms=every_ms, bound_ms=b_ms,
+                pairs=work["pairs"], blocks_per_sm=lay["blocks_per_sm"],
+                lanes_per_target=lay["lanes_per_target"])
+
+
+# lane-operations a second of the whole card: 128 issue slots a clock
+# per SM (4 schedulers x 32 lanes), 64 for the float64 pipe, at the
+# clock of the rsqrt bound
+ISSUE_PER_S = 128 * RSQRT_PER_S / 16
+DP_PER_S = 64 * RSQRT_PER_S / 16
+
+
+def issue_floor(kernel, mangled, pairs, label, f64=False):
+    """A pair kernel's issue-slot floor: the SASS instructions a pair of
+    the inner loop of the instantiation whose mangled name holds
+    `mangled` (one MUFU.RSQ a pair), at 128 lane-instructions a clock
+    per SM; with f64, its DP instructions a pair at the DP pipe's 64 ->
+    dict, or None without cuobjdump."""
+    loop = sass_loop(mangled)
+    if loop is None:
+        log(f"{label}: {kernel} issue-slot floor not measured (no "
+            f"cuobjdump or no loop)")
         return None
-    n_ins, mufu = loops[name]
-    s9 = loops.get("p2p_stencil9_kernelILi0E")
-    if s9 is not None:
-        log(f"p8: the slab stencil's Laplace loop (the default formula "
-            f"form, one target a thread): {s9[0]} SASS instructions for "
-            f"{s9[1]} MUFU.RSQ, {s9[0] / s9[1]:.2f} a pair")
+    n_ins, mufu, n_dp = loop
     per_pair = n_ins / mufu
-    ms = 1e3 * pairs * per_pair / (128 * RSQRT_PER_S / 16)
-    log(f"p8: p2p_stencil issue-slot floor (Laplace FxU): "
-        f"inner loop {n_ins} SASS instructions for {mufu} MUFU.RSQ, "
-        f"{per_pair:.2f} a pair -> {ms:.4f} ms for {pairs} pairs at 128 "
-        f"lane-instructions a clock per SM (the rsqrt bound "
-        f"{1e3 * pairs / RSQRT_PER_S:.4f} ms)")
-    return dict(sass_per_pair=per_pair, loop_instructions=n_ins,
-                loop_rsqrt=mufu, issue_floor_ms=ms)
+    out = dict(sass_per_pair=per_pair, loop_instructions=n_ins,
+               loop_rsqrt=mufu,
+               issue_floor_ms=1e3 * pairs * per_pair / ISSUE_PER_S)
+    msg = (f"{label}: {kernel} issue-slot floor ({mangled}): inner loop "
+           f"{n_ins} SASS instructions for {mufu} MUFU.RSQ, "
+           f"{per_pair:.2f} a pair -> {out['issue_floor_ms']:.4f} ms for "
+           f"{pairs} pairs at 128 lane-instructions a clock per SM")
+    if f64:
+        out.update(dp_per_pair=n_dp / mufu,
+                   dp_floor_ms=1e3 * pairs * n_dp / mufu / DP_PER_S)
+        out["issue_floor_ms"] = max(out["issue_floor_ms"],
+                                    out["dp_floor_ms"])
+        msg += (f"; {n_dp} DP instructions, {n_dp / mufu:.2f} a pair -> "
+                f"{out['dp_floor_ms']:.4f} ms at the DP pipe's 64 "
+                f"lane-operations a clock per SM")
+    else:
+        msg += f" (the rsqrt bound {1e3 * pairs / RSQRT_PER_S:.4f} ms)"
+    log(msg)
+    return out
 
 
 def phase_p8(torch, counters):
@@ -1423,8 +1514,10 @@ def phase_p8(torch, counters):
                 f_h, None, kf.cnt_s_rast, kf.cnt_t_rast)}
     main_rows = alone_rows(torch, kf, full, launches, "p8")
     st = stencil_times(torch, kf, f_h, "p8")
-    main_rows["p2p_stencil"].update(every_slot_ms=st["every_slot_ms"],
-                                    **(issue_floor(st["pairs"]) or {}))
+    main_rows["p2p_stencil"].update(
+        every_slot_ms=st["every_slot_ms"],
+        **(issue_floor("p2p_stencil", "p2p_stencil_kernelILi0E",
+                       st["pairs"], "p8") or {}))
     del qp, f_h
     main_rows["m2l_grid"]["levels"] = m2l_levels(torch, kf, "p8")
     for way, (ms, diff) in m2l_routes_at(
@@ -1469,7 +1562,7 @@ def main():
                                         p2p_ulist)
     from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     from sctl_tpu_torch.config import set_precision
-    from sctl_tpu_torch.kernel_cases import formula_cases
+    from sctl_tpu_torch.kernel_cases import formula_cases, kernel_cases
     set_precision()
     counters = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
                 "m2l_grid_blocked": m2l_grid_blocked,
@@ -1477,12 +1570,22 @@ def main():
     all_counters = dict(counters, p2p_ulist=p2p_ulist, p2p=p2p,
                         m2l_grid=m2l_grid, p2p_stencil=p2p_stencil)
     kf, xs, f, rng = phase_setup(torch)
-    rows = phase_kernels(torch, kf)
-    frows = phase_kernels(torch, kf, formula_cases(kf))
+    # the slab stencil, redesigned, also against float64 (as phase 7's
+    # halo stencil)
+    s9 = lambda c: {k: v for k, v in c.items()
+                    if k.startswith("p2p_stencil9")}
+    rest = lambda c: {k: v for k, v in c.items() if k not in s9(c)}
+    cases, fcases = kernel_cases(kf), formula_cases(kf)
+    rows = phase_kernels(torch, kf, rest(cases))
+    rows.update(phase_kernels(torch, kf, s9(cases), f64_bar=DIRECT_BAR))
+    frows = phase_kernels(torch, kf, rest(fcases))
+    frows.update(phase_kernels(torch, kf, s9(fcases), f64_bar=DIRECT_BAR))
+    del cases, fcases
     for name in counters:
         rows[name]["cases"] = {
             k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
-                    plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+                    plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                    **{x: v[x] for x in ("max_rel_err_f64",) if x in v})
             for k, v in frows.items() if k.startswith(name + "[")}
     main_rows = phase_main(torch, kf, xs, f, rng, counters)
     del kf, xs, f
@@ -1523,7 +1626,11 @@ def main():
                             "cases", "launches_per_apply", "u_stage_ms",
                             "max_rel_err_f64", "main_path_max_rel_err_f64",
                             "main_path_plain_max_rel_err_f64",
-                            "every_slot_ms",
+                            "every_slot_ms", "blocks_per_sm",
+                            "targets_per_thread", "lanes_per_target",
+                            "dp_per_pair",
+                            "dp_floor_ms", "case_sass_per_pair",
+                            "case_issue_floor_ms",
                             "sass_per_pair", "issue_floor_ms", "stokes_6c",
                             "main_path_ops_limit", "bound_cuda_core_ms",
                             "bound_tensor_core_ms",

@@ -5,10 +5,14 @@
 
 #define SCTL_API extern "C" __attribute__((visibility("default")))
 
-// Allow dynamic shared memory above the 48 KB default for `kernel`.
+// Allow `bytes` of dynamic shared memory for `kernel` where they and
+// its static shared memory pass the 48 KB default.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.sharedSizeBytes + bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

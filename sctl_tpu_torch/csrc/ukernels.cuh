@@ -14,12 +14,15 @@
 //   7 Stokes3D-FxUP   Stokes3D-FxU, and p += (r.f) rinv^3  (k1 = 4)
 //
 // The numbers are `FORMULA` of uker.py.  Every formula is templated on
-// the scalar type, so float and double kernels share it.  LEAN (float
-// only) selects the instruction-lean form of the kernels redesigned for
-// Hopper's issue rate (p2p_stencil.cu, p2p_ulist.cu): the flush-to-zero
-// rsqrt, without the denormal fix-up the default rsqrtf carries (four
-// instructions a pair), and each product fused into the sum on its own
-// (two FMAs, not a multiply, an FMA and an add).
+// the scalar type, so float and double kernels share it.  LEAN selects
+// the instruction-lean form of the kernels redesigned for Hopper's issue
+// rate (p2p_stencil.cu, p2p_stencil9.cu, p2p_ulist.cu, p2p_direct.cu):
+// the flush-to-zero rsqrt (`rinv_ftz`), and each product fused into the
+// sum on its own (two FMAs, not a multiply, an FMA and an add).  In
+// float the rsqrt drops the denormal fix-up the default rsqrtf carries
+// (four instructions a pair); in double it is a MUFU seed and two Newton
+// steps (eight instructions) in place of the library rsqrt's longer
+// chain and special-case path.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -48,19 +51,37 @@ template <> struct Dims<kStkFxUP> : DimsOf<3, 4, false> {};
 // Masked reciprocal distance, the port of `_rinv_t`
 // (sctl_tpu/ops/pallas_p2p.py:41-67).  float: rsqrtf, the MUFU
 // approximation (about 2 ulp), which keeps every pair kernel within
-// the f32 bars; double: the correctly rounded rsqrt.
+// the f32 bars; double: CUDA's rsqrt, within 1 ulp (its documented
+// bound; it is not correctly rounded).
 __device__ __forceinline__ float rinv_of(float r2) {
   return r2 > 0.f ? rsqrtf(r2) : 0.f;
 }
 __device__ __forceinline__ double rinv_of(double r2) {
   return r2 > 0.0 ? rsqrt(r2) : 0.0;
 }
-// The lean form: rsqrt.approx.ftz (MUFU.RSQ alone) and one select.  A
-// subnormal r2 (a pair closer than 1.1e-19) counts as coincident, 0.
+// The lean form, float: rsqrt.approx.ftz (MUFU.RSQ alone) and one
+// select.  A subnormal r2 (a pair closer than 1.1e-19) counts as
+// coincident, 0.
 __device__ __forceinline__ float rinv_ftz(float r2) {
   float r;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(r2));
   return r2 >= 1.17549435e-38f ? r : 0.f;
+}
+// The lean form, double: the seed rsqrt.approx.ftz.f64 (MUFU.RSQ64H)
+// and two Newton steps y += y (1/2 - (r2/2) y^2) in fused arithmetic,
+// each squaring the relative error, seven DP instructions: within a few
+// ulp for any normal r2, far below float's normal range too (the card
+// tests hold it to 4 ulp of 1/sqrt from r2 = 1e-50 up).  The mask is one
+// integer compare on the high word and a select, off the DP pipe: r2
+// (a sum of squares, never negative) of zero or subnormal (a pair
+// closer than 1.5e-154) counts as coincident, 0.
+__device__ __forceinline__ double rinv_ftz(double r2) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(r2));
+  const double h = 0.5 * r2;
+  y = fma(y, fma(-h * y, y, 0.5), y);
+  y = fma(y, fma(-h * y, y, 0.5), y);
+  return __double2hiint(r2) >= 0x00100000 ? y : 0.0;
 }
 
 // acc[k1] += K(r) f for one pair; n is read only by the double layers.

@@ -19,10 +19,12 @@ The evaluation follows the JAX package's TPU route stage by stage:
   L2T  shared-surface evaluation at the leaf targets (ops/sl.py
        `l2t_surface`)
   P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`) where
-       its block holds the box capacities, else the stencil over 9
-       shifted halo columns (ops/p2p.py `p2p_stencil`), which takes
-       any capacities and reads each box's real slots only, by the
-       per-box counts set up once (`cnt_s_rast`, `cnt_t_rast`)
+       its block holds the box capacities, each slab entry compacted
+       to its real points at setup (`slab_idx`, `cnt9`), else the
+       stencil over 9 shifted halo columns (ops/p2p.py `p2p_stencil`),
+       which takes any capacities; both read each box's real slots
+       only, by the per-box counts set up once (`cnt_s_rast`,
+       `cnt_t_rast`)
 
 The shared-surface kernels need a box count that is a multiple of 128
 (depth >= 3) and box capacities their shared memory holds (a few
@@ -61,7 +63,7 @@ from ..ops.m2l import (blocked_m2l_mats, blocked_operands, grid_operands,
                        m2l_grid, m2l_grid_blocked)
 from ..ops.m2l import vlist_offsets as _vlist_offsets
 from ..ops.p2p import (box_ranges, p2p_stencil, p2p_stencil9, p2p_ulist,
-                       stencil9_fits, to_halo, to_slab)
+                       slab_gather, slab_index, stencil9_fits, to_halo)
 from ..ops.sl import (l2t_surface, l2t_surface_fits, surface_pair,
                       surface_pair_fits)
 from ..ops.uker import TREE_KERNELS, check_supported
@@ -611,7 +613,7 @@ class KIFMM:
         self.xt_rast = t(xt_p[inv].reshape(n, n, n, self.cap_t, 3)
                          .transpose(0, 1, 2, 4, 3))
         # each box's real points (its first slots), clipped to the caps:
-        # the halo stencil and the U-list kernel skip the slots past them
+        # the stencils and the U-list kernel skip the slots past them
         i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
         cnt_s = np.minimum(src.box_cnt, self.cap_s)
         cnt_t = np.minimum(trg.box_cnt, self.cap_t)
@@ -637,7 +639,10 @@ class KIFMM:
             self.ker_s2t, self.cap_t, self.SL) else "stencil")
         self.p2p_nrm = self.ker_s2t.needs_normal
         if self.near_route == "stencil9":
-            lay = lambda a: to_slab(a, self.rast_to_mort, n, self.SL)
+            # each slab entry's real points first, one gather an array
+            self.slab_idx, self.cnt9 = slab_index(
+                self.rast_to_mort, n, self.cap_s, self.SL, self.cnt_s_rast)
+            lay = lambda a: slab_gather(a, self.slab_idx)
             self.xs_slab = lay(self.xs_pad)
             self.ns_slab = lay(self.ns_pad) if self.p2p_nrm else None
         else:
@@ -948,10 +953,10 @@ class KIFMM:
         result back to Morton order -> (B, cap_t, k1), unscaled."""
         n = 1 << self.depth
         if self.near_route == "stencil9":
-            f_s = to_slab(fp, self.rast_to_mort, n, self.SL)
+            f_s = slab_gather(fp, self.slab_idx)
             u_r = p2p_stencil9(self.ker_s2t, n, self.SL, self.cap_t,
                                self.xt_rast, self.xs_slab, f_s,
-                               self.ns_slab)
+                               self.ns_slab, self.cnt9, self.cnt_t_rast)
         else:
             f_h = to_halo(fp, self.rast_to_mort, n)
             u_r = p2p_stencil(self.ker_s2t, n, self.cap_s, self.cap_t,

@@ -13,7 +13,8 @@ takes).
 The shared-surface cases' source slots hold a density as often as the
 KIFMM's leaves fill theirs on average; the stencil cases' boxes hold
 their real points in their first slots, as many as drawn around the
-KIFMM's mean counts (Poisson), and the halo stencil gets those counts.
+KIFMM's mean counts (Poisson), and both stencils get those counts (the
+slab stencil as a compacted slab, `slab_index`).
 The others are zero, as the padding of the main path is.
 
 The U-list kernel's cases (`ulist_cases`) take their widths from a
@@ -52,7 +53,7 @@ from .ops.m2l import (N_VALID, blocked_operands, grid_operands, m2l_grid,
                       m2l_grid_plain, m2l_windows, parity_offsets)
 from .ops.p2p import (p2p, p2p_plain, p2p_stencil, p2p_stencil9,
                       p2p_stencil9_plain, p2p_stencil_plain, p2p_ulist,
-                      p2p_ulist_plain, to_halo, to_slab)
+                      p2p_ulist_plain, slab_gather, slab_index, to_halo)
 from .ops.sl import (l2t_surface, l2t_surface_plain, surface_pair,
                      surface_pair_plain)
 from .ops.uker import L2T_KERNELS, S2M_KERNELS, SUPPORTED, TREE_KERNELS
@@ -75,11 +76,15 @@ def l2t_surface_work(kernel, pairs: int, ns: int, B: int,
                            + kernel.kdim0 * ns * B))
 
 
-def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int,
-                      SL: int) -> dict:
+def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
+                      n_slots: int) -> dict:
+    """The real pairs; bytes of the real targets, the whole output
+    (zeros past the counts), the slab entries' real slots and the two
+    count arrays, each once."""
     return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * ((3 + kernel.kdim1) * n ** 3 * cap_t
-                           + kernel.src_floats * n * n * (n + 2) * SL))
+                bytes=4 * (3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
+                           + kernel.src_floats * n_slots
+                           + n ** 3 + n * n * (n + 2)))
 
 
 def p2p_stencil_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
@@ -233,8 +238,9 @@ def main_path_work(kf) -> dict:
                                         ns, B, kf.cap_t),
     }
     if kf.near_route == "stencil9":
-        work["p2p_stencil9"] = p2p_stencil9_work(kf.ker_s2t, pairs, n,
-                                                 kf.cap_t, kf.SL)
+        work["p2p_stencil9"] = p2p_stencil9_work(
+            kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()),
+            int(kf.cnt9.sum()))
     else:
         work["p2p_stencil"] = p2p_stencil_work(
             kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()), int(cs.sum()))
@@ -361,26 +367,31 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         xt_g = f32(xt_b.reshape(n, n, n, cap_t, 3)
                    .transpose(0, 1, 2, 4, 3))
         near_s = _near_counts(cnt_s.reshape(n, n, n)).reshape(-1)
+        pairs = int((cnt_t * near_s).sum())
+        cnt = lambda c: torch.as_tensor(c.reshape(n, n, n).astype(
+            np.int32), device=dev)
         if near == "p2p_stencil9":
-            pairs = cap_t * int(near_s.sum())
-            lay = lambda a: to_slab(f32(a), ident, n, SL)
+            # each entry's real points first, as the KIFMM lays them out
+            idx, cnt9 = slab_index(ident, n, cap_s, SL, cnt(cnt_s))
+            lay = lambda a: slab_gather(f32(a), idx)
             a = (kn, n, SL, cap_t, xt_g, lay(xs_b), lay(f_b),
-                 None if nrm_b is None else lay(nrm_b))
+                 None if nrm_b is None else lay(nrm_b), cnt9, cnt(cnt_t))
             cases[near] = (lambda a=a: p2p_stencil9(*a),
-                           lambda a=a: p2p_stencil9_plain(*a), None,
-                           p2p_stencil9_work(kn, pairs, n, cap_t, SL))
+                           lambda dtype=None, a=a: p2p_stencil9_plain(
+                               *_cast(a, dtype)), None,
+                           p2p_stencil9_work(kn, pairs, n, cap_t,
+                                             int(cnt_t.sum()),
+                                             int(cnt9.sum())))
         else:
             lay = lambda a: to_halo(f32(a), ident, n)
-            cnt = lambda c: torch.as_tensor(c.reshape(n, n, n).astype(
-                np.int32), device=dev)
             a = (kn, n, cap_s, cap_t, xt_g, lay(xs_b), lay(f_b),
                  None if nrm_b is None else lay(nrm_b), cnt(cnt_s),
                  cnt(cnt_t))
             cases[near] = (lambda a=a: p2p_stencil(*a),
                            lambda dtype=None, a=a: p2p_stencil_plain(
                                *_cast(a, dtype)), None,
-                           p2p_stencil_work(kn, int((cnt_t * near_s).sum()),
-                                            n, cap_t, int(cnt_t.sum()),
+                           p2p_stencil_work(kn, pairs, n, cap_t,
+                                            int(cnt_t.sum()),
                                             int(cnt_s.sum())))
     return cases
 

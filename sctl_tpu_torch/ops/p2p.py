@@ -8,7 +8,10 @@ template parameter of its CUDA source (csrc/ukernels.cuh).
 Boxes are in raster order.  Slab entry z' of column (x, y) holds the 9
 (dx, dy) neighbour columns' box (x+dx, y+dy, z'-1) points side by side
 (SL slots, zeros in margins and padding), so the 27-box neighbourhood
-of target box z is the one window [z*SL, (z+3)*SL).  The halo layout
+of target box z is the one window [z*SL, (z+3)*SL).  The JAX package
+gives each box a block of cap slots in its entry; the port compacts
+each entry to its boxes' real points, first, with a count an entry
+(`slab_index`), and the kernel reads only those.  The halo layout
 keeps each column's own boxes only, cap slots a box between cap-wide
 zero margins (`to_halo`); the kernel reads the real slots of boxes
 z-1..z+1 of each of the 9 neighbour columns where they lie, by the
@@ -23,17 +26,54 @@ each runs its plain version.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from ._build import launch
+from ._build import launch, library
 from ._launch_checks import (CHUNK_PAIRS, check_index_args,
                              check_kernel_args, n_sms, on_cuda)
 from .kernels import KernelSpec
 from .uker import FORMULA, TREE_KERNELS, check_supported
 
-# sources per shared tile and targets per block of csrc/p2p_direct.cu
-_P2P_TILE = _P2P_BLOCK = 128
+
+def p2p_layout(kernel: KernelSpec, dtype, device) -> dict:
+    """csrc/p2p_direct.cu's block for `kernel` in `dtype` on the card:
+    threads, targets a thread, sources a shared tile, and the resident
+    blocks an SM (the occupancy API)."""
+    return _p2p_layout(FORMULA[kernel.name], dtype == torch.float64,
+                       torch.device(device).index)
+
+
+@functools.lru_cache(maxsize=None)
+def _p2p_layout(formula: int, f64: bool, device_index) -> dict:
+    lay, blocks = (ctypes.c_int * 3)(), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = library().sctl_p2p_direct_occupancy(
+            formula, int(f64), lay, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"sctl_p2p_direct_occupancy: CUDA error {err}")
+    return dict(threads=lay[0], targets_per_thread=lay[1], tile=lay[2],
+                blocks_per_sm=blocks.value)
+
+
+@functools.lru_cache(maxsize=256)
+def p2p_grid(T: int, S: int, per_block: int, tile: int,
+             resident: int) -> tuple:
+    """(source splits, sources a split) of the direct sum's grid: among
+    split counts up to 8 waves of target blocks, the one whose blocks,
+    `resident` at a time, finish soonest (the waves times the tiles of a
+    block; the fewest splits among equals)."""
+    t_blocks, tiles = -(-T // per_block), max(1, -(-S // tile))
+    best = None
+    for ns in range(1, min(tiles, 8 * -(-resident // t_blocks)) + 1):
+        cost = -(-t_blocks * ns // resident) * -(-tiles // ns)
+        if best is None or cost < best[0]:
+            best = (cost, ns)
+    chunk = -(-tiles // best[1]) * tile
+    return -(-S // chunk) if S else 1, chunk
 
 
 def p2p_plain(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
@@ -58,9 +98,10 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
     normals (None unless kernel.needs_normal), f (S, k0) -> (T, k1),
     u[t] = sum_s K(xt_t - xs_s) f_s with r2 = 0 masked; float32 or
     float64.  The card's grid splits the sources when the target blocks
-    alone would leave SMs idle, and the splits' partial sums are added
-    here.  On the CPU the plain version runs in (block_t x block_s)
-    tiles; the card's kernel has its own tiles."""
+    alone would leave resident blocks idle (`p2p_grid`), and the
+    splits' partial sums are added here.  On the CPU the plain version
+    runs in (block_t x block_s) tiles; the card's kernel has its own
+    tiles."""
     T, S, k0 = xt.shape[0], xs.shape[0], kernel.kdim0
     if (xt.shape != (T, 3) or xs.shape != (S, 3) or f.shape != (S, k0)
             or (kernel.needs_normal
@@ -81,12 +122,10 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
                                   "float64, one type for all")
     xt, xs, f = xt.contiguous(), xs.contiguous(), f.contiguous()
     ns = None if ns is None else ns.contiguous()
-    # enough (target block, source split) blocks for 4 per SM
-    t_blocks = -(-T // _P2P_BLOCK)
-    tiles = max(1, -(-S // _P2P_TILE))
-    nsplit = min(tiles, max(1, -(-4 * n_sms(xt.device) // max(t_blocks, 1))))
-    chunk = -(-tiles // nsplit) * _P2P_TILE
-    nsplit = max(1, -(-S // chunk))
+    lay = p2p_layout(kernel, dt, xt.device)
+    nsplit, chunk = p2p_grid(
+        max(T, 1), S, lay["threads"] * lay["targets_per_thread"],
+        lay["tile"], lay["blocks_per_sm"] * n_sms(xt.device))
     part = torch.empty((nsplit, T, kernel.kdim1), dtype=dt,
                        device=xt.device)
     launch("sctl_p2p_direct_" + ("f32" if dt == torch.float32 else "f64"),
@@ -100,38 +139,98 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
 p2p.launches = 0
 
 
-def to_slab(a, rast_to_mort, n: int, SL: int):
-    """(B, cap, k) box-slot array in Morton order -> packed slab columns
-    (n, n, k, (n+2)*SL): entry z' of column (x, y) holds the 9 (dx, dy)
-    neighbour columns' box (x+dx, y+dy, z'-1) slots in blocks of cap,
-    c = 3(dx+1) + dy+1; zeros in margins and padding
-    (sctl_tpu/fmm/kifmm.py:1468)."""
-    B, cap, k = a.shape
-    g = a[rast_to_mort].reshape(n, n, n, cap, k).permute(0, 1, 4, 2, 3)
-    buf = a.new_zeros((n, n, k, n + 2, SL))
+def slab_index(rast_to_mort, n: int, cap: int, SL: int, cnt=None):
+    """The gather index of the packed slab columns -> (idx, cnt9).
+
+    Entry z' of column (x, y) holds the 9 (dx, dy) neighbour columns'
+    box (x+dx, y+dy, z'-1), c = 3(dx+1) + dy+1 in turn; idx (n, n,
+    (n+2)*SL) int32 gives each slot's row among the B*cap slots of a
+    (B, cap, k) box-slot array in Morton order (`rast_to_mort`), B*cap
+    for an empty slot.  cnt None: box c fills its block [c cap,
+    (c+1) cap) of the entry, the JAX package's layout
+    (sctl_tpu/fmm/kifmm.py:1468), and cnt9 is None.  cnt (n, n, n),
+    raster order, each box's real points (its first slots): the boxes'
+    real points one after another, so each entry's real points are its
+    first cnt9 (n, n, n+2) int32 slots."""
+    dev = rast_to_mort.device
+    B = n ** 3
+    if B * cap >= 2 ** 31 or 9 * cap > SL:
+        raise ValueError(f"slab_index: n {n}, cap {cap}, SL {SL}")
+    box_cnt = (torch.full((n, n, n), cap, device=dev) if cnt is None
+               else cnt.to(dev).long().clamp(0, cap))
+    # pad index i along each axis is raster i-1; zero outside the domain
+    pc = F.pad(box_cnt, (1, 1, 1, 1, 1, 1))
+    pm = F.pad(rast_to_mort.reshape(n, n, n).long(), (1, 1, 1, 1, 1, 1))
+    idx = torch.full((n * n * (n + 2) * SL,), B * cap, dtype=torch.int32,
+                     device=dev)
+    entry = torch.arange(n * n * (n + 2), device=dev).reshape(
+        n, n, n + 2, 1) * SL
+    k = torch.arange(cap, device=dev)
+    start = torch.zeros((n, n, n + 2, 1), dtype=torch.long, device=dev)
     c = 0
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):
-            x0, x1 = max(0, -dx), min(n, n - dx)
-            y0, y1 = max(0, -dy), min(n, n - dy)
-            buf[x0:x1, y0:y1, :, 1:n + 1, c * cap:(c + 1) * cap] = \
-                g[x0 + dx:x1 + dx, y0 + dy:y1 + dy]
+            cc = pc[1 + dx:1 + dx + n, 1 + dy:1 + dy + n, :, None]
+            mm = pm[1 + dx:1 + dx + n, 1 + dy:1 + dy + n, :, None]
+            real = k < cc
+            pos = entry + (c * cap if cnt is None else start) + k
+            idx[pos[real]] = (mm * cap + k)[real].to(torch.int32)
+            start = start + cc
             c += 1
-    return buf.reshape(n, n, k, (n + 2) * SL)
+    idx = idx.reshape(n, n, (n + 2) * SL)
+    if cnt is None:
+        return idx, None
+    return idx, start.reshape(n, n, n + 2).to(torch.int32)
+
+
+def slab_gather(a, idx):
+    """(B, cap, k) box-slot array in Morton order -> the packed slab
+    columns (n, n, k, (n+2)*SL) of `slab_index`'s idx: one gather."""
+    B, cap, k = a.shape
+    n, _, L = idx.shape
+    rows = torch.cat([a.reshape(B * cap, k), a.new_zeros((1, k))]).T
+    out = rows.contiguous().index_select(1, idx.reshape(-1))
+    return out.reshape(k, n, n, L).permute(1, 2, 0, 3).contiguous()
+
+
+def to_slab(a, rast_to_mort, n: int, SL: int):
+    """(B, cap, k) box-slot array in Morton order -> packed slab columns
+    (n, n, k, (n+2)*SL) in the JAX package's layout, a block of cap
+    slots a box, zeros in margins and padding
+    (sctl_tpu/fmm/kifmm.py:1468)."""
+    return slab_gather(a, slab_index(rast_to_mort, n, a.shape[1], SL)[0])
 
 
 def stencil9_fits(kernel: KernelSpec, cap_t: int, SL: int) -> bool:
-    """Whether csrc/p2p_stencil9.cu's block takes these widths: one
-    thread per target slot of 4 z boxes, and the (4 + 2) SL window in
-    the 227 KB of shared memory, at 4 bytes a slot for each coordinate,
-    density component and (for the double layers) normal component."""
+    """Whether csrc/p2p_stencil9.cu's block takes these widths: the
+    target slots of 4 z boxes, at most 1,024, and the (4 + 2) SL window
+    in the 227 KB of shared memory, at 4 bytes a slot for each
+    coordinate, density component and (for the double layers) normal
+    component."""
     return 4 * cap_t <= 1024 and 4 * kernel.src_floats * 6 * SL <= 227 * 1024
 
 
+def stencil9_layout(kernel: KernelSpec, SL: int, cap_t: int) -> dict:
+    """csrc/p2p_stencil9.cu's block at these widths: lanes a target,
+    threads, and the resident blocks an SM (the occupancy API)."""
+    lay, blocks = (ctypes.c_int * 2)(), ctypes.c_int(0)
+    err = library().sctl_p2p_stencil9_occupancy(
+        FORMULA[kernel.name], SL, cap_t, lay, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"sctl_p2p_stencil9_occupancy: CUDA error {err}")
+    return dict(lanes_per_target=lay[0], threads=lay[1],
+                blocks_per_sm=blocks.value)
+
+
 def p2p_stencil9_plain(kernel: KernelSpec, nside: int, SL: int,
-                       cap_t: int, xt_g, xs_s, f_s, ns_s=None):
-    """Plain version of `p2p_stencil9`, in column chunks per z."""
+                       cap_t: int, xt_g, xs_s, f_s, ns_s=None, cnt9=None,
+                       cnt_t=None):
+    """Plain version of `p2p_stencil9`, in column chunks per z: the
+    densities of entry slots past cnt9 are masked to zero and the
+    target slots past cnt_t come out zero."""
     n, k0 = nside, kernel.kdim0
+    if cnt9 is not None:
+        f_s = f_s * _slot_mask(cnt9, SL).reshape(n, n, 1, -1).to(f_s.dtype)
     xt = xt_g.reshape(n * n, n, 3, cap_t)
     xs = xs_s.reshape(n * n, 3, (n + 2) * SL)
     f = f_s.reshape(n * n, k0, (n + 2) * SL)
@@ -147,18 +246,26 @@ def p2p_stencil9_plain(kernel: KernelSpec, nside: int, SL: int,
                 xt[c, z].transpose(1, 2), xs[c, :, w].transpose(1, 2),
                 None if nrm is None else nrm[c, :, w].transpose(1, 2),
                 f[c, :, w].transpose(1, 2))
-    return out.reshape(n, n, n, cap_t, kernel.kdim1)
+    out = out.reshape(n, n, n, cap_t, kernel.kdim1)
+    if cnt_t is not None:
+        out = out * _slot_mask(cnt_t, cap_t)[..., None].to(out.dtype)
+    return out
 
 
 def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
-                 xt_g, xs_s, f_s, ns_s=None):
-    """Uniform-grid near-field P2P.
+                 xt_g, xs_s, f_s, ns_s=None, cnt9=None, cnt_t=None):
+    """Uniform-grid near-field P2P over the packed 9-column slab.
 
     xt_g (n, n, n, 3, cap_t): target coordinates per box, raster order.
     xs_s (n, n, 3, (n+2)*SL): packed slab columns (z margin included).
     f_s  (n, n, k0, (n+2)*SL): densities, zero in padding.
     ns_s (n, n, 3, (n+2)*SL): source normals in the same slab (None
          unless kernel.needs_normal).
+    cnt9 (n, n, n+2) int32: each entry's real points, its first slots
+         (`slab_index` with counts; None: every slot).  Slots past it
+         are left out.
+    cnt_t (n, n, n) int32, raster order: each box's real targets, its
+         first slots (None: all cap_t); the slots past it come out zero.
     -> (n, n, n, cap_t, k1) unscaled potentials, raster order.
     """
     check_supported(kernel.name, TREE_KERNELS)
@@ -167,19 +274,24 @@ def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
     if (xt_g.shape != (n, n, n, 3, cap_t) or xs_s.shape != slab
             or f_s.shape != (n, n, kernel.kdim0, (n + 2) * SL)
             or (kernel.needs_normal
-                and (ns_s is None or ns_s.shape != slab))):
+                and (ns_s is None or ns_s.shape != slab))
+            or (cnt9 is not None and cnt9.shape != (n, n, n + 2))
+            or (cnt_t is not None and cnt_t.shape != (n, n, n))):
         raise ValueError(f"p2p_stencil9: xt_g {tuple(xt_g.shape)}, xs_s "
                          f"{tuple(xs_s.shape)}, f_s {tuple(f_s.shape)}, "
                          f"ns_s {None if ns_s is None else tuple(ns_s.shape)}"
-                         f", n {n}, SL {SL}, cap_t {cap_t}, kernel "
-                         f"{kernel.name}")
+                         f", counts {[None if c is None else tuple(c.shape)
+                                      for c in (cnt9, cnt_t)]}, n {n}, SL "
+                         f"{SL}, cap_t {cap_t}, kernel {kernel.name}")
     ns_s = ns_s if kernel.needs_normal else None
-    tensors = [t for t in (xt_g, xs_s, f_s, ns_s) if t is not None]
+    tensors = [t for t in (xt_g, xs_s, f_s, ns_s, cnt9, cnt_t)
+               if t is not None]
     if not on_cuda(*tensors):
         return p2p_stencil9_plain(kernel, n, SL, cap_t, xt_g, xs_s, f_s,
-                                  ns_s)
+                                  ns_s, cnt9, cnt_t)
     check_kernel_args("p2p_stencil9", xt_g=xt_g, xs_s=xs_s, f_s=f_s,
                       **({} if ns_s is None else {"ns_s": ns_s}))
+    check_index_args("p2p_stencil9", cnt9=cnt9, cnt_t=cnt_t)
     if not stencil9_fits(kernel, cap_t, SL):
         raise NotImplementedError(f"p2p_stencil9: cap_t {cap_t} or SL "
                                   f"{SL} exceeds the kernel's block for "
@@ -187,7 +299,7 @@ def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
     out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
                       device=xt_g.device)
     launch("sctl_p2p_stencil9", xt_g.data_ptr(), xs_s.data_ptr(),
-           None if ns_s is None else ns_s.data_ptr(), f_s.data_ptr(),
+           _ptr(ns_s), f_s.data_ptr(), _ptr(cnt9), _ptr(cnt_t),
            out.data_ptr(), FORMULA[kernel.name], n, SL, cap_t)
     p2p_stencil9.launches += 1
     return out

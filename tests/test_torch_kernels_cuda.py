@@ -9,9 +9,12 @@ KIFMM as densely filled as ParticleFMM(accuracy=8) at 1e7 points
 (about 305 points a leaf); the U-list kernel at the widths of an
 adaptive FMM on a torus's far-field nodes, for the six formulas with a
 tree path; the direct sum `p2p` for all eight formulas in float32 and
-float64; KIFMMs on the card against the CPU: p=6 and p=8 at depth 4, a
-depth-2 one, whose near field runs through the halo stencil, and a
-Stokes double layer.
+float64, also at few targets and at as many targets as sources, with
+its float64 rsqrt held to 4 ulp; the slab stencil `p2p_stencil9` on
+compacted slabs at ragged widths and counts and at its widest block;
+KIFMMs on the card against the CPU: p=6 and p=8 at depth 4, a depth-2
+one, whose near field runs through the halo stencil, and a Stokes
+double layer.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -140,8 +143,8 @@ def direct(cuda_device):
 @pytest.mark.parametrize("name", ALL)
 def test_p2p_matches_plain(direct, name, dtype):
     """The direct sum against its plain version: 1e-5 of the maximum in
-    float32 (as above), 1e-12 in float64 (correctly rounded rsqrt; the
-    sums differ in order only)."""
+    float32 (as above), 1e-12 in float64 (the kernel's rsqrt within a
+    few ulp, the sums in another order)."""
     from sctl_tpu_torch.kernel_cases import rel_max_err
     run, plain, _, _ = direct[f"p2p[{name},{dtype}]"]
     out = run()
@@ -532,5 +535,167 @@ def test_p2p_ulist_repeats_bit_for_bit(cuda_device):
     from sctl_tpu_torch.ops.p2p import p2p_ulist
     args = _ulist_ragged(KERNELS["Stokes3D-DxU"], 25)
     a, b = p2p_ulist(*args), p2p_ulist(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# ---- the redesigned direct sum and slab stencil -------------------------
+
+@pytest.fixture(scope="module")
+def direct_few(cuda_device):
+    """The oracles' shape reduced: few targets, many sources, so the
+    grid splits the sources."""
+    from sctl_tpu_torch.kernel_cases import p2p_cases
+    return p2p_cases(cuda_device, seed=1, n_trg=100, n_src=300_000)
+
+
+@pytest.fixture(scope="module")
+def direct_square(cuda_device):
+    """As many targets as sources, ParticleFMM's direct path reduced."""
+    from sctl_tpu_torch.kernel_cases import p2p_cases
+    return p2p_cases(cuda_device, seed=2, n_trg=6000, n_src=6000)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("name", ALL)
+@pytest.mark.parametrize("shape", ["few", "square"])
+def test_p2p_shapes_match_plain(direct_few, direct_square, shape, name,
+                                dtype):
+    """csrc/p2p_direct.cu at 100 x 300,000 and 6,000 x 6,000 for every
+    formula against its plain version: 1e-5 of the maximum in float32,
+    1e-12 in float64 (ORACLE_BAR of chip_smoke.py)."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    cases = direct_few if shape == "few" else direct_square
+    run, plain, _, _ = cases[f"p2p[{name},{dtype}]"]
+    out = run()
+    torch.cuda.synchronize()
+    assert rel_max_err(out, plain()) < (1e-5 if dtype == "f32" else 1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_p2p_repeats_bit_for_bit(direct_few, dtype):
+    """Two launches give the same bits: the source splits' partial sums
+    are added in a fixed order, no atomics."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_grid, p2p_layout
+    from sctl_tpu_torch.ops._launch_checks import n_sms
+    run, _, _, _ = direct_few[f"p2p[Stokes3D-DxU,{dtype}]"]
+    lay = p2p_layout(KERNELS["Stokes3D-DxU"],
+                     torch.float64 if dtype == "f64" else torch.float32,
+                     "cuda")
+    assert lay["blocks_per_sm"] >= 1 and lay["targets_per_thread"] >= 1
+    assert p2p_grid(100, 300_000, lay["threads"] * lay["targets_per_thread"],
+                    lay["tile"], lay["blocks_per_sm"] * n_sms("cuda"))[0] > 1
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_p2p_f64_rsqrt_within_4_ulp(cuda_device):
+    """The float64 kernel's reciprocal distance (seed and two Newton
+    steps) at r2 from 1e-50, far below float's normal range, to 1e2:
+    targets on an axis, one unit source at the origin, so each output
+    is 1/sqrt(fl(d d)); within 4 ulp of it (computed in long double).
+    r2 = 0 gives 0, and so does a subnormal r2 (1e-320), which counts as
+    coincident."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops.p2p import p2p
+    d = np.concatenate([np.geomspace(1e-25, 10.0, 2001), [0.0, 1e-160]])
+    xt = np.zeros((d.size, 3))
+    xt[:, 0] = d
+    c = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    out = p2p(Laplace3D_FxU, c(xt), c(np.zeros((1, 3))), None,
+              c(np.ones((1, 1))))[:, 0].cpu().numpy()
+    r2 = d[:-2] * d[:-2]
+    ref = (1 / np.sqrt(r2.astype(np.longdouble))).astype(np.float64)
+    assert (np.abs(out[:-2] - ref) <= 4 * np.spacing(ref)).all()
+    assert out[-2] == 0 and out[-1] == 0
+
+
+def _stencil9_ragged(ker, seed, n=4, cap=29, cap_t=37):
+    """A slab-stencil case at ragged widths (cap 29, so SL = 384 with 261
+    slots an entry at most; cap_t 37, so a warp holds two boxes'
+    targets) on the compacted slab, with source and target counts of 0,
+    1 and the caps among random ones; the slab slots past each entry's
+    count hold nonzero densities and normals, which the kernel must
+    skip."""
+    from sctl_tpu_torch.ops.p2p import slab_gather, slab_index
+    rng = np.random.default_rng(seed)
+    B = n ** 3
+    SL = -(-9 * cap // 128) * 128
+    cnt_s = rng.integers(0, cap + 1, B)
+    cnt_t = rng.integers(0, cap_t + 1, B)
+    cnt_s[:4] = (0, 1, cap, cap)
+    cnt_t[:4] = (cap_t, 0, 1, cap_t)
+    lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
+                  -1).reshape(-1, 1, 3)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    counts = lambda c: torch.as_tensor(c.reshape(n, n, n).astype(np.int32),
+                                       device="cuda")
+    idx, cnt9 = slab_index(torch.arange(B, device="cuda"), n, cap, SL,
+                           counts(cnt_s))
+    dead = (torch.arange(SL, device="cuda") >= cnt9[..., None]).reshape(
+        n, n, 1, -1)
+
+    def slab(a):
+        s = slab_gather(f32(a), idx)
+        return torch.where(dead, f32(rng.normal(size=s.shape)), s)
+
+    nrm = rng.normal(size=(B, cap, 3))
+    nrm /= np.linalg.norm(nrm, axis=2, keepdims=True)
+    xt = (lo + rng.random((B, cap_t, 3))) / n
+    return (ker, n, SL, cap_t,
+            f32(xt.reshape(n, n, n, cap_t, 3).transpose(0, 1, 2, 4, 3)),
+            slab_gather(f32((lo + rng.random((B, cap, 3))) / n), idx),
+            slab(rng.normal(size=(B, cap, ker.kdim0))),
+            slab(nrm) if ker.needs_normal else None, cnt9, counts(cnt_t))
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_stencil9_ragged_matches_plain(cuda_device, name):
+    """csrc/p2p_stencil9.cu for the six tree formulas at ragged widths
+    and counts on the compacted slab; the target slots past the counts
+    are exactly zero."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, p2p_stencil9_plain
+    args = _stencil9_ragged(KERNELS[name], 26)
+    out = p2p_stencil9(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_stencil9_plain, args)
+    cnt_t, cap_t = args[-1], args[3]
+    pad = torch.arange(cap_t, device="cuda") >= cnt_t[..., None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_stencil9_widest_block_matches_plain(cuda_device):
+    """The widest block the gate takes (cap_t 256: 1,024 target slots, so
+    the block's 1,024 threads take them in passes), with cap 200 (SL
+    1,920, an entry of up to 1,800 real slots), n = 3, so the last block
+    of a column holds fewer than 4 boxes; and every slot
+    (no counts, the planted densities included) on the same slab."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import (p2p_stencil9, p2p_stencil9_plain,
+                                        stencil9_fits, stencil9_layout)
+    ker = KERNELS["Laplace3D-FxU"]
+    args = _stencil9_ragged(ker, 27, n=3, cap=200, cap_t=256)
+    assert stencil9_fits(ker, 256, args[2])
+    lay = stencil9_layout(ker, args[2], 256)
+    assert lay["threads"] == 1024 and lay["blocks_per_sm"] >= 1
+    out = p2p_stencil9(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_stencil9_plain, args)
+    every = args[:8] + (None, None)
+    out = p2p_stencil9(*every)
+    torch.cuda.synchronize()
+    _check_redesigned(out, p2p_stencil9_plain, every)
+
+
+def test_p2p_stencil9_repeats_bit_for_bit(cuda_device):
+    """One launch repeated gives the same bits: fixed order, no atomics."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9
+    args = _stencil9_ragged(KERNELS["Stokes3D-FxU"], 28)
+    a, b = p2p_stencil9(*args), p2p_stencil9(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
