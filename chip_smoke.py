@@ -17,10 +17,11 @@ Phases, each printed on flushed lines with the seconds since start:
             card, at the widths of that KIFMM with a reduced count
             (sctl_tpu_torch/kernel_cases.py).  Bar: 1e-5 of the maximum,
             since the kernels sum in another order than the plain
-            versions and rsqrtf is not torch.rsqrt; the slab stencil
-            (compacted slab, counts) also against its plain version in
-            float64 (bar 5e-6).  Kernel time from CUDA events over 20
-            launches after a warm-up.
+            versions and rsqrtf is not torch.rsqrt; the redesigned
+            kernels of this path (the slab stencil on a compacted slab,
+            the two shared-surface kernels, all with counts) also
+            against their plain versions in float64 (bar 5e-6).  Kernel
+            time from CUDA events over 20 launches after a warm-up.
 5. main     the KIFMM's evaluation: one warm and three timed
             evaluations with fresh densities, per-stage CUDA-event
             times (the P2P stage as the route's stencil, "P2P near", and
@@ -30,10 +31,15 @@ Phases, each printed on flushed lines with the seconds since start:
             sampled targets against a float64 direct sum on the card
             (bar 2e-4; BASELINE.md rung 1 is 8.1e-5 for p=6 f32).
             Every kernel's launch count in the four evaluations must be
-            > 0.  Then each kernel alone on the run's own tensors; the
-            slab stencil over the real slots (counts) and over every
-            slot, its blocks an SM (occupancy API) and its Laplace
-            issue-slot floor (the SASS instructions a pair of its inner
+            > 0.  The rounding spread: the error at the densities scaled
+            by 1 + k 1e-6, k = 0..4, with S2M and L2T through their
+            kernels and through their plain versions in float64; the
+            kernels' median at most 1.25 times the float64 way's, every
+            error under the bar.  Then each kernel alone on the run's
+            own tensors; the slab stencil and the two shared-surface
+            kernels over the real slots (counts) and over every slot,
+            their blocks an SM (occupancy API) and their Laplace
+            issue-slot floors (the SASS instructions a pair of the inner
             loop, cuobjdump); and the
             M2L kernel (3xTF32 on the tensor cores) at each level 3-6 on
             the run's own stack: its time against its CUDA-core and
@@ -101,7 +107,10 @@ Phases, each printed on flushed lines with the seconds since start:
             alone on the run's columns, over the boxes' real slots and
             over every padded slot (what the counts save).  At depth 6
             also the error with the M2L sweep at
-            the exact ranks instead of the capped ones, and the level-6
+            the exact ranks instead of the capped ones, the rounding
+            spread of phase 4 (S2M and L2T through the shared-surface
+            kernels and through their plain versions in float64), and
+            the level-6
             M2L three ways (the sweep at capped and at exact ranks, the
             blocked kernel at capped ranks): times and differences.
             Last, the error against size and depth: 4,000 points at
@@ -118,14 +127,18 @@ Phases, each printed on flushed lines with the seconds since start:
             median of 3 evaluations with fresh densities, per-stage
             times, one profiled evaluation, peak device memory, and the
             error at 1000 sampled targets against the float64 p2p (bar
-            2e-4).  m2l_grid and p2p_stencil against their plain versions
-            at reduced cases (p2p_stencil for the six tree formulas, also
-            against the plain version in float64, bar 5e-6; bar 1e-5, as
-            phase 4) and alone at the run's shapes; m2l_grid at each
-            level 3-5 as phase 4 does the blocked kernel; p2p_stencil
-            over the real slots and over every padded slot, and its
-            Laplace issue-slot floor (the
-            SASS instructions a pair of its inner loop, cuobjdump).  The
+            2e-4), and the rounding spread of phase 4.  m2l_grid,
+            p2p_stencil and the two shared-surface kernels (cap_s 344,
+            cap_t 328, ns 296) against their plain versions at reduced
+            cases (p2p_stencil for the six tree formulas; all but
+            m2l_grid also against the plain version in float64, bar
+            5e-6; bar 1e-5, as phase 4) and alone at the run's shapes;
+            m2l_grid at each level 3-5 as phase 4 does the blocked
+            kernel; p2p_stencil and the two shared-surface kernels over
+            the real slots and over every padded slot, and their
+            Laplace issue-slot floors (the SASS instructions a pair of
+            the inner loop, cuobjdump), the surface kernels' blocks an
+            SM.  The
             level-5 M2L three ways on one random grid (m2l_grid, the
             blocked kernel at the same ranks, the per-parity sweep at
             the same ranks) and the near field through p2p_stencil and
@@ -207,6 +220,15 @@ P8_N = 10_000_000
 P8 = 8
 RUNG2_N = 4000
 RUNG2_BAR = 1e-4
+# the rounding-spread check: the evaluation at densities f (1 + k 1e-6),
+# k = 0..4, with S2M and L2T through their kernels and through their
+# plain versions in float64; the median error of the first at most this
+# times the second's
+SPREAD_SCALES = tuple(1.0 + 1e-6 * k for k in range(5))
+SPREAD_RATIO = 1.25
+# kernels whose cases are also held against their plain versions in
+# float64 (DIRECT_BAR)
+F64_CASES = ("p2p_stencil9", "surface_pair", "l2t_surface")
 
 
 def log(msg):
@@ -434,6 +456,8 @@ def phase_main(torch, kf, xs, f, rng, counters):
     if not all(v > 0 for v in launches.values()):
         raise SystemExit(f"chip_smoke: a kernel was not launched on the "
                          f"main path: {launches}")
+    spread = rounding_spread(torch, kf, f_dev, idx, u_ref.cpu().numpy(),
+                             "main")
 
     # each kernel alone at the main path's shapes (after the counts
     # were read)
@@ -452,9 +476,10 @@ def phase_main(torch, kf, xs, f, rng, counters):
     full = {
         "surface_pair": lambda: surface_pair(
             Laplace3D_FxU, kf.surf_out_L, kf.xs_sl, fp.reshape(1, -1),
-            kf.cap_s),
+            kf.cap_s, None, kf.cnt_s_box),
         "l2t_surface": lambda: l2t_surface(
-            Laplace3D_FxU, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t),
+            Laplace3D_FxU, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t,
+            kf.cnt_t_box),
         "m2l_grid_blocked": lambda: m2l_grid_blocked(qbp, ops.m2l_blk,
                                                      ops.m2l_blk_tc),
         "p2p_stencil9": lambda: p2p_stencil9(
@@ -463,6 +488,9 @@ def phase_main(torch, kf, xs, f, rng, counters):
     }
     main_rows = alone_rows(torch, kf, full, launches, "main")
     del qbp
+    for name, row in surface_times(torch, kf, fp, q_cm, "main").items():
+        main_rows[name].update(row)
+    main_rows["surface_pair"]["rounding_spread"] = spread
     st = stencil9_times(torch, kf, f_s, "main")
     main_rows["p2p_stencil9"].update(
         every_slot_ms=st["every_slot_ms"], blocks_per_sm=st["blocks_per_sm"],
@@ -1218,6 +1246,11 @@ def phase_stokes(torch, counters):
     check(f"stokes depth {DEPTH}", kf, u, l6)
     for k, v in l6.items():
         launches[k] += v
+    if not kf.surface_route:
+        raise SystemExit(f"chip_smoke: stokes depth {DEPTH} took other "
+                         f"routes: {_describe(kf)}")
+    spread = rounding_spread(torch, kf, f_dev, idx, u_ref,
+                             f"stokes depth {DEPTH}")
     # the same evaluation with the sweep at the exact ranks
     caps = ops.blk_r, ops.blk_r2
     ops.blk_r, ops.blk_r2 = ops.m2l_a.shape[1:]
@@ -1233,7 +1266,7 @@ def phase_stokes(torch, counters):
     del kf
     torch.cuda.empty_cache()
     stokes_depths(torch, ops)
-    return launches, oracle_row, st6c
+    return launches, oracle_row, st6c, spread
 
 
 def near_ways(torch, kf, fp):
@@ -1381,6 +1414,98 @@ def stencil9_times(torch, kf, f_s, label):
                 lanes_per_target=lay["lanes_per_target"])
 
 
+def surface_times(torch, kf, fp, q_cm, label):
+    """The two shared-surface kernels alone on the set-up KIFMM's own
+    slots (its S2M and L2T formulas; padded densities fp, L2T densities
+    q_cm), over each box's real slots by its counts (the main path) and
+    over every padded slot (no counts: the slot pairs of the JAX
+    function), with their difference at the real slots, the bound of
+    the real pairs, the layout and blocks an SM (occupancy API) and the
+    issue-slot floor of the formula's loop -> {name: row}."""
+    from sctl_tpu_torch.kernel_cases import main_path_work, rel_max_err
+    from sctl_tpu_torch.ops.sl import (l2t_surface, l2t_surface_layout,
+                                       surface_pair, surface_pair_layout)
+    from sctl_tpu_torch.ops.uker import FORMULA
+    ns = kf._ops.n_surf
+    km, kl = kf.ker_s2m, kf.ker_l2t
+    s2m = (km, kf.surf_out_L, kf.xs_sl,
+           fp.reshape(-1, km.kdim0).T.contiguous(), kf.cap_s, kf.ns_sl)
+    l2t = (kl, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t)
+    live_t = (torch.arange(kf.cap_t, device=kf.device)
+              < kf.cnt_t_box[:, None]).reshape(1, -1)
+    s_lay = surface_pair_layout(km, ns)
+    ways = {
+        "surface_pair": (lambda: surface_pair(*s2m, kf.cnt_s_box),
+                         lambda: surface_pair(*s2m), 1, s_lay,
+                         f"surface_pair_kernelILi{FORMULA[km.name]}ELi"
+                         f"{s_lay['points_per_lane']}E"),
+        "l2t_surface": (lambda: l2t_surface(*l2t, kf.cnt_t_box),
+                        lambda: l2t_surface(*l2t), live_t,
+                        l2t_surface_layout(kl, ns, kf.cap_t),
+                        f"l2t_surface_kernelILi{FORMULA[kl.name]}E")}
+    work = main_path_work(kf)
+    rows = {}
+    for name, (real, every, live, lay, mangled) in ways.items():
+        diff = rel_max_err(every() * live, real())
+        ms, every_ms = cuda_ms(torch, real, 5), cuda_ms(torch, every, 3)
+        b_ms, b_by = bound(work[name])
+        log(f"{label}: {name} {ms:.4f} ms over the real slots, "
+            f"{every_ms:.4f} ms over every padded slot, difference "
+            f"{diff:.3e}; bound {b_ms:.4f} ms ({b_by}, "
+            f"{ops_limit(work[name])}), pairs {work[name]['pairs']}; "
+            f"layout {lay}")
+        rows[name] = dict(every_slot_ms=every_ms,
+                          blocks_per_sm=lay["blocks_per_sm"],
+                          **(issue_floor(name, mangled, work[name]["pairs"],
+                                         label) or {}))
+    return rows
+
+
+def rounding_spread(torch, kf, f_dev, idx, u_ref, label):
+    """The set-up KIFMM's error at the sampled targets idx against the
+    float64 p2p (u_ref, numpy) at the densities f_dev scaled by each of
+    SPREAD_SCALES, with S2M and L2T through their kernels and through
+    their plain versions in float64 (cast back to float32).  The
+    function is linear, so within a way the errors differ by float32
+    rounding only, which the pinv operators amplify; the kernels'
+    median may be at most SPREAD_RATIO times the float64 way's, and
+    every error under FMM_BAR.  The module's functions are put back
+    after -> dict(errors, medians, ratio)."""
+    import numpy as np
+    import sctl_tpu_torch.fmm.kifmm as kifmm_mod
+    from sctl_tpu_torch.kernel_cases import _cast
+    from sctl_tpu_torch.ops.sl import l2t_surface_plain, surface_pair_plain
+
+    def f64(plain):
+        return lambda *a: plain(*_cast(a, torch.float64)).float()
+
+    own = kifmm_mod.surface_pair, kifmm_mod.l2t_surface
+    ways = {"kernels": own,
+            "plain float64": (f64(surface_pair_plain),
+                              f64(l2t_surface_plain))}
+    it = torch.as_tensor(idx, device=kf.device)
+    errs = {}
+    try:
+        for way, (s2m, l2t) in ways.items():
+            kifmm_mod.surface_pair, kifmm_mod.l2t_surface = s2m, l2t
+            errs[way] = [_sample_err(
+                kf.eval_tensor(f_dev * c)[it].double().cpu().numpy(),
+                u_ref * c) for c in SPREAD_SCALES]
+    finally:
+        kifmm_mod.surface_pair, kifmm_mod.l2t_surface = own
+    med = {way: float(np.median(v)) for way, v in errs.items()}
+    ratio = med["kernels"] / med["plain float64"]
+    log(f"{label}: rounding spread, rel err at {len(idx)} sampled targets "
+        f"with the densities scaled by 1 + k 1e-6, k = 0..4, S2M and L2T "
+        + "; ".join(f"through the {way} {['%.4e' % e for e in v]} (median "
+                    f"{med[way]:.4e})" for way, v in errs.items())
+        + f"; ratio of the medians {ratio:.3f} (at most {SPREAD_RATIO})")
+    if not (all(np.isfinite(e) and e < FMM_BAR for v in errs.values()
+                for e in v) and ratio <= SPREAD_RATIO):
+        raise SystemExit(f"chip_smoke: {label} rounding spread: {errs}")
+    return dict(errors=errs, medians=med, ratio=ratio)
+
+
 # lane-operations a second of the whole card: 128 issue slots a clock
 # per SM (4 schedulers x 32 lanes), 64 for the float64 pipe, at the
 # clock of the rsqrt bound
@@ -1432,6 +1557,7 @@ def phase_p8(torch, counters):
     from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
     from sctl_tpu_torch.ops.m2l import m2l_grid
     from sctl_tpu_torch.ops.p2p import p2p_stencil, to_halo
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
     t = time.perf_counter()
     unit_tables(Laplace3D_FxU.name, P8, 3e-5)
     log(f"p8: cold Laplace3D-FxU table build (p={P8}, rcond 3e-5) "
@@ -1485,13 +1611,18 @@ def phase_p8(torch, counters):
     if launches["p2p"] or not _tree_kernels_launched(kf, launches):
         raise SystemExit(f"chip_smoke: p8: a kernel of the path was not "
                          f"launched: {launches}")
+    if not kf.surface_route:
+        raise SystemExit(f"chip_smoke: p8 took other routes: "
+                         f"{_describe(kf)}")
+    spread = rounding_spread(torch, kf, f_dev, idx, u_ref, "p8")
 
-    # the two new kernels against their plain versions, reduced
+    # the path's kernels against their plain versions, reduced; the
+    # pair kernels also against float64
     cases = kernel_cases(kf)
     rows = phase_kernels(torch, None, {"m2l_grid": cases["m2l_grid"]})
-    rows.update(phase_kernels(torch, None,
-                              {"p2p_stencil": cases["p2p_stencil"]},
-                              f64_bar=DIRECT_BAR))
+    rows.update(phase_kernels(torch, None, {
+        k: cases[k] for k in ("p2p_stencil", "surface_pair",
+                              "l2t_surface")}, f64_bar=DIRECT_BAR))
     frows = phase_kernels(torch, None,
                           formula_cases(kf, stages=("p2p_stencil",)),
                           f64_bar=DIRECT_BAR)
@@ -1508,17 +1639,28 @@ def phase_p8(torch, counters):
                                        device="cuda")
     fp, _ = kf.pad_density(f_dev)
     f_h = to_halo(fp, kf.rast_to_mort, n)
+    q_cm = torch.randn((1, ops.n_surf, kf.src_tree.n_boxes),
+                       device="cuda")
     full = {"m2l_grid": lambda: m2l_grid(qp, ops.m2l_at, ops.m2l_at_tc),
             "p2p_stencil": lambda: p2p_stencil(
                 kf.ker_s2t, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo,
-                f_h, None, kf.cnt_s_rast, kf.cnt_t_rast)}
+                f_h, None, kf.cnt_s_rast, kf.cnt_t_rast),
+            "surface_pair": lambda: surface_pair(
+                Laplace3D_FxU, kf.surf_out_L, kf.xs_sl, fp.reshape(1, -1),
+                kf.cap_s, None, kf.cnt_s_box),
+            "l2t_surface": lambda: l2t_surface(
+                Laplace3D_FxU, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t,
+                kf.cnt_t_box)}
     main_rows = alone_rows(torch, kf, full, launches, "p8")
+    for name, row in surface_times(torch, kf, fp, q_cm, "p8").items():
+        main_rows[name].update(row)
+    main_rows["surface_pair"]["rounding_spread"] = spread
     st = stencil_times(torch, kf, f_h, "p8")
     main_rows["p2p_stencil"].update(
         every_slot_ms=st["every_slot_ms"],
         **(issue_floor("p2p_stencil", "p2p_stencil_kernelILi0E",
                        st["pairs"], "p8") or {}))
-    del qp, f_h
+    del qp, f_h, q_cm
     main_rows["m2l_grid"]["levels"] = m2l_levels(torch, kf, "p8")
     for way, (ms, diff) in m2l_routes_at(
             torch, kf, kf.depth, ("grid", "blocked", "sweep")).items():
@@ -1570,16 +1712,16 @@ def main():
     all_counters = dict(counters, p2p_ulist=p2p_ulist, p2p=p2p,
                         m2l_grid=m2l_grid, p2p_stencil=p2p_stencil)
     kf, xs, f, rng = phase_setup(torch)
-    # the slab stencil, redesigned, also against float64 (as phase 7's
+    # the redesigned pair kernels also against float64 (as phase 7's
     # halo stencil)
-    s9 = lambda c: {k: v for k, v in c.items()
-                    if k.startswith("p2p_stencil9")}
-    rest = lambda c: {k: v for k, v in c.items() if k not in s9(c)}
+    f64 = lambda c: {k: v for k, v in c.items()
+                     if k.split("[")[0] in F64_CASES}
+    rest = lambda c: {k: v for k, v in c.items() if k not in f64(c)}
     cases, fcases = kernel_cases(kf), formula_cases(kf)
     rows = phase_kernels(torch, kf, rest(cases))
-    rows.update(phase_kernels(torch, kf, s9(cases), f64_bar=DIRECT_BAR))
+    rows.update(phase_kernels(torch, kf, f64(cases), f64_bar=DIRECT_BAR))
     frows = phase_kernels(torch, kf, rest(fcases))
-    frows.update(phase_kernels(torch, kf, s9(fcases), f64_bar=DIRECT_BAR))
+    frows.update(phase_kernels(torch, kf, f64(fcases), f64_bar=DIRECT_BAR))
     del cases, fcases
     for name in counters:
         rows[name]["cases"] = {
@@ -1596,10 +1738,19 @@ def main():
     torch.cuda.empty_cache()
     l6a, rows["p2p"] = phase_direct(torch, all_counters)
     l6b = phase_tree(torch, all_counters)
-    l6c, main_rows["p2p"], st6c = phase_stokes(torch, all_counters)
+    l6c, main_rows["p2p"], st6c, spread6c = phase_stokes(torch,
+                                                         all_counters)
     main_rows["p2p"]["launches"] = 0
     torch.cuda.empty_cache()
     l7, r7, m7 = phase_p8(torch, all_counters)
+    # the shared-surface kernels' phase-7 figures beside phase 4's
+    for name in ("surface_pair", "l2t_surface"):
+        case = r7.pop(name)
+        main_rows[name]["phase7"] = dict(
+            m7.pop(name), **{f"case_{k}": case[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "max_rel_err",
+                "max_rel_err_f64")})
+    main_rows["surface_pair"]["rounding_spread_6c"] = spread6c
     rows.update(r7)
     main_rows.update({k: dict(v, launches=0) for k, v in m7.items()})
     main_rows["p2p_stencil"]["stokes_6c"] = st6c
@@ -1635,7 +1786,9 @@ def main():
                             "main_path_ops_limit", "bound_cuda_core_ms",
                             "bound_tensor_core_ms",
                             "main_path_bound_cuda_core_ms",
-                            "main_path_bound_tensor_core_ms", "levels")}))
+                            "main_path_bound_tensor_core_ms", "levels",
+                            "phase7", "rounding_spread",
+                            "rounding_spread_6c")}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -1,96 +1,269 @@
 // L2T: each box's downward-equivalent densities on the shared surface
-// evaluated at the box's target slots.
+// evaluated at the box's real target slots.
 //
 // Replaces: sctl_tpu/ops/pallas_sl.py `l2t_surface` (pl.pallas_call at
-// :354).  out[j, b*cap_t + t] = sum_m K(xt[:, b*cap_t + t] - surf[m])
-// q[:, m, b] (component j < k1, unscaled, box-local coordinates), for
-// the L2T kernels Laplace3D-FxU and -FxdU and Stokes3D-FSxU; the
+// :354).  A box's real targets are its first cnt_t[b] slots (int32 per
+// box, Morton order, clipped here to cap_t; null means every slot, the
+// JAX function's definition).  For a real target slot t < cnt_t[b]:
+//   out[j, b*cap_t + t] = sum_m K(xt[:, b*cap_t + t] - surf[m])
+//                         q[:, m, b]
+// (component j < k1, unscaled, box-local coordinates, r2 = 0 masked);
+// the target slots at or past cnt_t[b] are written 0, as the stencils
+// do.  The L2T kernels Laplace3D-FxU and -FxdU and Stokes3D-FSxU; the
 // formula is a template parameter (ukernels.cuh).
 //
-// Bound on the H100: the pairs.  At 1e7 points, depth 6: B = 262,144,
-// cap_t = 48, ns = 152, 1.9e9 pair evaluations (one rsqrt each and the
-// formula's f32 operations); the bytes (targets, densities and
-// outputs, under 1 GB) take less.
+// Bound on the H100: the real pairs, one rsqrt each at 16 per SM per
+// clock.  At 1e7 points, depth 6 (B = 262,144, cap_t 48, ns 152):
+// 1.51e9 real pairs, 0.36 ms; the bytes (targets, densities, outputs,
+// 0.4 GB) take 0.11 ms.  What holds a lean pair loop is the issue rate
+// (128 lane-instructions a clock per SM), about 10 instructions a
+// Laplace pair (chip_smoke.py reads the loop's count with cuobjdump).
+// Every padded slot would be 1.91e9 slot pairs; the default formula
+// form's rsqrtf carries a denormal fix-up.
 //
-// Design: one block owns 32 boxes; their (k0 x ns x 32) densities and
-// the surface sit in shared memory.  Threads walk the block's
-// 32*cap_t target slots in order, so target loads and output stores
-// are coalesced; every lane of a warp reads the same surface point
-// (broadcast) and at most two boxes' densities.  The TPU's hi/lo
+// Design: a block owns G consecutive boxes (G a power of two from the
+// target capacity, about kMaxThreads threads a block; a template
+// constant, so that the records' stride is an immediate offset).  It
+// stages one float4 record a surface point and box in shared memory,
+// (x, y, z, q_0) and, for Stokes3D-FSxU's four densities, a second,
+// surface-point-major with the boxes adjacent, so that the loads of the
+// (k0, ns, B) densities read G adjacent boxes and the stores are
+// conflict-free.  It packs its boxes' real targets one after another,
+// TPT consecutive targets of one box a thread
+// (sctl_tpu_torch/surface_sweep.py times TPT = 1, 2 and 4 side by
+// side).  Each thread walks the ns records of its box: the lanes of a
+// warp read one address, or the adjacent ones of the two or three boxes
+// the warp spans, so one load serves TPT pairs.  Only the real targets
+// are evaluated; the warps past the block's real targets skip the loop.
+// Each thread sums each tile of kTile surface points into fresh f32
+// partial sums and adds them to its totals, as every pair kernel since
+// p2p_direct.cu; no atomics, so a launch repeats bit for bit.  A warp's
+// stores fill adjacent target slots of a component row.  The TPU's hi/lo
 // one-hot expansion of the densities (pallas_sl.py:288-293) is not
-// carried over: a thread reads its box's densities directly.
+// carried over: a thread reads its box's records directly.
 #include "common.cuh"
 #include "ukernels.cuh"
 
 namespace {
 
-constexpr int kBoxes = 32;
-constexpr int kThreads = 256;
+constexpr int TPT = 2;              // targets a thread
+constexpr int kTile = 64;           // surface points summed apart
+constexpr int kMaxThreads = 512;
+constexpr int kMaxG = 16;           // boxes a block (a power of two)
+constexpr int kSmem = 96 * 1024;    // record bytes a block, for 2 an SM
 
+// float4 records of a surface point: x, y, z and the box's k0 densities
 template <int KER>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int records() {
+  return (3 + sctl::Dims<KER>::k0 + 3) / 4;
+}
+
+template <int KER, int G>
+__global__ void __launch_bounds__(kMaxThreads)
 l2t_surface_kernel(const float* __restrict__ surf,
                    const float* __restrict__ xt,
-                   const float* __restrict__ q, float* __restrict__ out,
+                   const float* __restrict__ q,
+                   const int* __restrict__ cnt_t, float* __restrict__ out,
                    int ns, int B, int cap_t) {
   using D = sctl::Dims<KER>;
-  constexpr int K0 = D::k0, K1 = D::k1;
-  extern __shared__ float sm[];
-  float* sq = sm;                       // (k0, ns, kBoxes)
-  float* s3 = sm + K0 * ns * kBoxes;    // (ns, 3)
-  const int b0 = blockIdx.x * kBoxes;
-  for (int i = threadIdx.x; i < K0 * ns * kBoxes; i += blockDim.x) {
-    const int cm = i / kBoxes, j = i - cm * kBoxes;
-    sq[i] = b0 + j < B ? q[(long)cm * B + b0 + j] : 0.f;
-  }
-  for (int i = threadIdx.x; i < 3 * ns; i += blockDim.x) s3[i] = surf[i];
+  constexpr int K0 = D::k0, K1 = D::k1, R = records<KER>();
+  extern __shared__ float4 rec[];           // (ns, G, R)
+  // real targets of the block's boxes; the first thread of each box
+  __shared__ int ct[G], toff[G + 1];
+  const int b0 = blockIdx.x * G, nb = min(G, B - b0);
+  const int tid = threadIdx.x;
+  if (tid < G)
+    ct[tid] = tid >= nb ? 0
+              : cnt_t ? max(0, min(cnt_t[b0 + tid], cap_t)) : cap_t;
   __syncthreads();
-  const long T = (long)B * cap_t;
-  for (int i = threadIdx.x; i < kBoxes * cap_t; i += blockDim.x) {
-    const long g = (long)b0 * cap_t + i;
-    if (g >= T) break;
-    const int j = i / cap_t;
-    const float x = xt[g], y = xt[T + g], z = xt[2 * T + g];
-    float acc[K1];
+  if (tid == 0) {
+    toff[0] = 0;
+    for (int j = 0; j < G; ++j)
+      toff[j + 1] = toff[j] + (ct[j] + TPT - 1) / TPT;
+  }
+  // the records, the block's boxes adjacent for each surface point
+  for (int i = tid; i < ns * G; i += blockDim.x) {
+    const int m = i / G, j = i - m * G;
+    float v[4 * R];
 #pragma unroll
-    for (int c = 0; c < K1; ++c) acc[c] = 0.f;
-    for (int m = 0; m < ns; ++m) {
-      float fv[K0];
+    for (int c = 0; c < 4 * R; ++c) v[c] = 0.f;
 #pragma unroll
-      for (int c = 0; c < K0; ++c) fv[c] = sq[(c * ns + m) * kBoxes + j];
-      sctl::uker_acc<KER>(x - s3[3 * m], y - s3[3 * m + 1],
-                          z - s3[3 * m + 2], fv, (const float*)nullptr,
-                          acc);
+    for (int c = 0; c < 3; ++c) v[c] = surf[3 * m + c];
+    if (j < nb) {
+#pragma unroll
+      for (int c = 0; c < K0; ++c)
+        v[3 + c] = q[((long)c * ns + m) * B + b0 + j];
     }
 #pragma unroll
-    for (int c = 0; c < K1; ++c) out[c * T + g] = acc[c];
+    for (int r = 0; r < R; ++r)
+      rec[(long)i * R + r] =
+          make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
+  }
+  // the padded target slots of the block's boxes come out zero
+  const long T = (long)B * cap_t;
+  for (int i = tid; i < nb * cap_t; i += blockDim.x) {
+    const int j = i / cap_t, t = i - j * cap_t;
+    if (t >= ct[j]) {
+      const long slot = (long)b0 * cap_t + i;
+#pragma unroll
+      for (int c = 0; c < K1; ++c) out[c * T + slot] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int g = tid; g < toff[nb]; g += blockDim.x) {
+    int j = 0;
+    for (int k = 1; k < nb; ++k) j += g >= toff[k];
+    const int t0 = (g - toff[j]) * TPT;
+    const int live = min(TPT, ct[j] - t0);
+    const long slot = (long)(b0 + j) * cap_t + t0;
+    float x[TPT], y[TPT], z[TPT], acc[TPT][K1];
+#pragma unroll
+    for (int k = 0; k < TPT; ++k) {
+      // a slot past the box's count sums a dummy and is not stored
+      x[k] = k < live ? xt[slot + k] : 0.f;
+      y[k] = k < live ? xt[T + slot + k] : 0.f;
+      z[k] = k < live ? xt[2 * T + slot + k] : 0.f;
+#pragma unroll
+      for (int c = 0; c < K1; ++c) acc[k][c] = 0.f;
+    }
+    const float4* rb = rec + j * R;    // (m, j) at rb[m * G * R]
+    for (int m0 = 0; m0 < ns; m0 += kTile) {
+      const int m1 = min(ns, m0 + kTile);
+      float part[TPT][K1];
+#pragma unroll
+      for (int k = 0; k < TPT; ++k)
+#pragma unroll
+        for (int c = 0; c < K1; ++c) part[k][c] = 0.f;
+#pragma unroll 4
+      for (int m = m0; m < m1; ++m) {
+        float v[4 * R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 s = rb[m * G * R + r];
+          v[4 * r] = s.x;
+          v[4 * r + 1] = s.y;
+          v[4 * r + 2] = s.z;
+          v[4 * r + 3] = s.w;
+        }
+#pragma unroll
+        for (int k = 0; k < TPT; ++k)
+          sctl::uker_acc<KER, true>(x[k] - v[0], y[k] - v[1], z[k] - v[2],
+                                    v + 3, (const float*)nullptr, part[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < TPT; ++k)
+#pragma unroll
+        for (int c = 0; c < K1; ++c) acc[k][c] += part[k][c];
+    }
+#pragma unroll
+    for (int k = 0; k < TPT; ++k) {
+      if (k < live) {
+#pragma unroll
+        for (int c = 0; c < K1; ++c) out[c * T + slot + k] = acc[k][c];
+      }
+    }
+  }
+}
+
+// boxes a block and threads a block at (ns, cap_t): about kMaxThreads
+// threads of TPT targets, at most kMaxG boxes and kSmem bytes of records
+// (one box at least), a power of two, so that the records' stride is a
+// constant and the loop's loads take immediate offsets
+template <int KER>
+void layout(int ns, int cap_t, int* G, int* threads) {
+  const int per_box = (cap_t + TPT - 1) / TPT;
+  int g = kMaxThreads / (per_box > 0 ? per_box : 1);
+  const int by_smem = kSmem / (int)(sizeof(float4) * records<KER>() * ns);
+  g = g < by_smem ? g : by_smem;
+  *G = 1;
+  while (*G * 2 <= g && *G * 2 <= kMaxG) *G *= 2;
+  const int up = (*G * per_box + 31) / 32 * 32;
+  *threads = up < 32 ? 32 : up > kMaxThreads ? kMaxThreads : up;
+}
+
+template <int KER>
+size_t smem_bytes(int ns, int G) {
+  return sizeof(float4) * records<KER>() * (size_t)ns * G;
+}
+
+// launch (blocks == null) or the resident blocks an SM (the occupancy
+// API) of the instantiation with G boxes a block
+template <int KER, int G>
+int run_g(const float* surf, const float* xt, const float* q,
+          const int* cnt_t, float* out, int ns, int B, int cap_t,
+          int threads, cudaStream_t stream, int* blocks) {
+  const size_t smem = smem_bytes<KER>(ns, G);
+  cudaError_t err = allow_smem(l2t_surface_kernel<KER, G>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, l2t_surface_kernel<KER, G>, threads, smem);
+  l2t_surface_kernel<KER, G><<<(B + G - 1) / G, threads, smem, stream>>>(
+      surf, xt, q, cnt_t, out, ns, B, cap_t);
+  return (int)cudaGetLastError();
+}
+
+template <int KER>
+int run_layout(const float* surf, const float* xt, const float* q,
+               const int* cnt_t, float* out, int ns, int B, int cap_t,
+               cudaStream_t stream, int* lay, int* blocks) {
+  lay[0] = TPT;
+  layout<KER>(ns, cap_t, &lay[1], &lay[2]);
+  switch (lay[1]) {
+    case 1: return run_g<KER, 1>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                 lay[2], stream, blocks);
+    case 2: return run_g<KER, 2>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                 lay[2], stream, blocks);
+    case 4: return run_g<KER, 4>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                 lay[2], stream, blocks);
+    case 8: return run_g<KER, 8>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                 lay[2], stream, blocks);
+    default: return run_g<KER, 16>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                   lay[2], stream, blocks);
   }
 }
 
 template <int KER>
 struct Launch {
   static int run(const float* surf, const float* xt, const float* q,
-                 float* out, int ns, int B, int cap_t, cudaStream_t stream) {
-    const size_t smem =
-        sizeof(float) * ns * (sctl::Dims<KER>::k0 * kBoxes + 3);
-    cudaError_t err = allow_smem(l2t_surface_kernel<KER>, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int grid = (B + kBoxes - 1) / kBoxes;
-    l2t_surface_kernel<KER><<<grid, kThreads, smem, stream>>>(
-        surf, xt, q, out, ns, B, cap_t);
-    return (int)cudaGetLastError();
+                 const int* cnt_t, float* out, int ns, int B, int cap_t,
+                 cudaStream_t stream) {
+    int lay[3];
+    return run_layout<KER>(surf, xt, q, cnt_t, out, ns, B, cap_t, stream,
+                           lay, nullptr);
+  }
+};
+
+// the block at these widths and the resident blocks an SM
+template <int KER>
+struct Occupancy {
+  static int run(int ns, int cap_t, int* lay, int* blocks) {
+    return run_layout<KER>(nullptr, nullptr, nullptr, nullptr, nullptr, ns,
+                           0, cap_t, nullptr, lay, blocks);
   }
 };
 
 }  // namespace
 
-// surf (ns, 3), xt (3, B*cap_t), q (k0, ns, B), out (k1, B*cap_t);
+// surf (ns, 3), xt (3, B*cap_t), q (k0, ns, B), cnt_t (B) int32 real
+// targets of each box, its first (null: all cap_t), out (k1, B*cap_t);
 // float32.  ker: the formula index of ukernels.cuh, one of the L2T
 // kernels.
 SCTL_API int sctl_l2t_surface(const float* surf, const float* xt,
-                              const float* q, float* out, int ker, int ns,
-                              int B, int cap_t, cudaStream_t stream) {
+                              const float* q, const int* cnt_t, float* out,
+                              int ker, int ns, int B, int cap_t,
+                              cudaStream_t stream) {
   using namespace sctl;
   return dispatch_formula<Launch, kLapFxU, kLapFxdU, kStkFSxU>(
-      ker, surf, xt, q, out, ns, B, cap_t, stream);
+      ker, surf, xt, q, cnt_t, out, ns, B, cap_t, stream);
+}
+
+// The block at (ns, cap_t), [targets a thread, boxes a block, threads a
+// block], into layout[0..2], and the resident blocks an SM of formula
+// ker into *blocks (the occupancy API).
+SCTL_API int sctl_l2t_surface_occupancy(int ker, int ns, int cap_t,
+                                        int* layout, int* blocks) {
+  using namespace sctl;
+  return dispatch_formula<Occupancy, kLapFxU, kLapFxdU, kStkFSxU>(
+      ker, ns, cap_t, layout, blocks);
 }

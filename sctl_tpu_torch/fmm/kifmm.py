@@ -5,8 +5,9 @@ Stokes3D-FxU, -DxU and -FSxU with Stokes3D-FSxU (`kernel_roles`).
 
 The evaluation follows the JAX package's TPU route stage by stage:
 
-  S2M  shared-surface check potentials (ops/sl.py `surface_pair`),
-       then q_up = uc2e q_check
+  S2M  shared-surface check potentials over each box's real sources
+       (ops/sl.py `surface_pair`, by `cnt_s_box`), then
+       q_up = uc2e q_check
   M2M  one concatenated matrix product per level
   M2L  levels >= 3 in float32, by the operator stacks' sizes as the
        JAX package chooses (`m2l_route`): the sibling-blocked V list on
@@ -16,8 +17,8 @@ The evaluation follows the JAX package's TPU route stage by stage:
        the JAX package's scan runs it outside Pallas (Stokes); level 2
        always the per-parity sweep
   L2L  one concatenated matrix product per level
-  L2T  shared-surface evaluation at the leaf targets (ops/sl.py
-       `l2t_surface`)
+  L2T  shared-surface evaluation at each box's real targets (ops/sl.py
+       `l2t_surface`, by `cnt_t_box`; zero past them)
   P2P  packed 9-column slab stencil (ops/p2p.py `p2p_stencil9`) where
        its block holds the box capacities, each slab entry compacted
        to its real points at setup (`slab_idx`, `cnt9`), else the
@@ -26,9 +27,10 @@ The evaluation follows the JAX package's TPU route stage by stage:
        only, by the per-box counts set up once (`cnt_s_rast`,
        `cnt_t_rast`)
 
-The shared-surface kernels need a box count that is a multiple of 128
-(depth >= 3) and box capacities their shared memory holds (a few
-hundred points a leaf, fewer for the double layers); otherwise S2M and
+The shared-surface route takes a box count that is a multiple of 128
+(depth >= 3) and the capacities of the rules `surface_pair_fits` and
+`l2t_surface_fits` (a few hundred points a leaf, fewer for the double
+layers; the kernels themselves take any capacity); otherwise S2M and
 L2T go through the per-box U-list kernel over each box's real slots
 (ops/p2p.py `p2p_ulist`), as the JAX package does over padded ones
 (sctl_tpu/fmm/kifmm.py:1095-1108, :1316-1326).  The slab stencil's
@@ -619,16 +621,17 @@ class KIFMM:
         cnt_t = np.minimum(trg.box_cnt, self.cap_t)
         self.cnt_s_rast = i32(cnt_s[inv].reshape(n, n, n))
         self.cnt_t_rast = i32(cnt_t[inv].reshape(n, n, n))
+        self.cnt_s_box = i32(cnt_s)
         self.cnt_t_box = i32(cnt_t)
         # the U-list routes' source runs: each box's real slots (S2M) and
         # its copy of the equivalent surface (L2T)
-        self.rng_s = box_ranges(i32(cnt_s), self.cap_s)
+        self.rng_s = box_ranges(self.cnt_s_box, self.cap_s)
         self.rng_e = box_ranges(i32(np.full(src.n_boxes, ops.n_surf)),
                                 ops.n_surf)
         self.SL = -(-9 * self.cap_s // 128) * 128
         # routes by shape: the shared-surface kernels take a box count
-        # that is a multiple of 128 and capacities their shared memory
-        # holds, otherwise the U-list kernel; the near field the slab
+        # that is a multiple of 128 and the capacities of their route
+        # rules, otherwise the U-list kernel; the near field the slab
         # stencil where its block holds the caps, otherwise the halo
         # stencil (see the module docstring)
         self.surface_route = (
@@ -745,9 +748,10 @@ class KIFMM:
 
         # ---- S2M: leaf check potentials -> upward equivalents ----
         if self.surface_route:
+            # each box's real slots, by its count
             out_sl = surface_pair(km, self.surf_out_L, self.xs_sl,
                                   fp.reshape(-1, k0).T.contiguous(),
-                                  self.cap_s, self.ns_sl)
+                                  self.cap_s, self.ns_sl, self.cnt_s_box)
             u_check = out_sl.permute(2, 1, 0).reshape(B, -1)
         else:
             # box-local check surface (targets) against the box's real
@@ -885,7 +889,9 @@ class KIFMM:
         if self.surface_route:
             q_cm = q_dn.reshape(B, ns, kl.kdim0).permute(2, 1, 0) \
                 .contiguous()
-            out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct)
+            # the target slots past each box's count come out zero
+            out_sl = l2t_surface(kl, self.surf_out_L, self.xt_sl, q_cm, ct,
+                                 self.cnt_t_box)
             u_far = out_sl.reshape(kl.kdim1, B, ct).permute(1, 2, 0)
         else:
             # box-local real targets against the box's copy of the

@@ -10,11 +10,10 @@ capacities are larger), so the plain versions stay small.
 (its M2L kernel, blocked or grid, and its near-field stencil), or for
 one given formula (`formula_cases` runs every formula each pair kernel
 takes).
-The shared-surface cases' source slots hold a density as often as the
-KIFMM's leaves fill theirs on average; the stencil cases' boxes hold
-their real points in their first slots, as many as drawn around the
-KIFMM's mean counts (Poisson), and both stencils get those counts (the
-slab stencil as a compacted slab, `slab_index`).
+The shared-surface and stencil cases' boxes hold their real points in
+their first slots, as many as drawn around the KIFMM's mean counts
+(Poisson), and the kernels get those counts (the slab stencil as a
+compacted slab, `slab_index`).
 The others are zero, as the padding of the main path is.
 
 The U-list kernel's cases (`ulist_cases`) take their widths from a
@@ -62,18 +61,22 @@ N_BOXES, M2L_H, P2P_N, STENCIL_N, ULIST_G = 4096, 8, 16, 8, 32
 P2P_T, P2P_S = 4096, 39_000
 
 
-def surface_pair_work(kernel, pairs: int, ns: int, B: int,
-                      cap: int) -> dict:
-    return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * (3 * ns + kernel.src_floats * B * cap
+def surface_pair_work(kernel, ns: int, B: int, n_src: int) -> dict:
+    """The real sources' pairs with the surface; bytes of the surface,
+    the real sources, the counts and the outputs, each once."""
+    return dict(pairs=n_src * ns, pair_flops=kernel.flops,
+                bytes=4 * (3 * ns + kernel.src_floats * n_src + B
                            + kernel.kdim1 * ns * B))
 
 
-def l2t_surface_work(kernel, pairs: int, ns: int, B: int,
-                     cap_t: int) -> dict:
-    return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * (3 * ns + (3 + kernel.kdim1) * B * cap_t
-                           + kernel.kdim0 * ns * B))
+def l2t_surface_work(kernel, ns: int, B: int, cap_t: int,
+                     n_trg: int) -> dict:
+    """The real targets' pairs with the surface; bytes of the surface,
+    the real targets, the densities, the counts and the whole output
+    (zeros past the counts), each once."""
+    return dict(pairs=n_trg * ns, pair_flops=kernel.flops,
+                bytes=4 * (3 * ns + 3 * n_trg + kernel.kdim0 * ns * B + B
+                           + kernel.kdim1 * B * cap_t))
 
 
 def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
@@ -232,10 +235,9 @@ def main_path_work(kf) -> dict:
     B, n = kf.src_tree.n_boxes, 1 << kf.depth
     pairs = int((ct * near).sum())
     work = {
-        "surface_pair": surface_pair_work(kf.ker_s2m, int(cs.sum()) * ns,
-                                          ns, B, kf.cap_s),
-        "l2t_surface": l2t_surface_work(kf.ker_l2t, int(ct.sum()) * ns,
-                                        ns, B, kf.cap_t),
+        "surface_pair": surface_pair_work(kf.ker_s2m, ns, B, int(cs.sum())),
+        "l2t_surface": l2t_surface_work(kf.ker_l2t, ns, B, kf.cap_t,
+                                        int(ct.sum())),
     }
     if kf.near_route == "stencil9":
         work["p2p_stencil9"] = p2p_stencil9_work(
@@ -284,7 +286,6 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
     lam = kf.scale / (1 << kf.depth)
     mean_s = np.minimum(kf.src_tree.box_cnt, cap_s).mean()
     mean_t = np.minimum(kf.trg_tree.box_cnt, cap_t).mean()
-    fill = mean_s / cap_s
     surf = kf.surf_out_L
     ns = surf.shape[0]
     near = near_kernel(kf)
@@ -297,30 +298,36 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
     cases = {}
 
     B = N_BOXES
+    box_counts = lambda mean, cap: np.minimum(rng.poisson(mean, B), cap)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
     ker = roles.get("surface_pair")
     if ker is not None:
+        # each box's real sources are its first slots, as in the KIFMM
+        cnt_s = box_counts(mean_s, cap_s)
+        vs = np.arange(cap_s) < cnt_s[:, None]
         xs = (rng.random((B, cap_s, 3)) - 0.5) * lam
-        vs = rng.random((B, cap_s)) < fill
         slots = lambda a: f32(a.transpose(2, 0, 1).reshape(a.shape[2], -1))
         pts = slots(xs)
         nrm = (slots(_unit_normals(rng, (B, cap_s, 3), 2))
                if ker.needs_normal else None)
         fl = slots(rng.normal(size=(B, cap_s, ker.kdim0)) * vs[..., None])
+        a = (ker, surf, pts, fl, cap_s, nrm, i32(cnt_s))
         cases["surface_pair"] = (
-            lambda: surface_pair(ker, surf, pts, fl, cap_s, nrm),
-            lambda: surface_pair_plain(ker, surf, pts, fl, cap_s, nrm),
-            None,
-            surface_pair_work(ker, int(vs.sum()) * ns, ns, B, cap_s))
+            lambda a=a: surface_pair(*a),
+            lambda dtype=None, a=a: surface_pair_plain(*_cast(a, dtype)),
+            None, surface_pair_work(ker, ns, B, int(cnt_s.sum())))
 
     kl = roles.get("l2t_surface")
     if kl is not None:
+        cnt_t = box_counts(mean_t, cap_t)
         xt = (rng.random((B, cap_t, 3)) - 0.5) * lam
         xtl = f32(xt.transpose(2, 0, 1).reshape(3, -1))
         q = f32(rng.normal(size=(kl.kdim0, ns, B)))
+        a = (kl, surf, xtl, q, cap_t, i32(cnt_t))
         cases["l2t_surface"] = (
-            lambda: l2t_surface(kl, surf, xtl, q, cap_t),
-            lambda: l2t_surface_plain(kl, surf, xtl, q, cap_t), None,
-            l2t_surface_work(kl, B * cap_t * ns, ns, B, cap_t))
+            lambda a=a: l2t_surface(*a),
+            lambda dtype=None, a=a: l2t_surface_plain(*_cast(a, dtype)),
+            None, l2t_surface_work(kl, ns, B, cap_t, int(cnt_t.sum())))
 
     m2l = m2l_kernel(kf) if kernel is None else None
     if m2l == "m2l_grid_blocked":

@@ -33,12 +33,12 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every exported launcher: pointers, ints, then the
 # stream; each returns a cudaError_t as int.  The two `_smem` queries
-# take nothing, the two `_occupancy` queries no stream.  The pair
-# kernels take the formula index of csrc/ukernels.cuh (ops/uker.py
-# FORMULA) first among the ints.
+# take nothing, the `_occupancy` queries no stream.  The pair kernels
+# take the formula index of csrc/ukernels.cuh (ops/uker.py FORMULA)
+# first among the ints.
 SIGNATURES = {
-    "sctl_surface_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sctl_l2t_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_surface_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_l2t_surface": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_m2l_grid_blocked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sctl_m2l_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sctl_p2p_stencil": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -52,6 +52,8 @@ SIGNATURES = {
     "sctl_m2l_grid_smem": [],
     "sctl_p2p_stencil9_occupancy": [_I, _I, _I, _P, _P],
     "sctl_p2p_direct_occupancy": [_I, _I, _P, _P],
+    "sctl_surface_pair_occupancy": [_I, _I, _P, _P],
+    "sctl_l2t_surface_occupancy": [_I, _I, _I, _P, _P],
 }
 
 _lib = None

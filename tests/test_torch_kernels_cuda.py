@@ -12,9 +12,12 @@ tree path; the direct sum `p2p` for all eight formulas in float32 and
 float64, also at few targets and at as many targets as sources, with
 its float64 rsqrt held to 4 ulp; the slab stencil `p2p_stencil9` on
 compacted slabs at ragged widths and counts and at its widest block;
-KIFMMs on the card against the CPU: p=6 and p=8 at depth 4, a depth-2
-one, whose near field runs through the halo stencil, and a Stokes
-double layer.
+the shared-surface kernels `surface_pair` and `l2t_surface` over each
+box's real slots by per-box counts, for every formula at p = 6 and 8,
+at the wide capacities of phase 7 and of depth-3 trees, at 128 and
+32,768 boxes, repeated bit for bit; KIFMMs on the card against the
+CPU: p=6 and p=8 at depth 4, a depth-2 one, whose near field runs
+through the halo stencil, and a Stokes double layer.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -699,3 +702,178 @@ def test_p2p_stencil9_repeats_bit_for_bit(cuda_device):
     a, b = p2p_stencil9(*args), p2p_stencil9(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# ---- the redesigned shared-surface kernels: S2M and L2T over each
+# box's real slots by per-box counts ------------------------------------
+
+S2M = ["Laplace3D-FxU", "Laplace3D-DxU", "Stokes3D-FxU", "Stokes3D-DxU",
+       "Stokes3D-FSxU"]
+L2T = ["Laplace3D-FxU", "Laplace3D-FxdU", "Stokes3D-FSxU"]
+
+
+def _surface(p):
+    """The KIFMM's check surface of a unit box at order p (ns = 152 at
+    p = 6, 296 at p = 8, not a multiple of 32), on the card."""
+    from sctl_tpu_torch.fmm.kifmm import cube_surface
+    return torch.as_tensor(np.float32(cube_surface(p) * (2.95 / 2)),
+                           device="cuda")
+
+
+def _box_counts(rng, B, cap):
+    cnt = rng.integers(0, cap + 1, B)
+    cnt[:4] = (0, 1, cap, cap)
+    return torch.as_tensor(cnt.astype(np.int32), device="cuda")
+
+
+def _s2m_ragged(ker, seed, B=128, cap=29, p=6):
+    """A surface_pair case at ragged widths with source counts of 0, 1
+    and cap among random ones; the slots past the counts hold nonzero
+    densities, which the kernel must skip."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    nrm = rng.normal(size=(3, B * cap))
+    nrm /= np.linalg.norm(nrm, axis=0)
+    return (ker, _surface(p), f32(rng.random((3, B * cap)) - 0.5),
+            f32(rng.normal(size=(ker.kdim0, B * cap))), cap,
+            f32(nrm) if ker.needs_normal else None,
+            _box_counts(rng, B, cap))
+
+
+def _l2t_ragged(ker, seed, B=128, cap_t=37, p=6):
+    """An l2t_surface case at ragged widths (cap_t 37, odd, so a thread
+    of two targets holds one past a box's end) with target counts of 0,
+    1 and cap_t among random ones."""
+    rng = np.random.default_rng(seed)
+    surf = _surface(p)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device="cuda")
+    return (ker, surf, f32(rng.random((3, B * cap_t)) - 0.5),
+            f32(rng.normal(size=(ker.kdim0, surf.shape[0], B))), cap_t,
+            _box_counts(rng, B, cap_t))
+
+
+def _check_l2t_zeros(out, args):
+    cap_t, cnt = args[4], args[5]
+    pad = (torch.arange(cap_t, device="cuda") >= cnt[:, None]).reshape(-1)
+    assert (out[:, pad] == 0).all()
+
+
+@pytest.mark.parametrize("p", [6, 8])
+@pytest.mark.parametrize("name", S2M)
+def test_surface_pair_ragged_matches_plain(cuda_device, name, p):
+    """csrc/surface_pair.cu for the five S2M formulas at p = 6 and 8
+    (ns 152 and 296), B = 128."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import surface_pair, surface_pair_plain
+    args = _s2m_ragged(KERNELS[name], 30, p=p)
+    out = surface_pair(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (KERNELS[name].kdim1, args[1].shape[0], 128)
+    _check_redesigned(out, surface_pair_plain, args)
+
+
+# the capacities of phase 7 (344) and of depth-3 trees (432) for the
+# formulas whose route rule admits them, and one the rule leaves to the
+# U list (the kernel takes any capacity)
+WIDE = ([(k, c) for k in S2M for c in (344, 432)
+         if k == "Laplace3D-FxU"] + [("Stokes3D-DxU", 432)])
+
+
+@pytest.mark.parametrize("name,cap", WIDE)
+def test_surface_pair_wide_cap_matches_plain(cuda_device, name, cap):
+    """Capacities of several tiles at p = 8."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import (surface_pair, surface_pair_fits,
+                                       surface_pair_plain)
+    ker = KERNELS[name]
+    assert surface_pair_fits(ker, cap) == (name == "Laplace3D-FxU")
+    args = _s2m_ragged(ker, 31, cap=cap, p=8)
+    out = surface_pair(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, surface_pair_plain, args)
+
+
+@pytest.mark.parametrize("p", [6, 8])
+@pytest.mark.parametrize("name", L2T)
+def test_l2t_surface_ragged_matches_plain(cuda_device, name, p):
+    """csrc/l2t_surface.cu for the three L2T formulas at p = 6 and 8,
+    B = 128; the target slots past the counts are exactly zero."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import l2t_surface, l2t_surface_plain
+    args = _l2t_ragged(KERNELS[name], 32, p=p)
+    out = l2t_surface(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, l2t_surface_plain, args)
+    _check_l2t_zeros(out, args)
+
+
+@pytest.mark.parametrize("name", L2T)
+def test_l2t_surface_wide_cap_matches_plain(cuda_device, name):
+    """Phase 7's widths: cap_t 328 at ns 296 (3 boxes a block)."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import l2t_surface, l2t_surface_plain
+    args = _l2t_ragged(KERNELS[name], 37, B=128, cap_t=328, p=8)
+    out = l2t_surface(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, l2t_surface_plain, args)
+    _check_l2t_zeros(out, args)
+
+
+@pytest.mark.parametrize("stage", ["surface_pair", "l2t_surface"])
+def test_surface_kernels_many_boxes_match_plain(cuda_device, stage):
+    """B = 32,768 boxes (phase 7's depth 5) at phase 4's widths (cap_s
+    56, cap_t 48, ns 152), Laplace3D-FxU."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops import sl
+    if stage == "surface_pair":
+        args = _s2m_ragged(Laplace3D_FxU, 33, B=32768, cap=56)
+    else:
+        args = _l2t_ragged(Laplace3D_FxU, 33, B=32768, cap_t=48)
+    out = getattr(sl, stage)(*args)
+    torch.cuda.synchronize()
+    _check_redesigned(out, getattr(sl, stage + "_plain"), args)
+
+
+def test_surface_kernels_repeat_bit_for_bit(cuda_device):
+    """One launch repeated gives the same bits: fixed order, no atomics."""
+    from sctl_tpu_torch.ops import Stokes3D_DxU, Stokes3D_FSxU
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    s2m = _s2m_ragged(Stokes3D_DxU, 34, p=8)
+    l2t = _l2t_ragged(Stokes3D_FSxU, 34, p=8)
+    a, b = surface_pair(*s2m), surface_pair(*s2m)
+    c, d = l2t_surface(*l2t), l2t_surface(*l2t)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_surface_kernels_no_counts_is_every_slot(cuda_device):
+    """Counts of None are every slot: the same bits as counts of cap."""
+    from sctl_tpu_torch.ops import Stokes3D_FSxU, Stokes3D_FxU
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    s2m = _s2m_ragged(Stokes3D_FxU, 35)
+    full = torch.full_like(s2m[6], s2m[4])
+    a = surface_pair(*s2m[:6], full)
+    b = surface_pair(*s2m[:6], None)
+    l2t = _l2t_ragged(Stokes3D_FSxU, 35)
+    c = l2t_surface(*l2t[:5], torch.full_like(l2t[5], l2t[4]))
+    d = l2t_surface(*l2t[:5], None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_surface_layouts(cuda_device):
+    """The layouts the occupancy API reports: 5 and 10 surface points a
+    lane at p = 6 and 8 in one pass, 4 and 2 boxes a warp (the output
+    stage's budget), and more than one block an SM for both kernels at
+    phase 4's and phase 7's widths (cap_t 48 and 328)."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops.sl import l2t_surface_layout, surface_pair_layout
+    for ns, mc, k, cap_t in ((152, 5, 4, 48), (296, 10, 2, 328)):
+        lay = surface_pair_layout(Laplace3D_FxU, ns)
+        assert lay["points_per_lane"] == mc and lay["passes"] == 1
+        assert lay["boxes_per_warp"] == k
+        assert lay["blocks_per_sm"] > 1
+        assert l2t_surface_layout(Laplace3D_FxU, ns,
+                                  cap_t)["blocks_per_sm"] > 1
