@@ -51,7 +51,9 @@ Phases, each printed on flushed lines with the seconds since start:
             2, whose 64 boxes take S2M and L2T through the U-list kernel
             and, at about 700 points a box, the near field through the
             halo stencil; error at 1000 sampled targets against a float64
-            direct sum on the card (bar 2e-4, as phase 4).
+            direct sum on the card (bar 2e-4, as phase 4); then
+            ParticleFMM.eval_tensor (device tensors in and out) against
+            eval on the same densities (bar 1e-6 of the maximum).
 5.  bie      the Stokes BIE solve of bench.py's bench_bie at its size:
             BoundaryIntegralOp(Stokes3D_DxU) at tolerance 1e-6 on
             torus_patches(nu=48, nv=20, q=6, R=2, r=0.5), 103,680
@@ -72,13 +74,39 @@ Phases, each printed on flushed lines with the seconds since start:
             unless the residual recomputed with one more apply is at most
             1.5e-6, the error at 16 interior points against the exact
             Stokeslet at most 1e-4 (tests/test_bie.py:244) and the solve
-            takes fewer than 120 iterations.
+            takes fewer than 120 iterations.  The U-list cases also run
+            the kernel's float64 build against the plain version in
+            float64 (bar 1e-12).  Then bench.py's host-loop baseline
+            (:285-292): the host gmres on b (1 + 5e-7), tol 1e-6, at
+            most 120 iterations, its seconds against the device solve's
+            (bench.py's vs_baseline); and its recycling legs
+            (:313-346): gmres_device(max_iter=30, restarts=4,
+            recycle=True) on b, then the Stokeslet at (0, 6, 0.5) as a
+            second right-hand side, solved plain and with the recycled
+            stack as precond (iterations printed, no bar).  Each of
+            these three residuals recomputed at most 1.5e-6.
+5f. bie f64  bench.py's bench_bie_f64 (:105-186) on the card in
+            float64: torus_patches(nu=16, nv=8, q=6), 13,824 unknowns,
+            quadrature tolerance 1e-6, the far field through the
+            adaptive FMM (cutoff 15,000 far nodes) on phase 5's
+            operator tables, boundary data from the float64 p2p; the
+            host gmres to a 1e-10 relative residual (at most 200
+            iterations).  Setup seconds by stage, apply seconds (median
+            of 5), solve seconds, iterations, the residual as returned
+            (at most 1e-10) and recomputed (at most 2e-10), the
+            interior error as phase 5 (at most 1e-4), and the float64
+            U-list kernel: launched every apply, its time on one
+            apply's inputs against its bound and its DP-instruction
+            floor (cuobjdump), its error against its plain version in
+            float64 (bar 1e-12).
 
 6a. direct  ParticleFMM(float32) on 39,000 points from
             numpy.random.default_rng(3), one run for each of the eight
             kernels (unit normals for the double layers): the direct path
-            through the p2p kernel.  At 1000 sampled targets the float32
-            result against the float64 p2p on the card (bar 5e-6,
+            through the p2p kernel (for Stokes3D-DxU also
+            ParticleFMM.eval_tensor against eval, bar 1e-6).  At 1000
+            sampled targets the float32 result against the float64 p2p
+            on the card (bar 5e-6,
             tests_tpu/test_p2p_accuracy.py:45), and the float64 p2p
             against its plain version (bar 1e-12).  p2p's block for each
             formula in both types (targets a thread, blocks an SM from
@@ -149,8 +177,10 @@ Phases, each printed on flushed lines with the seconds since start:
 
 Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched.  Then
-one JSON line with each kernel's numbers (launches summed over phases
-4 to 7), the card's name and power limit, the run's wall time, and the
+a line with the BIE legs' figures (phase 5's baseline and recycling,
+phase 5f), one JSON line with each kernel's numbers (launches summed
+over phases 4 to 7; p2p_ulist's float64 build under "f64"), the
+card's name and power limit, the run's wall time, and the
 closing JSON line.  Any failed check raises, so the script exits
 non-zero and prints no closing line.
 """
@@ -216,6 +246,18 @@ BIE_MAX_ITER = 120
 # p2p_ulist on one BIE apply's own inputs against float64: at most this
 # times the float32 plain version's error on the same inputs
 ULIST_MAIN_RATIO = 1.1
+# bench.py's host-loop baseline (:285-292) and recycling legs (:313-346)
+BIE_HOST_SCALE = 1.0 + 5e-7
+BIE_RECYCLE_M, BIE_RECYCLE_RESTARTS = 30, 4
+BIE_SRC2 = (0.0, 6.0, 0.5)
+# phase 5f, bench.py's bench_bie_f64 (:105-186) in float64 on the card
+F64_NU, F64_NV = 16, 8
+F64_CUTOFF = 15_000
+F64_TOL = 1e-10
+F64_MAX_ITER = 200
+F64_RESID_BAR = 2e-10
+# ParticleFMM.eval_tensor against eval, float32
+EVAL_TENSOR_BAR = 1e-6
 P8_N = 10_000_000
 P8 = 8
 RUNG2_N = 4000
@@ -701,7 +743,26 @@ def phase_particle(torch, counters):
     if not _tree_kernels_launched(kf, launches):
         raise SystemExit(f"chip_smoke: the depth-2 path did not launch "
                          f"its kernels: {launches}")
+    eval_tensor_check(torch, fmm, {"src": f}, u, "particle")
     return launches
+
+
+def eval_tensor_check(torch, fmm, dens, u, label):
+    """ParticleFMM.eval_tensor (device tensors in and out) against eval
+    on the same densities: at most EVAL_TENSOR_BAR of the maximum."""
+    import numpy as np
+    ut = fmm.eval_tensor("trg", {k: torch.as_tensor(
+        v, dtype=fmm.dtype, device="cuda") for k, v in dens.items()})
+    torch.cuda.synchronize()
+    if not (ut.is_cuda and ut.shape == u.shape):
+        raise SystemExit(f"chip_smoke: {label}: eval_tensor gave "
+                         f"{ut.device} {tuple(ut.shape)}")
+    diff = _sample_err(ut.cpu().numpy(), u)
+    log(f"{label}: ParticleFMM.eval_tensor against eval {diff:.3e} of the "
+        f"max (bar {EVAL_TENSOR_BAR:g})")
+    if not (np.isfinite(diff) and diff <= EVAL_TENSOR_BAR):
+        raise SystemExit(f"chip_smoke: {label}: eval_tensor differs from "
+                         f"eval by {diff:.3e}")
 
 
 def _bie_setup(torch):
@@ -753,7 +814,7 @@ def phase_bie(torch, counters):
     import numpy as np
     from sctl_tpu_torch.kernel_cases import (rel_max_err, ulist_cases,
                                              ulist_main_work)
-    from sctl_tpu_torch.linalg import gmres_device
+    from sctl_tpu_torch.linalg import gmres, gmres_device
     from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
                                     direct_eval_blocked)
     from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
@@ -761,9 +822,13 @@ def phase_bie(torch, counters):
     lst, op = _bie_setup(torch)
     af = op._far_fmm
 
-    # the fifth kernel case: p2p_ulist at the far FMM's widths
+    # the fifth kernel case: p2p_ulist at the far FMM's widths, the
+    # float32 build also against float64, the float64 build at 1e-12
     cases = ulist_cases(af)
-    crows = phase_kernels(torch, None, cases, f64_bar=DIRECT_BAR)
+    crows = phase_kernels(torch, None, {
+        k: v for k, v in cases.items() if "[" not in k}, f64_bar=DIRECT_BAR)
+    crows.update(phase_kernels(torch, None, {
+        k: v for k, v in cases.items() if "[" in k}))
 
     X, _, _ = lst.get_node_coord()
     src = np.array([[6.0, 0.0, 0.0]])
@@ -814,23 +879,71 @@ def phase_bie(torch, counters):
     resid = float(torch.linalg.vector_norm(A(x) - b)
                   / torch.linalg.vector_norm(b))
     n_apply += 1
-    launches = read(counters)
     log(f"bie solve: s {['%.3f' % t for t in solve_all]}, median "
         f"{solve_s:.3f} s; iterations {iters} (repeats "
         f"{[int(r[1]) for r in solves]}), residual {resid_est:.3e} as "
         f"returned, {resid:.3e} recomputed (bar {BIE_RESID_BAR:g})")
 
-    th = np.linspace(0, 2 * np.pi, 17)[:-1]
-    xt_int = np.stack([(2.0 + 0.15 * np.cos(7 * th)) * np.cos(th),
-                       (2.0 + 0.15 * np.cos(7 * th)) * np.sin(th),
-                       0.15 * np.sin(7 * th)], 1)
-    sigma = x.double().reshape(-1, 3).cpu().numpy()
-    Ff = lst.get_far_field_density(sigma) * op.wf[:, None]
-    u_num = direct_eval_blocked(Stokes3D_DxU, c64(xt_int), c64(op.Xf),
-                                c64(Ff), ns=c64(op.Xnf)).cpu().numpy()
-    u_ex = direct_eval_blocked(Stokes3D_FxU, c64(xt_int), c64(src),
-                               c64(qs)).cpu().numpy()
-    interior = float(np.abs(u_num - u_ex).max() / np.abs(u_ex).max())
+    # bench.py's host-loop baseline (:285-292): the host gmres, one
+    # projection vector read back an Arnoldi step, on b (1 + 5e-7)
+    bh = b * BIE_HOST_SCALE
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x_h, it_h = gmres(A, bh, tol=BIE_TOL, max_iter=BIE_MAX_ITER)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    resid_h = rel_resid(torch, A, x_h, bh)
+    n_apply += it_h + 1
+    log(f"bie host loop: gmres {host_s:.3f} s, {it_h} iterations, "
+        f"residual {resid_h:.3e} recomputed (bar {BIE_RESID_BAR:g}); host "
+        f"seconds / device-solve seconds {host_s / solve_s:.3f} (bench.py's "
+        f"vs_baseline)")
+
+    # the recycling legs (:313-346): GMRES(30) with 4 restarts collecting
+    # one (U, Qt) pair a cycle on b, then a second right-hand side (the
+    # Stokeslet at (0, 6, 0.5)) plain and with the stack as precond
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, it_r1, _, stack = gmres_device(
+        A, b, tol=BIE_TOL, max_iter=BIE_RECYCLE_M,
+        restarts=BIE_RECYCLE_RESTARTS, recycle=True)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t
+    b2 = direct_eval_blocked(Stokes3D_FxU, c64(X), c64([BIE_SRC2]),
+                             c64(qs)).reshape(-1).float()
+    legs = {}
+    for leg, pre in (("plain", None), ("recycled", stack)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x2, it2, err2 = gmres_device(A, b2, tol=BIE_TOL,
+                                     max_iter=BIE_MAX_ITER, precond=pre)
+        torch.cuda.synchronize()
+        legs[leg] = dict(iterations=int(it2),
+                         seconds=time.perf_counter() - t,
+                         resid_returned=float(err2) / float(
+                             torch.linalg.vector_norm(b2)),
+                         resid=rel_resid(torch, A, x2, b2))
+        n_apply += int(it2) + 2
+    n_apply += it_r1 + 1
+    log(f"bie recycling: recycle=True solve {rec_s:.3f} s, {it_r1} "
+        f"iterations in cycles of {BIE_RECYCLE_M}, stack "
+        f"{tuple(stack[0].shape)}; second right-hand side " + ", ".join(
+            f"{k} {v['iterations']} iterations, {v['seconds']:.3f} s, "
+            f"residual {v['resid_returned']:.3e} returned, "
+            f"{v['resid']:.3e} recomputed" for k, v in legs.items())
+        + f" (bar {BIE_RESID_BAR:g}; the JAX package's TPU record "
+        f"[22, 29], BENCH_r05)")
+    del stack
+    launches = read(counters)
+    baseline = dict(host_s=host_s, host_iterations=it_h,
+                    host_resid=resid_h, vs_baseline=host_s / solve_s,
+                    recycle_iterations=it_r1,
+                    recycle_iters_second_rhs=[legs["plain"]["iterations"],
+                                              legs["recycled"]["iterations"]],
+                    recycle_resid_second_rhs=[legs["plain"]["resid"],
+                                              legs["recycled"]["resid"]])
+
+    interior = interior_error(torch, lst, op, x, src, qs)
     log(f"bie check: interior rel err vs exact Stokeslet {interior:.3e} "
         f"(bar {BIE_INTERIOR_BAR:g}); peak device memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -878,6 +991,10 @@ def phase_bie(torch, counters):
         raise SystemExit(f"chip_smoke: BIE solve failed: residual "
                          f"{resid:.3e}, interior {interior:.3e}, "
                          f"iterations {iters}")
+    resids = [resid_h] + [v["resid"] for v in legs.values()]
+    if not all(np.isfinite(r) and r <= BIE_RESID_BAR for r in resids):
+        raise SystemExit(f"chip_smoke: BIE host-loop or recycling solve "
+                         f"failed: residuals {resids}")
     if not launches["p2p_ulist"] > 0:
         raise SystemExit("chip_smoke: the BIE path did not launch "
                          "p2p_ulist")
@@ -891,7 +1008,170 @@ def phase_bie(torch, counters):
                               plain_ms=v["plain_ms"],
                               bound_ms=v["bound_ms"])
                       for k, v in crows.items()})
-    return launches, row
+    row["f64"] = dict(crows["Stokes3D-DxU[f64]"])
+    return launches, row, baseline, af._ops
+
+
+def rel_resid(torch, A, x, b):
+    """|A x - b| / |b|, recomputed with one more apply."""
+    return float(torch.linalg.vector_norm(A(x) - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def interior_error(torch, lst, op, x, src, qs):
+    """bench.py's interior check: the double layer of the solution,
+    through its far-field quadrature in float64, at 16 points of a ring
+    inside the torus, against the exact Stokeslet -> relative max
+    error."""
+    import numpy as np
+    from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
+                                    direct_eval_blocked)
+    c64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                    device="cuda")
+    th = np.linspace(0, 2 * np.pi, 17)[:-1]
+    xt_int = np.stack([(2.0 + 0.15 * np.cos(7 * th)) * np.cos(th),
+                       (2.0 + 0.15 * np.cos(7 * th)) * np.sin(th),
+                       0.15 * np.sin(7 * th)], 1)
+    sigma = x.double().reshape(-1, 3).cpu().numpy()
+    Ff = lst.get_far_field_density(sigma) * op.wf[:, None]
+    u_num = direct_eval_blocked(Stokes3D_DxU, c64(xt_int), c64(op.Xf),
+                                c64(Ff), ns=c64(op.Xnf)).cpu().numpy()
+    u_ex = direct_eval_blocked(Stokes3D_FxU, c64(xt_int), c64(src),
+                               c64(qs)).cpu().numpy()
+    return float(np.abs(u_num - u_ex).max() / np.abs(u_ex).max())
+
+
+def phase_bie_f64(torch, counters, ops5):
+    """5f: bench.py's bench_bie_f64 (:105-186) on the card in float64:
+    the Stokes double layer on torus_patches(nu=16, nv=8, q=6), 13,824
+    unknowns, quadrature tolerance 1e-6, the far field through the
+    adaptive FMM (cutoff 15,000 far nodes) on phase 5's operator tables,
+    solved by the host gmres to a 1e-10 relative residual."""
+    import contextlib
+    import io
+    import numpy as np
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.kernel_cases import rel_max_err, ulist_main_work
+    from sctl_tpu_torch.linalg import gmres
+    from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
+                                    direct_eval_blocked)
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    f64 = torch.float64
+    reset(counters)
+    p2p_ulist.launches_f64 = 0
+    t = time.perf_counter()
+    lst = torus_patches(nu=F64_NU, nv=F64_NV, q=6, R=2.0, r=0.5)
+    op = BoundaryIntegralOp(Stokes3D_DxU, device="cuda", dtype=f64)
+    op.set_accuracy(BIE_TOL)
+    op.add_elem_list(lst)
+    op.far_fmm_cutoff = F64_CUTOFF
+    shared = (ops5.ker_trans.name == "Stokes3D-FSxU" and ops5.p == op.far_fmm_p
+              and ops5.rcond == 1e-9)
+    op.far_fmm_operators = ops5 if shared else None
+    op.setup()
+    setup_s = time.perf_counter() - t
+    af = op._far_fmm
+    if af is None or af.dtype != f64:
+        raise SystemExit("chip_smoke: the float64 BIE far field did not "
+                         "take the adaptive FMM in float64")
+    log(f"bie f64 setup: {setup_s:.2f} s ("
+        + ("phase 5's operator tables" if shared else
+           "phase 5's tables are of another (kernel, p, rcond): built")
+        + "); by stage s " + ", ".join(
+            f"{k} {v:.2f}" for k, v in op.setup_times.items())
+        + f"; unknowns {op.dim(0)}, far nodes {len(op.Xf)}, leaves "
+        f"{af.n_leaf}, levels {af.L}, near pairs {len(op.near_pairs)}; "
+        f"near engine s " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in op._near_prof.items()))
+
+    X, _, _ = lst.get_node_coord()
+    src = np.array([[6.0, 0.0, 0.0]])
+    qs = np.array([[1.0, -0.5, 0.8]])
+    c64 = lambda a: torch.as_tensor(a, dtype=f64, device="cuda")
+    b = direct_eval_blocked(Stokes3D_FxU, c64(X), c64(src),
+                            c64(qs)).reshape(-1)
+
+    def A(sig):
+        return op.compute_potential_tensor(sig).reshape(-1) - 0.5 * sig
+
+    sig0 = torch.randn(b.shape, dtype=f64, device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(1))
+    A(sig0)                                                 # warm
+    apply_s, apply_all = _median_time(
+        torch, lambda rep: A(sig0 * (1.0 + 1e-6 * (rep + 1))), 5)
+    n64 = p2p_ulist.launches_f64
+    A(sig0)
+    per_apply = p2p_ulist.launches_f64 - n64
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        x, iters = gmres(A, b, tol=F64_TOL, max_iter=F64_MAX_ITER,
+                         verbose=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    last = out.getvalue().strip().splitlines()[-1]
+    resid_est = float(last.split()[-1]) / float(torch.linalg.vector_norm(b))
+    resid = rel_resid(torch, A, x, b)
+    launches = read(counters)
+    launches_f64 = p2p_ulist.launches_f64
+    interior = interior_error(torch, lst, op, x, src, qs)
+    log(f"bie f64: apply s {['%.4f' % a for a in apply_all]}, median "
+        f"{apply_s:.4f} s; solve {solve_s:.3f} s, {iters} iterations "
+        f"(host gmres to {F64_TOL:g}), residual {resid_est:.3e} as "
+        f"returned (its last line '{last}'), {resid:.3e} recomputed (bar "
+        f"{F64_RESID_BAR:g}); interior rel err vs exact Stokeslet "
+        f"{interior:.3e} (bar {BIE_INTERIOR_BAR:g}); p2p_ulist float64 "
+        f"launches {launches_f64} ({per_apply} an apply), p2p launches "
+        f"{launches['p2p']}")
+
+    # the float64 U-list kernel alone on one apply's inputs
+    fp = af.pad_density(torch.randn((len(op.Xf), 3), dtype=f64,
+                                    device="cuda"))
+    args = af.ulist_args(fp)
+    ul_ms = cuda_ms(torch, lambda: p2p_ulist(af.ker_s2t, *args), 10)
+    plain_ms = cuda_ms(torch, lambda: p2p_ulist_plain(af.ker_s2t, *args), 3)
+    out_k = p2p_ulist(af.ker_s2t, *args)
+    ref = p2p_ulist_plain(af.ker_s2t, *args)
+    err = rel_max_err(out_k, ref)
+    abs_err = float((out_k - ref).abs().max())
+    work = ulist_main_work(af)
+    b_ms, b_by = bound(work)
+    floor = issue_floor("p2p_ulist", "p2p_ulist_kernelIdLi4E",
+                        work["pairs"], "bie f64", f64=True) or {}
+    log(f"bie f64 U list: p2p_ulist float64 {ul_ms:.4f} ms per apply, "
+        f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: operations "
+        f"{1e3 * work['pairs'] * work['pair_flops'] / F64_FLOPS:.4f} ms at "
+        f"34 TFLOP/s, bytes {1e3 * work['bytes'] / HBM_BPS:.4f} ms), pairs "
+        f"{work['pairs']}; against its plain version in float64 {err:.3e} "
+        f"(bar {ORACLE_BAR:g})")
+    del fp, args, out_k, ref
+    if not (np.isfinite(resid) and resid <= F64_RESID_BAR
+            and np.isfinite(resid_est) and resid_est <= F64_TOL
+            and np.isfinite(interior) and interior <= BIE_INTERIOR_BAR
+            and iters < F64_MAX_ITER):
+        raise SystemExit(f"chip_smoke: float64 BIE solve failed: residual "
+                         f"{resid:.3e} ({resid_est:.3e} returned), interior "
+                         f"{interior:.3e}, iterations {iters}")
+    if not (per_apply >= 1 and launches_f64 >= iters + 1
+            and err < ORACLE_BAR):
+        raise SystemExit(f"chip_smoke: float64 BIE U list: {per_apply} "
+                         f"launches an apply, {launches_f64} in the phase, "
+                         f"error {err:.3e}")
+    row = dict(main_path_ms=ul_ms, main_path_plain_ms=plain_ms,
+               main_path_bound_ms=b_ms, main_path_bound_by=b_by,
+               main_path_max_rel_err=err, main_path_max_abs_err=abs_err,
+               launches=launches_f64, launches_per_apply=per_apply,
+               pairs=work["pairs"], **floor)
+    summary = dict(setup_s=setup_s, setup_by_stage=op.setup_times,
+                   near_engine=op._near_prof,
+                   shared_tables=shared, apply_s=apply_s, solve_s=solve_s,
+                   iterations=iters, resid_returned=resid_est,
+                   resid=resid, interior=interior, unknowns=op.dim(0))
+    return launches, row, summary
 
 
 def _sample_err(u, u_ref):
@@ -948,6 +1228,8 @@ def phase_direct(torch, counters):
                 and err32 < DIRECT_BAR and err64 < ORACLE_BAR):
             raise SystemExit(f"chip_smoke: direct path of {name} failed: "
                              f"{err32:.3e}, {err64:.3e}, {launches}")
+        if name == "Stokes3D-DxU":
+            eval_tensor_check(torch, fmm, {"src": f}, u, f"direct {name}")
     log("direct: p2p's block a formula, float32 / float64: " + ", ".join(
         f"{name} " + " / ".join(
             "{targets_per_thread} targets a thread x {threads}, "
@@ -1733,7 +2015,12 @@ def main():
     del kf, xs, f
     torch.cuda.empty_cache()
     l4b = phase_particle(torch, all_counters)
-    l5, rows["p2p_ulist"] = phase_bie(torch, all_counters)
+    l5, rows["p2p_ulist"], bie_baseline, ops5 = phase_bie(torch,
+                                                          all_counters)
+    torch.cuda.empty_cache()
+    l5f, ulist_f64, bie_f64 = phase_bie_f64(torch, all_counters, ops5)
+    del ops5
+    rows["p2p_ulist"]["f64"].update(ulist_f64)
     main_rows["p2p_ulist"] = dict(rows["p2p_ulist"], launches=0)
     torch.cuda.empty_cache()
     l6a, rows["p2p"] = phase_direct(torch, all_counters)
@@ -1756,7 +2043,7 @@ def main():
     main_rows["p2p_stencil"]["stokes_6c"] = st6c
     for name in ROUTES:
         main_rows[name]["launches"] += sum(
-            lc.get(name, 0) for lc in (l4b, l5, l6a, l6b, l6c, l7))
+            lc.get(name, 0) for lc in (l4b, l5, l5f, l6a, l6b, l6c, l7))
     log("kernels: launches over phases 4 to 7: " + ", ".join(
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
@@ -1788,7 +2075,9 @@ def main():
                             "main_path_bound_cuda_core_ms",
                             "main_path_bound_tensor_core_ms", "levels",
                             "phase7", "rounding_spread",
-                            "rounding_spread_6c")}))
+                            "rounding_spread_6c", "f64")}))
+    log("bie legs: " + json.dumps({"bie": bie_baseline,
+                                   "bie_f64": bie_f64}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -7,8 +7,11 @@ the Stokes BIE solve: the Stokes kernels, the adaptive-tree FMM, the
 patch geometry and device near quadrature, the boundary integral
 operator and GMRES.  The third holds `ParticleFMM` over all eight
 kernels: the direct sum and the uniform KIFMM for the six kernels with
-a tree path.  The six TPU kernels on these paths are hand-written CUDA
-under `csrc/`.
+a tree path.  Later slices hold `ParticleFMM(accuracy=8)`, the Krylov
+layer (`linalg`: the host and device GMRES, Krylov recycling, flexible
+and longdouble GMRES), `ParticleFMM.eval_tensor` and the BIE solve in
+float64 on the card.  Every TPU kernel on these paths is hand-written
+CUDA under `csrc/`.
 """
 
 from .config import set_precision

@@ -74,21 +74,22 @@ class BoundaryIntegralOp:
     U = op.compute_potential(sigma)    # numpy in and out
     U = op.compute_potential_tensor(sigma)   # device tensors
 
-    device: "cuda" (default) or "cpu"; dtype: torch.float32 (the card)
-    or torch.float64.  Settable before setup: `far_fmm_cutoff` (far
-    nodes from which the adaptive FMM takes the far field), `far_fmm_p`
-    (its order) and `far_fmm_operators` (its KIFMMOperators, built cold
-    when None).
+    device: "cuda" (default) or "cpu"; dtype: torch.float32 or
+    torch.float64 on either (the far field's U list and the direct sum
+    have float64 builds on the card).  `trg_normal_dot_prod` is
+    accepted and not read, as in the JAX package.  Settable before
+    setup: `far_fmm_cutoff` (far nodes from which the adaptive FMM
+    takes the far field), `far_fmm_p` (its order) and
+    `far_fmm_operators` (its KIFMMOperators, built cold when None).
     """
 
-    def __init__(self, kernel: KernelSpec, device=None,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, kernel: KernelSpec, trg_normal_dot_prod=False,
+                 device=None, dtype: torch.dtype = torch.float32):
         from ..fmm.fmm import DIRECT_CUTOFF
         self.kernel = kernel
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError(
-                f"the BIE operator on the card runs float32, not {dtype}")
+        if dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(f"BoundaryIntegralOp dtype {dtype}")
         self.dtype = dtype
         self.tol = 1e-8
         self.elem_lists: List[ElementListBase] = []
@@ -130,6 +131,12 @@ class BoundaryIntegralOp:
         """Nodal vector times sqrt(w), w the node quadrature weights."""
         w = np.sqrt(np.abs(self._node_w()))
         return np.asarray(v).reshape(len(w), -1) * w[:, None]
+
+    def inv_sqrt_scaling(self, v):
+        """Nodal vector divided by sqrt(w), the inverse of
+        `sqrt_scaling`."""
+        w = np.sqrt(np.abs(self._node_w()))
+        return np.asarray(v).reshape(len(w), -1) / w[:, None]
 
     # -- setup ------------------------------------------------------------
     def setup(self):

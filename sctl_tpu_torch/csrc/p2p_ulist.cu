@@ -1,4 +1,4 @@
-// Per-box U-list P2P over compacted source lists.
+// Per-box U-list P2P over compacted source lists, float and double.
 //
 // Replaces: sctl_tpu/ops/pallas_p2p.py `p2p_ulist` (pl.pallas_call at
 // :496, body `_ulist_kernel_body`), which sums each box's targets over
@@ -12,7 +12,7 @@
 //                  K(xt[g, :, t] - xs[:, j]) f[fidx[j], :]
 // with r2 = 0 masked; slots at or past tcnt[g] are written 0.  Unscaled.
 // The padded slab's slots carry zero density, so leaving them out
-// changes only the order of the f32 sums.  The kernel formula is a
+// changes only the order of the sums.  The kernel formula is a
 // template parameter (ukernels.cuh): the six kernels with a tree path
 // (the BIE's Stokes3D-DxU, and the uniform KIFMM's S2M and L2T below
 // the shared-surface kernels' widths); the double layers read the
@@ -32,13 +32,23 @@
 // threads share each group's sources (thread = group + ng * share).
 // The block stages its sources 256 at a time in shared memory
 // (coordinates, normals, densities through fidx); each thread sums its
-// share of a tile into fresh f32 partial sums and adds them to its
+// share of a tile into fresh partial sums and adds them to its
 // totals; the formula is ukernels.cuh's lean form (flush-to-zero
 // rsqrt, fused sums).  The shares of a group meet in shared memory by a
 // halving tree in a fixed order: no atomics, so a launch repeats bit
 // for bit.
 // Per-pair differences in the target box's frame, not moment
 // expansions, keep float32 exact to the pair's scale.
+//
+// The double build (the BIE's far field in float64 on the card) is the
+// same kernel on Real = double: the lean double rsqrt (a MUFU seed and two
+// Newton steps, ukernels.cuh), fresh partial sums a tile and the fixed
+// halving tree as in float, so a launch repeats bit for bit.  Its pair
+// loop is bound by the DP pipe (64 lanes a clock per SM, against 128 for
+// float's issue), about 2x the bound of its operations at 34 TFLOP/s;
+// chip_smoke.py reads its DP instructions a pair from the SASS.  Static
+// shared memory doubles with the type: 24 KB a block for Stokes3D-DxU,
+// under the 48 KB of a block without the opt-in.
 #include "common.cuh"
 #include "ukernels.cuh"
 
@@ -49,20 +59,20 @@ constexpr int kR = 2;             // targets a thread
 constexpr int kTB = 64;           // targets a block
 constexpr int kTS = 256;          // sources a shared tile
 
-template <int KER>
+template <typename Real, int KER>
 __global__ void __launch_bounds__(kThreads)
-p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
-                 const float* __restrict__ xs, const float* __restrict__ ns,
-                 const float* __restrict__ f, const int* __restrict__ fidx,
-                 const int* __restrict__ srng, float* __restrict__ out,
+p2p_ulist_kernel(const Real* __restrict__ xt, const int* __restrict__ tcnt,
+                 const Real* __restrict__ xs, const Real* __restrict__ ns,
+                 const Real* __restrict__ f, const int* __restrict__ fidx,
+                 const int* __restrict__ srng, Real* __restrict__ out,
                  int T, long N) {
   using D = sctl::Dims<KER>;
   constexpr int K0 = D::k0, K1 = D::k1;
   constexpr bool kNormals = D::nrm;
-  __shared__ float sx[3][kTS];
-  __shared__ float sn[kNormals ? 3 : 1][kTS];
-  __shared__ float sf[K0][kTS];
-  __shared__ float red[kThreads][kR * K1];
+  __shared__ Real sx[3][kTS];
+  __shared__ Real sn[kNormals ? 3 : 1][kTS];
+  __shared__ Real sf[K0][kTS];
+  __shared__ Real red[kThreads][kR * K1];
 
   const long g = blockIdx.x;
   const int tid = threadIdx.x;
@@ -73,8 +83,8 @@ p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
   const int nsub = ng ? kThreads / ng : 0;  // threads a group
   const int grp = ng ? tid % ng : 0, sub = ng ? tid / ng : 0;
   const bool live = ng && sub < nsub;
-  const float* xtg = xt + g * 3 * T;
-  float px[kR], py[kR], pz[kR];
+  const Real* xtg = xt + g * 3 * T;
+  Real px[kR], py[kR], pz[kR];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int t = min(c0 + grp * kR + r, T - 1);
@@ -82,11 +92,11 @@ p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
     py[r] = xtg[T + t];
     pz[r] = xtg[2 * T + t];
   }
-  float acc[kR][K1];
+  Real acc[kR][K1];
 #pragma unroll
   for (int r = 0; r < kR; ++r)
 #pragma unroll
-    for (int j = 0; j < K1; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < K1; ++j) acc[r][j] = Real(0);
 
   const int sb = srng[2 * g];
   const int m_all = ng ? max(0, srng[2 * g + 1] - sb) : 0;
@@ -107,14 +117,14 @@ p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
     }
     __syncthreads();
     if (!live) continue;
-    float part[kR][K1];
+    Real part[kR][K1];
 #pragma unroll
     for (int r = 0; r < kR; ++r)
 #pragma unroll
-      for (int j = 0; j < K1; ++j) part[r][j] = 0.f;
+      for (int j = 0; j < K1; ++j) part[r][j] = Real(0);
 #pragma unroll 4
     for (int i = sub; i < m; i += nsub) {
-      float fv[K0], nv[3];
+      Real fv[K0], nv[3];
 #pragma unroll
       for (int c = 0; c < K0; ++c) fv[c] = sf[c][i];
       if constexpr (kNormals) {
@@ -147,44 +157,64 @@ p2p_ulist_kernel(const float* __restrict__ xt, const int* __restrict__ tcnt,
     width = half;
   }
   __syncthreads();
-  float* og = out + (g * T + c0) * K1;
+  Real* og = out + (g * T + c0) * K1;
   const int nslot = min(kTB, T - c0);
   for (int t = tid; t < nslot; t += kThreads) {
     const int gr = t / kR;
 #pragma unroll
     for (int j = 0; j < K1; ++j)
-      og[t * K1 + j] = t < nt ? red[gr][(t % kR) * K1 + j] : 0.f;
+      og[t * K1 + j] = t < nt ? red[gr][(t % kR) * K1 + j] : Real(0);
   }
 }
 
-template <int KER>
+template <typename Real>
 struct Launch {
-  static int run(const float* xt, const int* tcnt, const float* xs,
-                 const float* ns, const float* f, const int* fidx,
-                 const int* srng, float* out, int G, int T, long N,
-                 cudaStream_t stream) {
-    dim3 grid(G, (T + kTB - 1) / kTB);
-    p2p_ulist_kernel<KER><<<grid, kThreads, 0, stream>>>(
-        xt, tcnt, xs, ns, f, fidx, srng, out, T, N);
-    return (int)cudaGetLastError();
-  }
+  template <int KER>
+  struct Of {
+    static int run(const Real* xt, const int* tcnt, const Real* xs,
+                   const Real* ns, const Real* f, const int* fidx,
+                   const int* srng, Real* out, int G, int T, long N,
+                   cudaStream_t stream) {
+      dim3 grid(G, (T + kTB - 1) / kTB);
+      p2p_ulist_kernel<Real, KER><<<grid, kThreads, 0, stream>>>(
+          xt, tcnt, xs, ns, f, fidx, srng, out, T, N);
+      return (int)cudaGetLastError();
+    }
+  };
 };
+
+template <typename Real>
+int p2p_ulist(const Real* xt, const int* tcnt, const Real* xs,
+              const Real* ns, const Real* f, const int* fidx, const int* srng,
+              Real* out, int ker, int G, int T, int N, cudaStream_t stream) {
+  using namespace sctl;
+  if (G == 0 || T == 0) return 0;
+  return dispatch_formula<Launch<Real>::template Of, kLapFxU, kLapDxU,
+                          kLapFxdU, kStkFxU, kStkDxU, kStkFSxU>(
+      ker, xt, tcnt, xs, ns, f, fidx, srng, out, G, T, (long)N, stream);
+}
 
 }  // namespace
 
 // xt (G, 3, T), tcnt (G) int32 or null, xs (3, N), ns (3, N) (double
 // layers only, else null), f (rows, k0), fidx (N) int32 or null, srng
-// (G, 2) int32, out (G, T, k1); float32.  ker: the formula index of
-// ukernels.cuh, one of the six kernels with a tree path.
+// (G, 2) int32, out (G, T, k1); float32 (sctl_p2p_ulist) or float64
+// (sctl_p2p_ulist_f64).  ker: the formula index of ukernels.cuh, one of
+// the six kernels with a tree path.
 SCTL_API int sctl_p2p_ulist(const float* xt, const int* tcnt,
                             const float* xs, const float* ns, const float* f,
                             const int* fidx, const int* srng, float* out,
                             int ker, int G, int T, int N,
                             cudaStream_t stream) {
-  using namespace sctl;
-  if (G == 0 || T == 0) return 0;
-  return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, xt, tcnt, xs, ns, f, fidx,
-                                             srng, out, G, T, (long)N,
-                                             stream);
+  return p2p_ulist<float>(xt, tcnt, xs, ns, f, fidx, srng, out, ker, G, T,
+                          N, stream);
+}
+
+SCTL_API int sctl_p2p_ulist_f64(const double* xt, const int* tcnt,
+                                const double* xs, const double* ns,
+                                const double* f, const int* fidx,
+                                const int* srng, double* out, int ker, int G,
+                                int T, int N, cudaStream_t stream) {
+  return p2p_ulist<double>(xt, tcnt, xs, ns, f, fidx, srng, out, ker, G, T,
+                           N, stream);
 }

@@ -26,9 +26,10 @@ Pallas.  Tensors on the card go through the CUDA kernel, tensors on the
 CPU through its plain version.  Operator tables are built cold on the
 host in float64 (no disk cache) unless passed in.
 
-Precision: densities, potentials and the U list are in `dtype`
-(float32 on the card); every other stage runs in float64, in leaf- or
-node-local coordinates, with float64's pinv cutoff 1e-9.  In float32
+Precision: densities, potentials and the U list are in `dtype`,
+float32 or float64 on either device (the U-list kernel has both
+builds); every other stage runs in float64, in leaf- or node-local
+coordinates, with float64's pinv cutoff 1e-9.  In float32
 (the JAX package's design, cutoff 3e-5) the pinv operators (uc2e,
 dc2e) amplify the far field's rounding until the apply is no longer
 linear to within 1e-6, deterministic scatter or not: a bench_bie solve
@@ -223,9 +224,9 @@ class AdaptiveFMM:
 
     device    : "cuda" (default) runs the U list's CUDA kernel, "cpu"
                 its plain version.
-    dtype     : torch.float32 (the card's type) or torch.float64: the
-                densities, potentials and U list; the other stages run
-                in float64.
+    dtype     : torch.float32 or torch.float64, on the card too: the
+                densities, potentials and U list (the kernel's float32
+                or float64 build); the other stages run in float64.
     operators : KIFMMOperators of the translation kernel at order p, for
                 example from `operators_from_numpy`; built cold if None.
     """
@@ -242,9 +243,6 @@ class AdaptiveFMM:
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(f"AdaptiveFMM dtype {dtype}")
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError(
-                f"AdaptiveFMM on the card runs float32 only, not {dtype}")
         self.p = p
         self.max_pts = max_pts
         self.dtype = dtype

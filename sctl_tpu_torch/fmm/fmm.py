@@ -5,9 +5,10 @@ Named source and target groups with a source-to-target kernel per pair.
 `eval` runs the uniform-tree KIFMM for the six kernels with a tree path
 (`_TREE_L2T`) when the target's source groups hold at least
 DIRECT_CUTOFF points together, and the direct sum otherwise (below the
-cutoff, and always for Stokes3D-FxT and Stokes3D-FxUP); `eval_direct`
-is the direct-sum oracle.  On the card the direct sum runs the
-hand-written `p2p` kernel (ops/direct.py).
+cutoff, and always for Stokes3D-FxT and Stokes3D-FxUP), through
+`eval_tensor`, the same routes on device tensors (the solver-loop
+path); `eval_direct` is the direct-sum oracle.  On the card the direct
+sum runs the hand-written `p2p` kernel (ops/direct.py).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class _Group:
         self.coord = None
         self.normal = None
         self.density = None
+        self.on_device = {}       # coord / normal on the facade's device
 
 
 class ParticleFMM:
@@ -56,6 +58,7 @@ class ParticleFMM:
     fmm.set_src_coord("src", X, normal=N); fmm.set_src_density("src", F)
     fmm.set_trg_coord("trg", Xt)
     U = fmm.eval("trg")          # tree FMM, or direct below the cutoff
+    U = fmm.eval_tensor("trg", {"src": F_dev})   # device tensors
     U = fmm.eval_direct("trg")   # O(N^2) oracle
 
     The tree's depth is KIFMM's default, about 256 points a leaf (depth
@@ -99,6 +102,7 @@ class ParticleFMM:
         self.src[name].coord = np.asarray(X, np.float64)
         if normal is not None:
             self.src[name].normal = np.asarray(normal, np.float64)
+        self.src[name].on_device = {}
         self._kifmm_cache.clear()
 
     def set_src_density(self, name: str, F):
@@ -108,43 +112,71 @@ class ParticleFMM:
     def set_trg_coord(self, name: str, X):
         self.add_trg(name)
         self.trg[name].coord = np.asarray(X, np.float64)
+        self.trg[name].on_device = {}
         self._kifmm_cache.clear()
 
     # -- evaluation --------------------------------------------------------
     def eval(self, trg_name: str) -> np.ndarray:
         """Fast evaluation into target group `trg_name`, summed over its
-        source groups."""
-        xt = self.trg[trg_name].coord
+        source groups: `eval_tensor` on the groups' densities, numpy
+        out."""
+        return self.eval_tensor(trg_name, {
+            s: torch.as_tensor(self.src[s].density)
+            for (s, t) in self.s2t_kernels if t == trg_name}).cpu().numpy()
+
+    def eval_tensor(self, trg_name: str,
+                    densities: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Device-resident evaluation (the counterpart of `eval_jnp`,
+        sctl_tpu/fmm/fmm.py:122-150): densities {src_name: (n, k0)
+        tensor} on the facade's device -> (n_trg, k1) tensor there, no
+        host round trip.  Tree pairs go through KIFMM.eval_tensor, small
+        or direct pairs through the blocked direct sum (blocks of 1024 x
+        1024 on the CPU).  The coordinates go to the device once and
+        stay there."""
         total = sum(len(self.src[s].coord)
                     for (s, t) in self.s2t_kernels if t == trg_name)
+        tg = self.trg[trg_name]
         u = None
         for (s, t), ker in self.s2t_kernels.items():
             if t != trg_name:
                 continue
             g = self.src[s]
+            f = densities[s].to(self.device, self.dtype) \
+                .reshape(-1, ker.kdim0)
             if total < DIRECT_CUTOFF or ker.name not in _TREE_L2T:
-                us = self._direct_pair(ker, xt, g)
+                us = self._direct_pair(ker, tg, g, f)
             else:
-                us = self._get_kifmm(ker, xt, g, s, t).eval(g.density)
+                us = self._get_kifmm(ker, tg.coord, g, s,
+                                     trg_name).eval_tensor(f)
             u = us if u is None else u + us
         return u
 
     def eval_direct(self, trg_name: str) -> np.ndarray:
         """O(N^2) direct evaluation, the correctness oracle."""
-        xt = self.trg[trg_name].coord
+        tg = self.trg[trg_name]
         u = None
         for (s, t), ker in self.s2t_kernels.items():
             if t == trg_name:
-                us = self._direct_pair(ker, xt, self.src[s])
+                g = self.src[s]
+                us = self._direct_pair(ker, tg, g, torch.as_tensor(
+                    g.density, device=self.device, dtype=self.dtype))
                 u = us if u is None else u + us
-        return u
+        return u.cpu().numpy()
 
-    def _direct_pair(self, ker, xt, g) -> np.ndarray:
-        as_t = lambda a: torch.as_tensor(a, device=self.device,
-                                         dtype=self.dtype)
+    def _direct_pair(self, ker, tg: _Group, g: _Group,
+                     f: torch.Tensor) -> torch.Tensor:
         return direct_eval_blocked(
-            ker, as_t(xt), as_t(g.coord), as_t(g.density),
-            ns=None if g.normal is None else as_t(g.normal)).cpu().numpy()
+            ker, self._device_copy(tg, "coord"),
+            self._device_copy(g, "coord"), f,
+            ns=None if g.normal is None else self._device_copy(g, "normal"))
+
+    def _device_copy(self, g: _Group, attr: str) -> torch.Tensor:
+        """g's `attr` (coordinates or normals) on the facade's device in
+        its dtype, copied once."""
+        if attr not in g.on_device:
+            g.on_device[attr] = torch.as_tensor(
+                getattr(g, attr), device=self.device, dtype=self.dtype)
+        return g.on_device[attr]
 
     def _get_kifmm(self, ker, xt, g, s_name, t_name) -> KIFMM:
         key = (ker.name, s_name, t_name)

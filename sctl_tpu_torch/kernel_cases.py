@@ -19,7 +19,7 @@ The others are zero, as the padding of the main path is.
 The U-list kernel's cases (`ulist_cases`) take their widths from a
 set-up `AdaptiveFMM` instead: T = its target capacity, each box's real
 targets and sources drawn around its U lists' means, on a reduced G =
-32 boxes, one case per kernel formula.
+32 boxes, one case per kernel formula and build (float32, float64).
 The direct sum's cases (`p2p_cases`) are ParticleFMM's direct path
 reduced: 4096 targets among 39,000 sources in the unit cube, for every
 formula in float32 and float64.
@@ -120,14 +120,18 @@ def m2l_grid_blocked_work(h: int, mats_blk: torch.Tensor) -> dict:
                            + h ** 3 * N))
 
 
-def p2p_ulist_work(kernel, pairs: int, n_trg: int, n_src: int) -> dict:
-    """One rsqrt and the kernel's operations per needed pair; bytes of
-    the real targets and their output and of the real sources (point,
-    density, and the normal for the double layer, a source once in
-    each list that holds it), each once."""
+def p2p_ulist_work(kernel, pairs: int, n_trg: int, n_src: int,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """The kernel's operations (and in float32 one rsqrt) per needed
+    pair, in float32 or float64; bytes of the real targets and their
+    output and of the real sources (point, density, and the normal for
+    the double layer, a source once in each list that holds it), each
+    once."""
+    nb = 8 if dtype == torch.float64 else 4
     return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * ((3 + kernel.kdim1) * n_trg
-                           + kernel.src_floats * n_src))
+                f64=dtype == torch.float64,
+                bytes=nb * ((3 + kernel.kdim1) * n_trg
+                            + kernel.src_floats * n_src))
 
 
 def p2p_work(kernel, dtype: torch.dtype, n_trg: int, n_src: int) -> dict:
@@ -148,13 +152,13 @@ def _ulist_counts(af):
 
 
 def ulist_main_work(af) -> dict:
-    """The U-list kernel's work in one apply of a set-up AdaptiveFMM:
-    pairs of each leaf's real targets with its U list's real sources;
-    bytes of those targets and sources as the launch reads them (a
-    source once in each U list that holds it)."""
+    """The U-list kernel's work in one apply of a set-up AdaptiveFMM, in
+    its dtype: pairs of each leaf's real targets with its U list's real
+    sources; bytes of those targets and sources as the launch reads
+    them (a source once in each U list that holds it)."""
     tcnt, near = _ulist_counts(af)
     return p2p_ulist_work(af.ker_s2t, int((tcnt * near).sum()),
-                          int(tcnt.sum()), int(near.sum()))
+                          int(tcnt.sum()), int(near.sum()), af.dtype)
 
 
 def ulist_cases(af, seed: int = 0) -> dict:
@@ -163,7 +167,9 @@ def ulist_cases(af, seed: int = 0) -> dict:
     ULIST_G boxes, on its device: T = af's target capacity, each box's
     real targets and sources drawn around af's means (Poisson), the
     targets in a box of the leaves' mean size, the sources in the 27
-    boxes around it, their densities read through a shuffled index."""
+    boxes around it, their densities read through a shuffled index.
+    "name" runs the float32 build, "name[f64]" the float64 build on the
+    same inputs in float64."""
     rng = np.random.default_rng(seed)
     dev = af.device
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
@@ -185,14 +191,16 @@ def ulist_cases(af, seed: int = 0) -> dict:
     for name in TREE_KERNELS:
         ker = KERNELS[name]
         f = f32(rng.normal(size=(N + 7, ker.kdim0)))
-        a = (xt, xs, nrm if ker.needs_normal else None, f, srng, i32(tcnt),
-             i32(fidx))
-        cases[name] = (
-            lambda ker=ker, a=a: p2p_ulist(ker, *a),
-            lambda dtype=None, ker=ker, a=a: p2p_ulist_plain(
-                ker, *_cast(a, dtype)), None,
-            p2p_ulist_work(ker, int((tcnt * scnt).sum()), int(tcnt.sum()),
-                           N))
+        a32 = (xt, xs, nrm if ker.needs_normal else None, f, srng,
+               i32(tcnt), i32(fidx))
+        for tag, dt in (("", torch.float32), ("[f64]", torch.float64)):
+            a = _cast(a32, dt)
+            cases[name + tag] = (
+                lambda ker=ker, a=a: p2p_ulist(ker, *a),
+                lambda dtype=None, ker=ker, a=a: p2p_ulist_plain(
+                    ker, *_cast(a, dtype)), None,
+                p2p_ulist_work(ker, int((tcnt * scnt).sum()),
+                               int(tcnt.sum()), N, dt))
     return cases
 
 

@@ -44,6 +44,8 @@ SIGNATURES = {
     "sctl_p2p_stencil": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_stencil9": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sctl_p2p_ulist": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_p2p_ulist_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P],
     "sctl_p2p_direct_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sctl_p2p_direct_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # no stream: the dynamic shared memory of a block, in bytes; the

@@ -1,6 +1,7 @@
 """Argument checks shared by the kernel wrappers: a CUDA kernel takes
-contiguous float32 tensors (and int32 counts and indices) on one card
-and nothing else."""
+contiguous float tensors of one type it was built for (float32; the
+direct sum and the U list also float64) and int32 counts and indices on
+one card, and nothing else."""
 
 from __future__ import annotations
 
@@ -29,14 +30,20 @@ def n_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_kernel_args(name: str, **tensors: torch.Tensor) -> None:
+def check_kernel_args(name: str, dtypes=(torch.float32,),
+                      **tensors: torch.Tensor) -> torch.dtype:
+    """Float tensors of a launch: contiguous, one type for all, and that
+    type among `dtypes`; returns it."""
+    types = {t.dtype for t in tensors.values()}
+    if len(types) != 1 or not types <= set(dtypes):
+        raise NotImplementedError(
+            f"{name}: dtypes "
+            f"{ {k: t.dtype for k, t in tensors.items()} }; the CUDA "
+            f"kernel takes one of {dtypes} for all")
     for key, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{name}: {key} is {t.dtype}; the CUDA kernel takes "
-                "float32 only")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+    return types.pop()
 
 
 def check_index_args(name: str, **tensors) -> None:

@@ -18,10 +18,10 @@ z-1..z+1 of each of the 9 neighbour columns where they lie, by the
 boxes' counts.  The U-list kernel reads each box's run of one flat
 source list (`box_ranges` for box-major slots).
 
-On a CUDA tensor `p2p` launches csrc/p2p_direct.cu (float32 or
-float64), `p2p_stencil9` csrc/p2p_stencil9.cu, `p2p_stencil`
-csrc/p2p_stencil.cu and `p2p_ulist` csrc/p2p_ulist.cu; on a CPU tensor
-each runs its plain version.
+On a CUDA tensor `p2p` launches csrc/p2p_direct.cu and `p2p_ulist`
+csrc/p2p_ulist.cu (each float32 or float64), `p2p_stencil9`
+csrc/p2p_stencil9.cu and `p2p_stencil` csrc/p2p_stencil.cu (float32);
+on a CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -485,7 +485,8 @@ def p2p_ulist(kernel: KernelSpec, xt_b, xs, ns, f, srng=None, tcnt=None,
     tcnt (G,) int32: each box's real targets, its first slots (None:
          all T); the slots past it come out zero.
     fidx (N,) int32 or None.
-    -> (G, T, k1) unscaled potentials.  One launch on the card.
+    -> (G, T, k1) unscaled potentials in the inputs' dtype.  One launch
+    on the card: float32 or float64, one type for every float tensor.
 
     Without srng, the JAX function's padded form: xs (G, 3, S), ns
     (G, 3, S), f (G, k0, S) per box with zero density in padded slots,
@@ -515,19 +516,24 @@ def p2p_ulist(kernel: KernelSpec, xt_b, xs, ns, f, srng=None, tcnt=None,
                if t is not None]
     if not on_cuda(*tensors):
         return p2p_ulist_plain(kernel, xt_b, xs, ns, f, srng, tcnt, fidx)
-    check_kernel_args("p2p_ulist", xt_b=xt_b, xs=xs, f=f,
-                      **({} if ns is None else {"ns": ns}))
+    dt = check_kernel_args("p2p_ulist", (torch.float32, torch.float64),
+                           xt_b=xt_b, xs=xs, f=f,
+                           **({} if ns is None else {"ns": ns}))
     check_index_args("p2p_ulist", srng=srng, tcnt=tcnt, fidx=fidx)
-    out = torch.empty((G, T, kernel.kdim1), dtype=torch.float32,
-                      device=xt_b.device)
-    launch("sctl_p2p_ulist", xt_b.data_ptr(), _ptr(tcnt), xs.data_ptr(),
-           _ptr(ns), f.data_ptr(), _ptr(fidx), srng.data_ptr(),
-           out.data_ptr(), FORMULA[kernel.name], G, T, N)
+    out = torch.empty((G, T, kernel.kdim1), dtype=dt, device=xt_b.device)
+    f64 = dt == torch.float64
+    launch("sctl_p2p_ulist_f64" if f64 else "sctl_p2p_ulist",
+           xt_b.data_ptr(), _ptr(tcnt), xs.data_ptr(), _ptr(ns),
+           f.data_ptr(), _ptr(fidx), srng.data_ptr(), out.data_ptr(),
+           FORMULA[kernel.name], G, T, N)
     p2p_ulist.launches += 1
+    p2p_ulist.launches_f64 += f64
     return out
 
 
 p2p_ulist.launches = 0
+# the launches of the float64 build among them
+p2p_ulist.launches_f64 = 0
 
 
 def box_ranges(counts, width: int):

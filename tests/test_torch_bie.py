@@ -207,6 +207,23 @@ def test_sqrt_scaling_matches_jax():
     np.testing.assert_allclose(ops[1], ops[0], rtol=1e-14)
 
 
+def test_inv_sqrt_scaling_matches_jax():
+    """The inverse square-root scaling, the same numpy on both sides, and
+    the inverse of sqrt_scaling."""
+    v = np.random.default_rng(2).normal(size=(6 * 3 * 16, 3))
+    out = []
+    for Op, tp, kw in ((J_Op, j_torus, {}),
+                       (BoundaryIntegralOp, torus_patches,
+                        {"trg_normal_dot_prod": False, "device": "cpu",
+                         "dtype": F64})):
+        o = Op(Stokes3D_DxU if "device" in kw else J_DXU, **kw)
+        o.add_elem_list(tp(nu=6, nv=3, q=4))
+        out.append((o.inv_sqrt_scaling(v), o))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-14)
+    np.testing.assert_allclose(out[1][1].sqrt_scaling(out[1][0]), v,
+                               rtol=1e-14)
+
+
 def test_unported_near_paths_raise():
     """The device engine is the only near engine: an element list
     without a DeviceGeom raises."""

@@ -8,9 +8,13 @@ the p=8 path's kernels (the grid M2L `m2l_grid` and the halo stencil
 KIFMM as densely filled as ParticleFMM(accuracy=8) at 1e7 points
 (about 305 points a leaf); the U-list kernel at the widths of an
 adaptive FMM on a torus's far-field nodes, for the six formulas with a
-tree path; the direct sum `p2p` for all eight formulas in float32 and
-float64, also at few targets and at as many targets as sources, with
-its float64 rsqrt held to 4 ulp; the slab stencil `p2p_stencil9` on
+tree path, in its float32 and float64 builds (the float64 one also at
+ragged widths, without counts or index, on the padded form, repeated
+bit for bit, refusing mixed types, and launched by AdaptiveFMM and
+BoundaryIntegralOp set up in float64 on the card); the direct sum
+`p2p` for all eight formulas in float32 and float64, also at few
+targets and at as many targets as sources, with its float64 rsqrt held
+to 4 ulp; the slab stencil `p2p_stencil9` on
 compacted slabs at ragged widths and counts and at its widest block;
 the shared-surface kernels `surface_pair` and `l2t_surface` over each
 box's real slots by per-box counts, for every formula at p = 6 and 8,
@@ -233,6 +237,22 @@ def test_p2p_ulist_matches_plain(ulist, name):
     out = run()
     torch.cuda.synchronize()
     assert rel_max_err(out, plain()) < 1e-5
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_ulist_f64_matches_plain(ulist, name):
+    """The float64 build at the far FMM's widths: 1e-12 of the maximum
+    against the plain version in float64 (the lean double rsqrt is
+    within a few ulp; the sums run in another order)."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    run, plain, _, work = ulist[name + "[f64]"]
+    n = p2p_ulist.launches_f64
+    out = run()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float64 and work["f64"]
+    assert p2p_ulist.launches_f64 == n + 1
+    assert rel_max_err(out, plain()) < 1e-12
 
 
 def test_kifmm_depth2_card_matches_cpu(cuda_device):
@@ -471,12 +491,12 @@ def test_p2p_stencil_repeats_bit_for_bit(cuda_device):
     assert torch.equal(a, b)
 
 
-def _ulist_ragged(ker, seed, G=12, T=70):
+def _ulist_ragged(ker, seed, G=12, T=70, dtype=torch.float32):
     """A compacted U-list case at ragged widths: T = 70 (two target
     chunks of the block, not a multiple of 2), target counts 0, 1, 64,
     65 and T, source runs of 0 and 1 (a list with one real source)
     among random ones up to 700, densities through a shuffled index
-    with rows no source reads."""
+    with rows no source reads; float tensors in `dtype`."""
     rng = np.random.default_rng(seed)
     tcnt = rng.integers(0, T + 1, G)
     tcnt[:6] = (0, 1, 64, 65, T, 7)
@@ -485,7 +505,7 @@ def _ulist_ragged(ker, seed, G=12, T=70):
     N = int(scnt.sum())
     ends = np.cumsum(scnt)
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device="cuda")
+                                    device="cuda").to(dtype)
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
     nrm = rng.normal(size=(3, N))
     nrm /= np.linalg.norm(nrm, axis=0, keepdims=True)
@@ -540,6 +560,122 @@ def test_p2p_ulist_repeats_bit_for_bit(cuda_device):
     a, b = p2p_ulist(*args), p2p_ulist(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_ulist_f64_ragged_matches_plain(cuda_device, name):
+    """The float64 build on the ragged case (per-box target counts, runs
+    of 0 and 1 sources, densities through fidx): 1e-12 of the maximum
+    against the plain version in float64, the slots past the counts
+    exactly zero, and the output float64."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    args = _ulist_ragged(KERNELS[name], 26, dtype=torch.float64)
+    out = p2p_ulist(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float64
+    assert rel_max_err(out, p2p_ulist_plain(*args)) < 1e-12
+    tcnt, T = args[6], args[1].shape[2]
+    pad = torch.arange(T, device="cuda") >= tcnt[:, None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_ulist_f64_without_counts_or_index(cuda_device):
+    """The float64 build with tcnt and fidx absent (every target slot
+    real, source j reads density row j), and on the JAX function's
+    padded form, against the plain version in float64, 1e-12."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import (_ulist_from_padded, p2p_ulist,
+                                        p2p_ulist_plain)
+    ker = KERNELS["Stokes3D-DxU"]
+    ker_, xt, xs, ns, f, srng, _, fidx = _ulist_ragged(
+        ker, 27, dtype=torch.float64)
+    f_rows = f[fidx.long()].contiguous()
+    out = p2p_ulist(ker, xt, xs, ns, f_rows, srng)
+    torch.cuda.synchronize()
+    assert rel_max_err(out, p2p_ulist_plain(ker, xt, xs, ns, f_rows,
+                                            srng)) < 1e-12
+    rng = np.random.default_rng(28)
+    G, T, S = 5, 16, 256
+    c64 = lambda a: torch.as_tensor(a, device="cuda")
+    xt_b, xs_b = c64(rng.random((G, 3, T))), c64(rng.random((G, 3, S)))
+    ns_b = c64(rng.normal(size=(G, 3, S)))
+    f_b = c64(rng.normal(size=(G, 3, S)) * (rng.random((G, 1, S)) < 0.7))
+    out = p2p_ulist(ker, xt_b, xs_b, ns_b, f_b)
+    torch.cuda.synchronize()
+    ref = p2p_ulist_plain(ker, xt_b, *_ulist_from_padded(ker, xt_b, xs_b,
+                                                         ns_b, f_b))
+    assert out.dtype == torch.float64 and rel_max_err(out, ref) < 1e-12
+
+
+def test_p2p_ulist_f64_repeats_bit_for_bit(cuda_device):
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    args = _ulist_ragged(KERNELS["Stokes3D-DxU"], 29, dtype=torch.float64)
+    a, b = p2p_ulist(*args), p2p_ulist(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_p2p_ulist_mixed_dtypes_raise(cuda_device):
+    """One type for every float tensor: float32 coordinates with float64
+    densities, and float16, raise before any launch."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    ker, xt, xs, ns, f, srng, tcnt, fidx = _ulist_ragged(
+        KERNELS["Stokes3D-DxU"], 30)
+    n = p2p_ulist.launches
+    with pytest.raises(NotImplementedError):
+        p2p_ulist(ker, xt, xs, ns, f.double(), srng, tcnt, fidx)
+    with pytest.raises(NotImplementedError):
+        p2p_ulist(ker, xt.half(), xs.half(), ns.half(), f.half(), srng,
+                  tcnt, fidx)
+    assert p2p_ulist.launches == n
+
+
+def test_adaptive_and_bie_f64_on_card_launch_f64_ulist(cuda_device):
+    """AdaptiveFMM and BoundaryIntegralOp built with dtype=float64 on the
+    card: each apply launches the float64 U-list kernel once, and the
+    card's result matches the CPU's (plain versions) on the same tables
+    to 1e-10 of the maximum (float64 throughout; the far stages' sums
+    run in another order)."""
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.fmm import AdaptiveFMM, KIFMMOperators
+    from sctl_tpu_torch.ops import Stokes3D_DxU, Stokes3D_FSxU
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+    lst = torus_patches(nu=8, nv=4, q=6)
+    X, _, _ = lst.get_node_coord()
+    Xf, Xnf, _, _, _ = lst.get_far_field_nodes(1e-6)
+    f = np.random.default_rng(31).normal(size=(len(Xf), 3))
+    cpu = AdaptiveFMM(Stokes3D_DxU, p=4, device="cpu",
+                      dtype=torch.float64).setup(Xf, X, Xnf)
+    tables = {k: getattr(cpu._ops, k) for k in KIFMMOperators.TABLES}
+    ops = KIFMMOperators(Stokes3D_FSxU, 4, cpu.rcond, cuda_device,
+                         torch.float64, tables=tables)
+    card = AdaptiveFMM(Stokes3D_DxU, p=4, device=cuda_device,
+                       dtype=torch.float64, operators=ops).setup(Xf, X, Xnf)
+    n = p2p_ulist.launches_f64
+    u_card = card.eval(f)
+    assert p2p_ulist.launches_f64 == n + 1
+    u_cpu = cpu.eval(f)
+    assert np.abs(u_card - u_cpu).max() < 1e-10 * np.abs(u_cpu).max()
+
+    op = BoundaryIntegralOp(Stokes3D_DxU, device=cuda_device,
+                            dtype=torch.float64)
+    op.set_accuracy(1e-4)
+    op.add_elem_list(torus_patches(nu=8, nv=4, q=4))
+    op.far_fmm_cutoff = 1000
+    op.far_fmm_p = 4
+    op.setup()
+    assert op._far_fmm is not None and op._far_fmm.dtype == torch.float64
+    sigma = torch.randn(op.dim(0), dtype=torch.float64, device=cuda_device)
+    n = p2p_ulist.launches_f64
+    u = op.compute_potential_tensor(sigma)
+    torch.cuda.synchronize()
+    assert p2p_ulist.launches_f64 == n + 1
+    assert u.dtype == torch.float64 and bool(torch.isfinite(u).all())
 
 
 # ---- the redesigned direct sum and slab stencil -------------------------

@@ -192,3 +192,40 @@ def test_particle_fmm_tree_path_matches_jax():
             u_d = fmm.eval_direct("t")
     assert rel(u["port"], u["jax"]) < 1e-8
     assert rel(u["port"], u_d) < 1e-2
+
+
+@pytest.mark.parametrize("route", ["direct", "tree"])
+def test_particle_fmm_eval_tensor_matches_eval_and_jax(route):
+    """eval_tensor, densities as tensors in and a tensor out, against
+    the port's eval (1e-12) and the JAX package's eval_jnp (as
+    tests/test_fmm.py:116 holds it against eval) on both routes: the
+    direct route with two source groups (a Stokeslet and a Stokes
+    double layer with normals, 1,200 points), 1e-12; the tree route
+    with the Laplace single layer at 42,000 sources (above the cutoff,
+    depth 2, accuracy 4), 1e-9, the tree path's bar against the JAX
+    KIFMM (the pinv operators amplify rounding)."""
+    if route == "direct":
+        a, b = _cloud(23, 700, 3), _cloud(24, 500, 3)
+        names = {"a": "Stokes3D-FxU", "b": "Stokes3D-DxU"}
+        groups = {"a": (a[0], None, a[3]), "b": (b[0], b[2], b[3])}
+        xt, acc, bar = a[1], 6, 1e-12
+    else:
+        a = _cloud(25, DIRECT_CUTOFF + 2000, 1)
+        names = {"a": "Laplace3D-FxU"}
+        groups = {"a": (a[0], None, a[3])}
+        xt = np.random.default_rng(26).random((700, 3))
+        acc, bar = 4, 1e-9
+    dens = {s: g[2] for s, g in groups.items()}
+    fmm = _facade("port", {s: KERNELS[k] for s, k in names.items()}, groups,
+                  xt, accuracy=acc)
+    u = fmm.eval_tensor("t", {s: torch.as_tensor(f)
+                              for s, f in dens.items()})
+    assert isinstance(u, torch.Tensor) and u.dtype == F64
+    assert rel(u.numpy(), fmm.eval("t")) < 1e-12
+    if route == "tree":
+        kf = next(iter(fmm._kifmm_cache.values()))
+        assert (kf.depth, kf.p) == (2, 4)
+    jf = _facade("jax", {s: J_KERNELS[k] for s, k in names.items()},
+                 groups, xt, accuracy=acc)
+    u_j = jf.eval_jnp("t", {s: jnp.asarray(f) for s, f in dens.items()})
+    assert rel(u.numpy(), u_j) < bar
