@@ -174,15 +174,53 @@ Phases, each printed on flushed lines with the seconds since start:
             times and differences.  Last, rung 2 itself: KIFMM(p=8, depth=3) at
             4,000 points against the float64 p2p (bar 1e-4,
             tests/test_accuracy_ladder.py:32-33).
+8.  float64 the float64 ladder on the card, every summary line with the
+            card's name and power limit.  8d's set-up first:
+            KIFMM(Laplace3D_FxU, p=6, depth=6, float64) on phase 4's 1e7
+            points (its cold float64 tables, rcond 1e-9, timed with it),
+            whose routes must be the shared-surface kernels, the slab
+            stencil and the per-parity M2L sweep at the exact ranks.
+    8a.     the float64 builds of surface_pair, l2t_surface and
+            p2p_stencil9 at 8d's widths, and of p2p_stencil at 8e's,
+            against their plain versions in float64 on the same inputs
+            (bar 1e-12), on kernel_cases.py's cases ("[f64]") and every
+            tree formula's ("[kernel,f64]").
+    8d.     the 1e7-point float64 evaluation: warm, then the median of
+            3 with fresh densities, stage times from CUDA events, one
+            profiled evaluation, peak device memory and the error at
+            1000 sampled targets against the float64 p2p (bar 5e-5,
+            rung 3's); then each float64 build alone on the run's own
+            tensors, its time against its bound (34 TFLOP/s) and held to
+            its plain version (bar 1e-12), over every slot too, its
+            blocks an SM and its DP-pipe floor (the DP instructions a
+            pair of its inner loop, cuobjdump, at 64 lane-operations a
+            clock per SM).
+    8e.     ParticleFMM(accuracy=8, float64) at phase 7's 1e7 points
+            (depth 5, cap_s 344: S2M and L2T through the float64 U-list
+            kernel, as the surface rule refuses that capacity at 8
+            bytes, the near field through the float64 halo stencil):
+            set-up with its cold tables, eval, the figures of 8d (bar
+            1e-6, rung 4's), the halo stencil's cases, and the halo
+            stencil and the two U-list calls alone against their plain
+            versions (bar 1e-12).
+    8b.     rungs 3 and 4: KIFMM(p=6 and 8, depth 3, float64) on the
+            ladder's 2,000 points from default_rng(12) against the
+            float64 p2p at every target (bars 5e-5 and 1e-6,
+            tests/test_accuracy_ladder.py:38-43).
+    8c.     rung 7: the same at p=10 and 12 on the hiprec tables read
+            from the committed lite files in ./data/ (rcond 1e-10; bar
+            3e-8, :127-146); a missing file fails the phase.
 
 Each phase sets the launch counts to 0 before it drives its path and
-reads them after; every kernel of the path must have launched.  Then
-a line with the BIE legs' figures (phase 5's baseline and recycling,
-phase 5f), one JSON line with each kernel's numbers (launches summed
-over phases 4 to 7; p2p_ulist's float64 build under "f64"), the
-card's name and power limit, the run's wall time, and the
-closing JSON line.  Any failed check raises, so the script exits
-non-zero and prints no closing line.
+reads them after; every kernel of the path must have launched (phase 8
+the float64 counts, `launches_f64`).  Then a line with phase 8's
+figures, a line with the BIE legs' figures (phase 5's baseline and
+recycling, phase 5f), one JSON line with each kernel's numbers
+(launches summed over phases 4 to 7; p2p_ulist's float64 build under
+"f64"; the four float64 builds as "name[f64]" entries with their
+launches over phase 8), the card's name and power limit, the run's
+wall time, and the closing JSON line.  Any failed check raises, so the
+script exits non-zero and prints no closing line.
 """
 
 import json
@@ -271,6 +309,19 @@ SPREAD_RATIO = 1.25
 # kernels whose cases are also held against their plain versions in
 # float64 (DIRECT_BAR)
 F64_CASES = ("p2p_stencil9", "surface_pair", "l2t_surface")
+# phase 8, the float64 ladder: the four kernels whose float64 builds the
+# float64 KIFMM runs (p2p and p2p_ulist are held in float64 by phases
+# 5f and 6); the ladder's inputs and bars (tests/test_accuracy_ladder.py:
+# 2,000 points from default_rng(12), depth 3; rungs 3 and 4 at p = 6
+# and 8, :38-43; rung 7 at p = 10 and 12 on the hiprec tables, rcond
+# 1e-10, :127-146); the 1e7-point float64 path at rung 3's bar and the
+# float64 facade at accuracy 8 at rung 4's
+F64_BUILDS = ("surface_pair", "l2t_surface", "p2p_stencil9", "p2p_stencil")
+LADDER_N = 2000
+RUNG_BARS = {6: 5e-5, 8: 1e-6}
+RUNG7_P, RUNG7_RCOND, RUNG7_BAR = (10, 12), 1e-10, 3e-8
+F64_FMM_BAR = 5e-5
+F64_FACADE_ACC, F64_FACADE_BAR = 8, 1e-6
 
 
 def log(msg):
@@ -537,7 +588,7 @@ def phase_main(torch, kf, xs, f, rng, counters):
     main_rows["p2p_stencil9"].update(
         every_slot_ms=st["every_slot_ms"], blocks_per_sm=st["blocks_per_sm"],
         lanes_per_target=st["lanes_per_target"],
-        **(issue_floor("p2p_stencil9", "p2p_stencil9_kernelILi0E",
+        **(issue_floor("p2p_stencil9", "p2p_stencil9_kernelIfLi0E",
                        st["pairs"], "main") or {}))
     del f_s
     main_rows["m2l_grid_blocked"]["levels"] = m2l_levels(torch, kf, "main")
@@ -1385,7 +1436,7 @@ def _evals(torch, kf, f_dev, label):
     log(f"{label}: stage ms " + ", ".join(f"{k} {v:.3f}"
                                           for k, v in stages.items()))
     profile_eval(torch, kf, fp, fo, med)
-    return med
+    return med, stages
 
 
 def _describe(kf):
@@ -1683,7 +1734,7 @@ def stencil9_times(torch, kf, f_s, label):
     ms, every_ms = cuda_ms(torch, real, 5), cuda_ms(torch, every, 3)
     work = main_path_work(kf)["p2p_stencil9"]
     b_ms, b_by = bound(work)
-    lay = stencil9_layout(kf.ker_s2t, kf.SL, kf.cap_t)
+    lay = stencil9_layout(kf.ker_s2t, kf.SL, kf.cap_t, kf.dtype)
     log(f"{label}: p2p_stencil9 {ms:.4f} ms over the real slots "
         f"({lay['lanes_per_target']} lanes a target, {lay['threads']} "
         f"threads a block, {lay['blocks_per_sm']} blocks an SM), "
@@ -1710,21 +1761,23 @@ def surface_times(torch, kf, fp, q_cm, label):
     from sctl_tpu_torch.ops.uker import FORMULA
     ns = kf._ops.n_surf
     km, kl = kf.ker_s2m, kf.ker_l2t
+    f64 = kf.dtype == torch.float64
+    tc = "d" if f64 else "f"            # the build's Real in the mangling
     s2m = (km, kf.surf_out_L, kf.xs_sl,
            fp.reshape(-1, km.kdim0).T.contiguous(), kf.cap_s, kf.ns_sl)
     l2t = (kl, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t)
     live_t = (torch.arange(kf.cap_t, device=kf.device)
               < kf.cnt_t_box[:, None]).reshape(1, -1)
-    s_lay = surface_pair_layout(km, ns)
+    s_lay = surface_pair_layout(km, ns, kf.dtype)
     ways = {
         "surface_pair": (lambda: surface_pair(*s2m, kf.cnt_s_box),
                          lambda: surface_pair(*s2m), 1, s_lay,
-                         f"surface_pair_kernelILi{FORMULA[km.name]}ELi"
+                         f"surface_pair_kernelI{tc}Li{FORMULA[km.name]}ELi"
                          f"{s_lay['points_per_lane']}E"),
         "l2t_surface": (lambda: l2t_surface(*l2t, kf.cnt_t_box),
                         lambda: l2t_surface(*l2t), live_t,
-                        l2t_surface_layout(kl, ns, kf.cap_t),
-                        f"l2t_surface_kernelILi{FORMULA[kl.name]}E")}
+                        l2t_surface_layout(kl, ns, kf.cap_t, kf.dtype),
+                        f"l2t_surface_kernelI{tc}Li{FORMULA[kl.name]}E")}
     work = main_path_work(kf)
     rows = {}
     for name, (real, every, live, lay, mangled) in ways.items():
@@ -1739,7 +1792,7 @@ def surface_times(torch, kf, fp, q_cm, label):
         rows[name] = dict(every_slot_ms=every_ms,
                           blocks_per_sm=lay["blocks_per_sm"],
                           **(issue_floor(name, mangled, work[name]["pairs"],
-                                         label) or {}))
+                                         label, f64) or {}))
     return rows
 
 
@@ -1940,7 +1993,7 @@ def phase_p8(torch, counters):
     st = stencil_times(torch, kf, f_h, "p8")
     main_rows["p2p_stencil"].update(
         every_slot_ms=st["every_slot_ms"],
-        **(issue_floor("p2p_stencil", "p2p_stencil_kernelILi0E",
+        **(issue_floor("p2p_stencil", "p2p_stencil_kernelIfLi0E",
                        st["pairs"], "p8") or {}))
     del qp, f_h, q_cm
     main_rows["m2l_grid"]["levels"] = m2l_levels(torch, kf, "p8")
@@ -1975,6 +2028,332 @@ def phase_p8(torch, counters):
     for k, v in lr.items():
         launches[k] += v
     return launches, rows, main_rows
+
+
+def f64_launches(fns):
+    """The float64 launches of each wrapper of `fns` (name -> wrapper)."""
+    return {k: fn.launches_f64 for k, fn in fns.items()}
+
+
+def reset_f64(fns):
+    for fn in fns.values():
+        fn.launches_f64 = 0
+
+
+def once_ms(torch, fn):
+    """(fn(), its milliseconds on the card from CUDA events) of one
+    call: a plain version at the main path's size takes seconds."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def f64_alone(torch, kf, full, label):
+    """Each float64 build of `full` (name -> (kernel call, plain call,
+    work)) alone on the set-up float64 KIFMM's own tensors: its ms (5
+    launches) against its bound, and its output against the plain
+    version in float64 on the same inputs, at most ORACLE_BAR of the
+    maximum -> {name: row}."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    rows = {}
+    for name, (run, plain, work) in full.items():
+        ms = cuda_ms(torch, run, 5)
+        out = run()
+        ref, plain_ms = once_ms(torch, plain)
+        err = rel_max_err(out, ref)
+        abs_err = float((out - ref).abs().max())
+        del out, ref
+        b_ms, b_by = bound(work)
+        log(f"{label}: {name} float64 alone at the run's shapes {ms:.4f} "
+            f"ms, plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: "
+            f"operations {1e3 * work['pairs'] * work['pair_flops'] / F64_FLOPS:.4f}"
+            f" ms at 34 TFLOP/s, bytes {1e3 * work['bytes'] / HBM_BPS:.4f}"
+            f" ms), pairs {work['pairs']}; against its plain version in "
+            f"float64 {err:.3e} (bar {ORACLE_BAR:g})")
+        if not err < ORACLE_BAR:
+            raise SystemExit(f"chip_smoke: {label}: {name} float64 against "
+                             f"its plain version: {err:.3e}")
+        rows[name] = dict(main_path_ms=ms, main_path_plain_ms=plain_ms,
+                          main_path_bound_ms=b_ms, main_path_bound_by=b_by,
+                          main_path_max_rel_err=err,
+                          main_path_max_abs_err=abs_err, pairs=work["pairs"])
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f64_ladder_inputs(torch):
+    """tests/test_accuracy_ladder.py's inputs and their float64 p2p sum
+    on the card."""
+    import numpy as np
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    rng = np.random.default_rng(12)
+    x = rng.random((LADDER_N, 3))
+    f = rng.normal(size=(LADDER_N, 1))
+    c64 = lambda a: torch.as_tensor(a, device="cuda")
+    u = direct_eval_blocked(Laplace3D_FxU, c64(x), c64(x), c64(f))
+    return x, f, u.cpu().numpy()
+
+
+def f64_rung(torch, fns, inputs, label, bar, p, **kw):
+    """One rung: KIFMM(Laplace3D_FxU, p, depth 3, float64, **kw) on the
+    ladder's inputs (x, f, their float64 p2p sum) at every target ->
+    (error, float64 launches)."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    x, f, u_ref = inputs
+    reset_f64(fns)
+    t = time.perf_counter()
+    kf = KIFMM(Laplace3D_FxU, p=p, depth=3, device="cuda",
+               dtype=torch.float64, **kw).setup(x, x)
+    setup_s = time.perf_counter() - t
+    err = _sample_err(kf.eval(f), u_ref)
+    launches = f64_launches(fns)
+    log(f"{label}: p={p}, {LADDER_N} points, {_describe(kf)}, setup "
+        f"{setup_s:.2f} s (tables included); rel err vs float64 p2p at "
+        f"every target {err:.3e} (bar {bar:g}); float64 launches "
+        f"{launches}")
+    need = ["surface_pair", "l2t_surface", "p2p_stencil9"]
+    if (not np.isfinite(err) or not err < bar or kf._ops.m2l_route
+            != "parity" or not all(launches[k] > 0 for k in need)):
+        raise SystemExit(f"chip_smoke: {label} p={p}: error {err:.3e}, "
+                         f"{_describe(kf)}, launches {launches}")
+    return err, launches
+
+
+def phase_f64(torch, smi):
+    """8: the float64 ladder on the card: the four float64 builds against
+    their plain versions (8a), BASELINE.md's rungs 3 and 4 (8b) and 7
+    (8c), the 1e7-point float64 Laplace KIFMM at p = 6, depth 6 (8d)
+    and the float64 ParticleFMM(accuracy=8) at 1e7 points (8e) ->
+    (f64 rows {name: case row}, {name: main-path row}, launches {name:
+    float64 launches summed over 8b-8e}, summary)."""
+    import os
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMM, ParticleFMM
+    from sctl_tpu_torch.fmm.kifmm import table_path, unit_tables
+    from sctl_tpu_torch.kernel_cases import (formula_cases, kernel_cases,
+                                             main_path_work,
+                                             p2p_ulist_work)
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import (p2p_stencil, p2p_stencil9,
+                                        p2p_stencil9_plain, p2p_stencil_plain,
+                                        p2p_ulist, p2p_ulist_plain,
+                                        slab_gather, to_halo)
+    from sctl_tpu_torch.ops.sl import (l2t_surface, l2t_surface_plain,
+                                       surface_pair, surface_pair_plain)
+    from sctl_tpu_torch.ops.uker import FORMULA
+    LAP, f64 = Laplace3D_FxU, torch.float64
+    fns = {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
+           "p2p_stencil9": p2p_stencil9, "p2p_stencil": p2p_stencil,
+           "p2p_ulist": p2p_ulist}
+    total = {k: 0 for k in fns}
+    summary = {"device": smi}
+    log(f"f64: phase 8, the float64 ladder, on '{smi}'")
+
+    # ---- 8d set-up; 8a at its widths -----------------------------------
+    rng = np.random.default_rng(0)
+    xs = rng.random((N_POINTS, 3))
+    f = rng.normal(size=(N_POINTS, 1))
+    t = time.perf_counter()
+    kf = KIFMM(LAP, p=P, depth=DEPTH, device="cuda", dtype=f64).setup(xs, xs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    log(f"f64 8d setup: {setup_s:.2f} s, cold float64 tables (p={P}, rcond "
+        f"{kf.rcond:g}) included ({_describe(kf)})")
+    if not (kf.surface_route and kf.near_route == "stencil9"
+            and kf._ops.m2l_route == "parity"):
+        raise SystemExit(f"chip_smoke: 8d took other routes: "
+                         f"{_describe(kf)}")
+    rows = phase_kernels(torch, kf, kernel_cases(kf, dtype=f64))
+    frows = phase_kernels(torch, kf, formula_cases(kf, dtype=f64))
+
+    # ---- 8d: the 1e7-point float64 path ---------------------------------
+    f_dev = torch.as_tensor(f, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_f64(fns)
+    u = kf.eval_tensor(f_dev)                        # warm
+    med, stages = _evals(torch, kf, f_dev, "f64 8d")
+    launches = f64_launches(fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    idx = rng.choice(N_POINTS, N_SAMPLE, replace=False)
+    x64 = torch.as_tensor(xs, device="cuda")
+    u_ref = direct_eval_blocked(LAP, x64[idx], x64, f_dev,
+                                block_t=N_SAMPLE, block_s=1 << 17)
+    err = float((u[torch.as_tensor(idx, device="cuda")] - u_ref).abs().max()
+                / u_ref.abs().max())
+    del x64, u, u_ref
+    log(f"f64 8d: rel err at {N_SAMPLE} sampled targets vs float64 p2p "
+        f"{err:.3e} (bar {F64_FMM_BAR:g}); peak device memory "
+        f"{peak:.2f} GiB; float64 launches {launches}; on '{smi}'")
+    need = ("surface_pair", "l2t_surface", "p2p_stencil9")
+    if not (np.isfinite(err) and err < F64_FMM_BAR
+            and all(launches[k] > 0 for k in need)):
+        raise SystemExit(f"chip_smoke: 8d: error {err:.3e}, launches "
+                         f"{launches}")
+    for k, v in launches.items():
+        total[k] += v
+    summary["8d"] = dict(setup_s=setup_s, eval_s=med, stage_ms=stages,
+                         err=err, peak_gib=peak, launches=launches)
+
+    # each float64 build alone on the run's own tensors
+    ns, B, n = kf._ops.n_surf, kf.src_tree.n_boxes, 1 << DEPTH
+    fp, _ = kf.pad_density(f_dev)
+    q_cm = torch.randn((1, ns, B), dtype=f64, device="cuda")
+    f_s = slab_gather(fp, kf.slab_idx)
+    work = main_path_work(kf)
+    s2m = (LAP, kf.surf_out_L, kf.xs_sl, fp.reshape(1, -1), kf.cap_s, None,
+           kf.cnt_s_box)
+    l2t = (LAP, kf.surf_out_L, kf.xt_sl, q_cm, kf.cap_t, kf.cnt_t_box)
+    s9 = (LAP, n, kf.SL, kf.cap_t, kf.xt_rast, kf.xs_slab, f_s, None,
+          kf.cnt9, kf.cnt_t_rast)
+    main = f64_alone(torch, kf, {
+        "surface_pair": (lambda: surface_pair(*s2m),
+                         lambda: surface_pair_plain(*s2m),
+                         work["surface_pair"]),
+        "l2t_surface": (lambda: l2t_surface(*l2t),
+                        lambda: l2t_surface_plain(*l2t),
+                        work["l2t_surface"]),
+        "p2p_stencil9": (lambda: p2p_stencil9(*s9),
+                         lambda: p2p_stencil9_plain(*s9),
+                         work["p2p_stencil9"])}, "f64 8d")
+    for name, row in surface_times(torch, kf, fp, q_cm, "f64 8d").items():
+        main[name].update(row)
+    st = stencil9_times(torch, kf, f_s, "f64 8d")
+    main["p2p_stencil9"].update(
+        every_slot_ms=st["every_slot_ms"], blocks_per_sm=st["blocks_per_sm"],
+        **(issue_floor("p2p_stencil9", "p2p_stencil9_kernelIdLi0E",
+                       st["pairs"], "f64 8d", f64=True) or {}))
+    del kf, fp, q_cm, f_s, s2m, l2t, s9, f_dev, xs, f
+    torch.cuda.empty_cache()
+
+    # ---- 8e: the float64 facade at accuracy 8 ----------------------------
+    rng = np.random.default_rng(7)
+    x = rng.random((P8_N, 3))
+    f = rng.normal(size=(P8_N, 1))
+    idx = rng.choice(P8_N, N_SAMPLE, replace=False)
+    x64 = torch.as_tensor(x, device="cuda")
+    f_dev = torch.as_tensor(f, device="cuda")
+    u_ref = direct_eval_blocked(LAP, x64[idx], x64, f_dev, block_t=N_SAMPLE,
+                                block_s=1 << 17).cpu().numpy()
+    del x64
+    fmm = ParticleFMM(accuracy=F64_FACADE_ACC, device="cuda", dtype=f64)
+    fmm.set_kernel_s2t("src", "trg", LAP)
+    fmm.set_src_coord("src", x)
+    fmm.set_src_density("src", f)
+    fmm.set_trg_coord("trg", x)
+    torch.cuda.reset_peak_memory_stats()
+    reset_f64(fns)
+    t = time.perf_counter()
+    kf = fmm._get_kifmm(LAP, x, fmm.src["src"], "src", "trg")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    log(f"f64 8e setup: {setup_s:.2f} s, cold float64 tables (p="
+        f"{kf.p}, rcond {kf.rcond:g}) included ({_describe(kf)})")
+    t = time.perf_counter()
+    u = fmm.eval("trg")
+    log(f"f64 8e: ParticleFMM.eval {time.perf_counter() - t:.4f} s (host "
+        f"arrays in and out)")
+    med, stages = _evals(torch, kf, f_dev, "f64 8e")
+    launches = f64_launches(fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = _sample_err(u[idx], u_ref)
+    log(f"f64 8e: rel err at {N_SAMPLE} sampled targets vs float64 p2p "
+        f"{err:.3e} (bar {F64_FACADE_BAR:g}); peak device memory "
+        f"{peak:.2f} GiB; float64 launches {launches}; on '{smi}'")
+    if not (kf.near_route == "stencil" and not kf.surface_route
+            and kf._ops.m2l_route == "parity"):
+        raise SystemExit(f"chip_smoke: 8e took other routes: "
+                         f"{_describe(kf)}")
+    if not (np.isfinite(err) and err < F64_FACADE_BAR
+            and launches["p2p_stencil"] > 0 and launches["p2p_ulist"] > 0):
+        raise SystemExit(f"chip_smoke: 8e: error {err:.3e}, launches "
+                         f"{launches}")
+    for k, v in launches.items():
+        total[k] += v
+    summary["8e"] = dict(setup_s=setup_s, eval_s=med, stage_ms=stages,
+                         err=err, peak_gib=peak, launches=launches)
+    srows = phase_kernels(torch, kf, {
+        k: v for k, v in kernel_cases(kf, dtype=f64).items()
+        if k.startswith("p2p_stencil")})
+    rows.update(srows)
+    frows.update(phase_kernels(torch, kf, formula_cases(
+        kf, stages=("p2p_stencil",), dtype=f64)))
+
+    # the halo stencil and the two U-list calls alone on the run's tensors
+    n = 1 << kf.depth
+    fp, _ = kf.pad_density(f_dev)
+    f_h = to_halo(fp, kf.rast_to_mort, n)
+    ops = kf._ops
+    B = kf.src_tree.n_boxes
+    st_args = (LAP, n, kf.cap_s, kf.cap_t, kf.xt_rast, kf.xs_halo, f_h,
+               None, kf.cnt_s_rast, kf.cnt_t_rast)
+    xc_b = kf.surf_out_L.T.expand(B, -1, -1).contiguous()
+    s2m = (LAP, xc_b, kf.xs_sl, None, fp.reshape(-1, 1), kf.rng_s)
+    q_dn = torch.randn((B * ops.n_surf, 1), dtype=f64, device="cuda")
+    l2t = (LAP, kf.xt_sl.reshape(3, B, kf.cap_t).transpose(0, 1)
+           .contiguous(), kf.surf_out_L.T.repeat(1, B), None, q_dn,
+           kf.rng_e, kf.cnt_t_box)
+    cs = np.minimum(kf.src_tree.box_cnt, kf.cap_s)
+    ct = np.minimum(kf.trg_tree.box_cnt, kf.cap_t)
+    ulist_work = {
+        "p2p_ulist S2M": p2p_ulist_work(LAP, int(cs.sum()) * ops.n_surf,
+                                        B * ops.n_surf, int(cs.sum()), f64),
+        "p2p_ulist L2T": p2p_ulist_work(LAP, int(ct.sum()) * ops.n_surf,
+                                        int(ct.sum()), B * ops.n_surf, f64)}
+    main8e = f64_alone(torch, kf, {
+        "p2p_stencil": (lambda: p2p_stencil(*st_args),
+                        lambda: p2p_stencil_plain(*st_args),
+                        main_path_work(kf)["p2p_stencil"]),
+        "p2p_ulist S2M": (lambda: p2p_ulist(*s2m),
+                          lambda: p2p_ulist_plain(*s2m),
+                          ulist_work["p2p_ulist S2M"]),
+        "p2p_ulist L2T": (lambda: p2p_ulist(*l2t),
+                          lambda: p2p_ulist_plain(*l2t),
+                          ulist_work["p2p_ulist L2T"])}, "f64 8e")
+    st = stencil_times(torch, kf, f_h, "f64 8e")
+    main["p2p_stencil"] = dict(
+        main8e.pop("p2p_stencil"), every_slot_ms=st["every_slot_ms"],
+        **(issue_floor("p2p_stencil", "p2p_stencil_kernelIdLi0E",
+                       st["pairs"], "f64 8e", f64=True) or {}))
+    summary["8e"]["p2p_ulist"] = main8e
+    del fmm, kf, fp, f_h, st_args, s2m, l2t, q_dn, xc_b, f_dev, u
+    torch.cuda.empty_cache()
+
+    # ---- 8b: rungs 3 and 4 ----------------------------------------------
+    ladder = f64_ladder_inputs(torch)
+    for p, bar in RUNG_BARS.items():
+        err, launches = f64_rung(torch, fns, ladder, f"f64 8b rung "
+                                 f"{3 if p == 6 else 4}", bar, p)
+        summary[f"8b_p{p}"] = err
+        for k, v in launches.items():
+            total[k] += v
+
+    # ---- 8c: rung 7 on the committed hiprec tables ----------------------
+    for p in RUNG7_P:
+        lite = table_path(LAP.name, p, RUNG7_RCOND, True)[:-4] + "_lite.npz"
+        if not os.path.exists(lite):
+            raise SystemExit(f"chip_smoke: rung 7 reads the committed "
+                             f"table file {lite}, which is missing")
+        t = time.perf_counter()
+        unit_tables(LAP.name, p, RUNG7_RCOND, True)
+        log(f"f64 8c: hiprec tables p={p} read from {lite} and rebuilt in "
+            f"{time.perf_counter() - t:.2f} s")
+        err, launches = f64_rung(torch, fns, ladder, "f64 8c rung 7",
+                                 RUNG7_BAR, p, rcond=RUNG7_RCOND,
+                                 hiprec=True)
+        summary[f"8c_p{p}"] = err
+        for k, v in launches.items():
+            total[k] += v
+    unit_tables.cache_clear()                 # the hiprec tables' GBs
+    torch.cuda.empty_cache()
+    log(f"f64: float64 launches over 8b-8e {total}; on '{smi}'")
+    return rows, frows, main, total, summary
 
 
 def main():
@@ -2048,6 +2427,14 @@ def main():
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
         raise SystemExit("chip_smoke: a kernel was never launched")
+    torch.cuda.empty_cache()
+    r8, f8, m8, l8, f64_summary = phase_f64(torch, smi)
+    if not all(l8[k] > 0 for k in F64_BUILDS + ("p2p_ulist",)):
+        raise SystemExit(f"chip_smoke: a float64 build was never launched "
+                         f"in phase 8: {l8}")
+    main_rows["p2p_ulist"]["f64"].update(
+        phase8_launches=l8["p2p_ulist"],
+        phase8e=f64_summary["8e"].pop("p2p_ulist"))
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -2076,6 +2463,21 @@ def main():
                             "main_path_bound_tensor_core_ms", "levels",
                             "phase7", "rounding_spread",
                             "rounding_spread_6c", "f64")}))
+    # each float64 build: its case at the run's widths, its main path
+    # (8d, the halo stencil 8e), its launches over phase 8
+    for name in F64_BUILDS:
+        src, tpu = ROUTES[name]
+        r = r8[name + "[f64]"]
+        out.append(dict(
+            name=name + "[f64]", route="cuda", source=src, replaces=tpu,
+            launches=l8[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, case=r["case"],
+            max_rel_err=r["max_rel_err"], **m8[name],
+            cases={k: dict(max_rel_err=v["max_rel_err"], ms=v["ms"],
+                           plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+                   for k, v in f8.items() if k.startswith(name + "[")}))
+    log("f64 ladder: " + json.dumps(f64_summary))
     log("bie legs: " + json.dumps({"bie": bie_baseline,
                                    "bie_f64": bie_f64}))
     print(json.dumps({"kernels": out}), flush=True)

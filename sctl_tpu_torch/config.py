@@ -1,7 +1,7 @@
 """Runtime settings of the PyTorch port.
 
 Counterpart of `sctl_tpu/config.py:42-87`, cut to what the port reads:
-the default device and the float32 precision rule.
+the default device, the float32 precision rule and the data directory.
 There are no kernel toggles: a CUDA tensor goes through the hand-written
 kernel of its stage, a CPU tensor through that kernel's plain PyTorch
 version, and nothing selects between them but the tensor's device.
@@ -9,10 +9,20 @@ version, and nothing selects between them but the tensor's device.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 # Entry points run on the card unless the caller passes device="cpu".
 DEFAULT_DEVICE = "cuda"
+
+
+def data_path() -> str:
+    """The directory of precomputed tables the port reads (never
+    writes): SCTL_DATA_PATH, default ./data/ (sctl_tpu/config.py:56-57).
+    It holds the committed hiprec operator tables
+    (`fmm.kifmm.unit_tables`)."""
+    return os.environ.get("SCTL_DATA_PATH", "./data/")
 
 
 def set_precision() -> None:

@@ -41,6 +41,16 @@
 // stores fill adjacent target slots of a component row.  The TPU's hi/lo
 // one-hot expansion of the densities (pallas_sl.py:288-293) is not
 // carried over: a thread reads its box's records directly.
+//
+// The double build (the float64 KIFMM on the card) is the same kernel on
+// Real = double: the same real targets by the per-box counts, fresh
+// partial sums a tile, the lean double rsqrt (ukernels.cuh) and the same
+// summation order, so a launch repeats bit for bit.  A surface point's
+// values take two double2 records (four for Stokes3D-FSxU) where float's
+// take one float4 (two) (Rec16, common.cuh), so kSmem holds the records
+// of half as many boxes (at phase 4's widths still the threads' 16).
+// Bound: the DP pipe (64 lane-operations a clock per SM): 14 DP
+// instructions a Laplace pair (chip_smoke.py reads them from the SASS).
 #include "common.cuh"
 #include "ukernels.cuh"
 
@@ -52,22 +62,25 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxG = 16;           // boxes a block (a power of two)
 constexpr int kSmem = 96 * 1024;    // record bytes a block, for 2 an SM
 
-// float4 records of a surface point: x, y, z and the box's k0 densities
-template <int KER>
+// 16-byte records of a surface point: x, y, z and the box's k0 densities
+template <typename Real, int KER>
 __host__ __device__ constexpr int records() {
-  return (3 + sctl::Dims<KER>::k0 + 3) / 4;
+  return sctl::records_of<Real>(3 + sctl::Dims<KER>::k0);
 }
 
-template <int KER, int G>
+template <typename Real, int KER, int G>
 __global__ void __launch_bounds__(kMaxThreads)
-l2t_surface_kernel(const float* __restrict__ surf,
-                   const float* __restrict__ xt,
-                   const float* __restrict__ q,
-                   const int* __restrict__ cnt_t, float* __restrict__ out,
+l2t_surface_kernel(const Real* __restrict__ surf,
+                   const Real* __restrict__ xt,
+                   const Real* __restrict__ q,
+                   const int* __restrict__ cnt_t, Real* __restrict__ out,
                    int ns, int B, int cap_t) {
   using D = sctl::Dims<KER>;
-  constexpr int K0 = D::k0, K1 = D::k1, R = records<KER>();
-  extern __shared__ float4 rec[];           // (ns, G, R)
+  using V = sctl::Rec16<Real>;
+  using Rec = typename V::T;
+  constexpr int K0 = D::k0, K1 = D::k1, R = records<Real, KER>(), W = V::W;
+  extern __shared__ float4 rec_raw[];
+  Rec* rec = reinterpret_cast<Rec*>(rec_raw);   // (ns, G, R)
   // real targets of the block's boxes; the first thread of each box
   __shared__ int ct[G], toff[G + 1];
   const int b0 = blockIdx.x * G, nb = min(G, B - b0);
@@ -84,9 +97,9 @@ l2t_surface_kernel(const float* __restrict__ surf,
   // the records, the block's boxes adjacent for each surface point
   for (int i = tid; i < ns * G; i += blockDim.x) {
     const int m = i / G, j = i - m * G;
-    float v[4 * R];
+    Real v[W * R];
 #pragma unroll
-    for (int c = 0; c < 4 * R; ++c) v[c] = 0.f;
+    for (int c = 0; c < W * R; ++c) v[c] = Real(0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = surf[3 * m + c];
     if (j < nb) {
@@ -95,9 +108,7 @@ l2t_surface_kernel(const float* __restrict__ surf,
         v[3 + c] = q[((long)c * ns + m) * B + b0 + j];
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      rec[(long)i * R + r] =
-          make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
+    for (int r = 0; r < R; ++r) rec[(long)i * R + r] = V::pack(v + W * r);
   }
   // the padded target slots of the block's boxes come out zero
   const long T = (long)B * cap_t;
@@ -106,7 +117,7 @@ l2t_surface_kernel(const float* __restrict__ surf,
     if (t >= ct[j]) {
       const long slot = (long)b0 * cap_t + i;
 #pragma unroll
-      for (int c = 0; c < K1; ++c) out[c * T + slot] = 0.f;
+      for (int c = 0; c < K1; ++c) out[c * T + slot] = Real(0);
     }
   }
   __syncthreads();
@@ -116,39 +127,33 @@ l2t_surface_kernel(const float* __restrict__ surf,
     const int t0 = (g - toff[j]) * TPT;
     const int live = min(TPT, ct[j] - t0);
     const long slot = (long)(b0 + j) * cap_t + t0;
-    float x[TPT], y[TPT], z[TPT], acc[TPT][K1];
+    Real x[TPT], y[TPT], z[TPT], acc[TPT][K1];
 #pragma unroll
     for (int k = 0; k < TPT; ++k) {
       // a slot past the box's count sums a dummy and is not stored
-      x[k] = k < live ? xt[slot + k] : 0.f;
-      y[k] = k < live ? xt[T + slot + k] : 0.f;
-      z[k] = k < live ? xt[2 * T + slot + k] : 0.f;
+      x[k] = k < live ? xt[slot + k] : Real(0);
+      y[k] = k < live ? xt[T + slot + k] : Real(0);
+      z[k] = k < live ? xt[2 * T + slot + k] : Real(0);
 #pragma unroll
-      for (int c = 0; c < K1; ++c) acc[k][c] = 0.f;
+      for (int c = 0; c < K1; ++c) acc[k][c] = Real(0);
     }
-    const float4* rb = rec + j * R;    // (m, j) at rb[m * G * R]
+    const Rec* rb = rec + j * R;    // (m, j) at rb[m * G * R]
     for (int m0 = 0; m0 < ns; m0 += kTile) {
       const int m1 = min(ns, m0 + kTile);
-      float part[TPT][K1];
+      Real part[TPT][K1];
 #pragma unroll
       for (int k = 0; k < TPT; ++k)
 #pragma unroll
-        for (int c = 0; c < K1; ++c) part[k][c] = 0.f;
+        for (int c = 0; c < K1; ++c) part[k][c] = Real(0);
 #pragma unroll 4
       for (int m = m0; m < m1; ++m) {
-        float v[4 * R];
+        Real v[W * R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 s = rb[m * G * R + r];
-          v[4 * r] = s.x;
-          v[4 * r + 1] = s.y;
-          v[4 * r + 2] = s.z;
-          v[4 * r + 3] = s.w;
-        }
+        for (int r = 0; r < R; ++r) V::unpack(rb[m * G * R + r], v + W * r);
 #pragma unroll
         for (int k = 0; k < TPT; ++k)
           sctl::uker_acc<KER, true>(x[k] - v[0], y[k] - v[1], z[k] - v[2],
-                                    v + 3, (const float*)nullptr, part[k]);
+                                    v + 3, (const Real*)nullptr, part[k]);
       }
 #pragma unroll
       for (int k = 0; k < TPT; ++k)
@@ -169,11 +174,13 @@ l2t_surface_kernel(const float* __restrict__ surf,
 // threads of TPT targets, at most kMaxG boxes and kSmem bytes of records
 // (one box at least), a power of two, so that the records' stride is a
 // constant and the loop's loads take immediate offsets
-template <int KER>
+template <typename Real, int KER>
 void layout(int ns, int cap_t, int* G, int* threads) {
   const int per_box = (cap_t + TPT - 1) / TPT;
   int g = kMaxThreads / (per_box > 0 ? per_box : 1);
-  const int by_smem = kSmem / (int)(sizeof(float4) * records<KER>() * ns);
+  const int by_smem =
+      kSmem / (int)(sizeof(typename sctl::Rec16<Real>::T) *
+                    records<Real, KER>() * ns);
   g = g < by_smem ? g : by_smem;
   *G = 1;
   while (*G * 2 <= g && *G * 2 <= kMaxG) *G *= 2;
@@ -181,89 +188,119 @@ void layout(int ns, int cap_t, int* G, int* threads) {
   *threads = up < 32 ? 32 : up > kMaxThreads ? kMaxThreads : up;
 }
 
-template <int KER>
+template <typename Real, int KER>
 size_t smem_bytes(int ns, int G) {
-  return sizeof(float4) * records<KER>() * (size_t)ns * G;
+  return sizeof(typename sctl::Rec16<Real>::T) * records<Real, KER>() *
+         (size_t)ns * G;
 }
 
 // launch (blocks == null) or the resident blocks an SM (the occupancy
 // API) of the instantiation with G boxes a block
-template <int KER, int G>
-int run_g(const float* surf, const float* xt, const float* q,
-          const int* cnt_t, float* out, int ns, int B, int cap_t,
+template <typename Real, int KER, int G>
+int run_g(const Real* surf, const Real* xt, const Real* q,
+          const int* cnt_t, Real* out, int ns, int B, int cap_t,
           int threads, cudaStream_t stream, int* blocks) {
-  const size_t smem = smem_bytes<KER>(ns, G);
-  cudaError_t err = allow_smem(l2t_surface_kernel<KER, G>, smem);
+  const size_t smem = smem_bytes<Real, KER>(ns, G);
+  cudaError_t err = allow_smem(l2t_surface_kernel<Real, KER, G>, smem);
   if (err != cudaSuccess) return (int)err;
   if (blocks)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, l2t_surface_kernel<KER, G>, threads, smem);
-  l2t_surface_kernel<KER, G><<<(B + G - 1) / G, threads, smem, stream>>>(
-      surf, xt, q, cnt_t, out, ns, B, cap_t);
+        blocks, l2t_surface_kernel<Real, KER, G>, threads, smem);
+  l2t_surface_kernel<Real, KER, G>
+      <<<(B + G - 1) / G, threads, smem, stream>>>(surf, xt, q, cnt_t, out,
+                                                   ns, B, cap_t);
   return (int)cudaGetLastError();
 }
 
-template <int KER>
-int run_layout(const float* surf, const float* xt, const float* q,
-               const int* cnt_t, float* out, int ns, int B, int cap_t,
+template <typename Real, int KER>
+int run_layout(const Real* surf, const Real* xt, const Real* q,
+               const int* cnt_t, Real* out, int ns, int B, int cap_t,
                cudaStream_t stream, int* lay, int* blocks) {
   lay[0] = TPT;
-  layout<KER>(ns, cap_t, &lay[1], &lay[2]);
+  layout<Real, KER>(ns, cap_t, &lay[1], &lay[2]);
   switch (lay[1]) {
-    case 1: return run_g<KER, 1>(surf, xt, q, cnt_t, out, ns, B, cap_t,
-                                 lay[2], stream, blocks);
-    case 2: return run_g<KER, 2>(surf, xt, q, cnt_t, out, ns, B, cap_t,
-                                 lay[2], stream, blocks);
-    case 4: return run_g<KER, 4>(surf, xt, q, cnt_t, out, ns, B, cap_t,
-                                 lay[2], stream, blocks);
-    case 8: return run_g<KER, 8>(surf, xt, q, cnt_t, out, ns, B, cap_t,
-                                 lay[2], stream, blocks);
-    default: return run_g<KER, 16>(surf, xt, q, cnt_t, out, ns, B, cap_t,
-                                   lay[2], stream, blocks);
+    case 1: return run_g<Real, KER, 1>(surf, xt, q, cnt_t, out, ns, B,
+                                       cap_t, lay[2], stream, blocks);
+    case 2: return run_g<Real, KER, 2>(surf, xt, q, cnt_t, out, ns, B,
+                                       cap_t, lay[2], stream, blocks);
+    case 4: return run_g<Real, KER, 4>(surf, xt, q, cnt_t, out, ns, B,
+                                       cap_t, lay[2], stream, blocks);
+    case 8: return run_g<Real, KER, 8>(surf, xt, q, cnt_t, out, ns, B,
+                                       cap_t, lay[2], stream, blocks);
+    default: return run_g<Real, KER, 16>(surf, xt, q, cnt_t, out, ns, B,
+                                         cap_t, lay[2], stream, blocks);
   }
 }
 
-template <int KER>
+template <typename Real>
 struct Launch {
-  static int run(const float* surf, const float* xt, const float* q,
-                 const int* cnt_t, float* out, int ns, int B, int cap_t,
-                 cudaStream_t stream) {
-    int lay[3];
-    return run_layout<KER>(surf, xt, q, cnt_t, out, ns, B, cap_t, stream,
-                           lay, nullptr);
-  }
+  template <int KER>
+  struct Of {
+    static int run(const Real* surf, const Real* xt, const Real* q,
+                   const int* cnt_t, Real* out, int ns, int B, int cap_t,
+                   cudaStream_t stream) {
+      int lay[3];
+      return run_layout<Real, KER>(surf, xt, q, cnt_t, out, ns, B, cap_t,
+                                   stream, lay, nullptr);
+    }
+  };
 };
 
 // the block at these widths and the resident blocks an SM
-template <int KER>
+template <typename Real>
 struct Occupancy {
-  static int run(int ns, int cap_t, int* lay, int* blocks) {
-    return run_layout<KER>(nullptr, nullptr, nullptr, nullptr, nullptr, ns,
-                           0, cap_t, nullptr, lay, blocks);
-  }
+  template <int KER>
+  struct Of {
+    static int run(int ns, int cap_t, int* lay, int* blocks) {
+      return run_layout<Real, KER>(nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, ns, 0, cap_t, nullptr, lay,
+                                   blocks);
+    }
+  };
 };
+
+template <typename Real>
+int l2t_surface(const Real* surf, const Real* xt, const Real* q,
+                const int* cnt_t, Real* out, int ker, int ns, int B,
+                int cap_t, cudaStream_t stream) {
+  using namespace sctl;
+  return dispatch_formula<Launch<Real>::template Of, kLapFxU, kLapFxdU,
+                          kStkFSxU>(ker, surf, xt, q, cnt_t, out, ns, B,
+                                    cap_t, stream);
+}
 
 }  // namespace
 
 // surf (ns, 3), xt (3, B*cap_t), q (k0, ns, B), cnt_t (B) int32 real
 // targets of each box, its first (null: all cap_t), out (k1, B*cap_t);
-// float32.  ker: the formula index of ukernels.cuh, one of the L2T
-// kernels.
+// float32 (sctl_l2t_surface) or float64 (sctl_l2t_surface_f64).  ker:
+// the formula index of ukernels.cuh, one of the L2T kernels.
 SCTL_API int sctl_l2t_surface(const float* surf, const float* xt,
                               const float* q, const int* cnt_t, float* out,
                               int ker, int ns, int B, int cap_t,
                               cudaStream_t stream) {
-  using namespace sctl;
-  return dispatch_formula<Launch, kLapFxU, kLapFxdU, kStkFSxU>(
-      ker, surf, xt, q, cnt_t, out, ns, B, cap_t, stream);
+  return l2t_surface<float>(surf, xt, q, cnt_t, out, ker, ns, B, cap_t,
+                            stream);
 }
 
-// The block at (ns, cap_t), [targets a thread, boxes a block, threads a
-// block], into layout[0..2], and the resident blocks an SM of formula
-// ker into *blocks (the occupancy API).
-SCTL_API int sctl_l2t_surface_occupancy(int ker, int ns, int cap_t,
+SCTL_API int sctl_l2t_surface_f64(const double* surf, const double* xt,
+                                  const double* q, const int* cnt_t,
+                                  double* out, int ker, int ns, int B,
+                                  int cap_t, cudaStream_t stream) {
+  return l2t_surface<double>(surf, xt, q, cnt_t, out, ker, ns, B, cap_t,
+                             stream);
+}
+
+// The block at (ns, cap_t) of the float (f64 = 0) or double build,
+// [targets a thread, boxes a block, threads a block], into
+// layout[0..2], and the resident blocks an SM of formula ker into
+// *blocks (the occupancy API).
+SCTL_API int sctl_l2t_surface_occupancy(int ker, int f64, int ns, int cap_t,
                                         int* layout, int* blocks) {
   using namespace sctl;
-  return dispatch_formula<Occupancy, kLapFxU, kLapFxdU, kStkFSxU>(
-      ker, ns, cap_t, layout, blocks);
+  if (f64)
+    return dispatch_formula<Occupancy<double>::Of, kLapFxU, kLapFxdU,
+                            kStkFSxU>(ker, ns, cap_t, layout, blocks);
+  return dispatch_formula<Occupancy<float>::Of, kLapFxU, kLapFxdU,
+                          kStkFSxU>(ker, ns, cap_t, layout, blocks);
 }

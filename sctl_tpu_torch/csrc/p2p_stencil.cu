@@ -51,6 +51,18 @@
 // reached 5.006e-6 of the maximum against a float64 sum (Stokes DxU),
 // over its 5e-6 bar.  The two lanes of a target group meet by one warp
 // shuffle: no atomics, so a launch repeats bit for bit.
+//
+// The double build (the float64 KIFMM and ParticleFMM on the card) is
+// the same kernel on Real = double: the same real slots by the per-box
+// counts, fresh partial sums a tile, the lean double rsqrt
+// (ukernels.cuh) and the same summation order and shuffle, so a launch
+// repeats bit for bit.  A slot's (x, y, z, f_0) take two double2 records
+// where float's take one float4 (Rec16, common.cuh); the tile stays 512
+// slots, so the static shared memory is 16 KB of records and at most
+// 20 KB of further planes (Stokes3D-DxU), 36 KB, under the 48 KB a block
+// takes without the opt-in.  Bound: the DP pipe (64 lane-operations a
+// clock per SM): 14 DP instructions a Laplace pair (chip_smoke.py reads
+// them from the SASS).
 #include "common.cuh"
 #include "ukernels.cuh"
 
@@ -61,20 +73,22 @@ constexpr int kMaxThreads = 512;
 constexpr int R = 2;               // targets a thread
 constexpr int S = 2;               // lanes sharing a target group's sources
 
-template <int KER>
+template <typename Real, int KER>
 __global__ void __launch_bounds__(kMaxThreads)
-p2p_stencil_kernel(const float* __restrict__ xt,
-                   const float* __restrict__ xs,
-                   const float* __restrict__ ns,
-                   const float* __restrict__ f,
+p2p_stencil_kernel(const Real* __restrict__ xt,
+                   const Real* __restrict__ xs,
+                   const Real* __restrict__ ns,
+                   const Real* __restrict__ f,
                    const int* __restrict__ cnt_s,
-                   const int* __restrict__ cnt_t, float* __restrict__ out,
+                   const int* __restrict__ cnt_t, Real* __restrict__ out,
                    int n, int cap, int cap_t) {
   using D = sctl::Dims<KER>;
+  using V = sctl::Rec16<Real>;
   constexpr int K0 = D::k0, K1 = D::k1, NN = D::nrm ? 3 : 0;
-  constexpr int E = K0 - 1 + NN;           // planes beyond the float4
-  __shared__ float4 win[kTile];
-  __shared__ float ext[E > 0 ? E : 1][kTile];
+  constexpr int E = K0 - 1 + NN;           // planes beyond (x, y, z, f_0)
+  constexpr int W = V::W, R0 = 4 / W;      // records of (x, y, z, f_0)
+  __shared__ typename V::T win[kTile * R0];
+  __shared__ Real ext[E > 0 ? E : 1][kTile];
   const long box = blockIdx.x;             // (x n + y) n + z
   const int x = (int)(box / ((long)n * n)), y = (int)(box / n % n),
             z = (int)(box % n);
@@ -83,8 +97,8 @@ p2p_stencil_kernel(const float* __restrict__ xt,
   const int t0 = blk_t0 + (int)(threadIdx.x / S) * R;
   const int nt = cnt_t ? max(0, min(cnt_t[box], cap_t)) : cap_t;
   const bool live = t0 < nt;
-  const float* xb = xt + box * 3 * cap_t;
-  float px[R], py[R], pz[R];
+  const Real* xb = xt + box * 3 * cap_t;
+  Real px[R], py[R], pz[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = min(t0 + r, cap_t - 1);
@@ -92,11 +106,11 @@ p2p_stencil_kernel(const float* __restrict__ xt,
     py[r] = xb[cap_t + t];
     pz[r] = xb[2 * cap_t + t];
   }
-  float acc[R][K1];
+  Real acc[R][K1];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < K1; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < K1; ++j) acc[r][j] = Real(0);
 
   const long L = (long)(n + 2) * cap;      // slots of a column
   // blocks without a real target only write zeros (uniform branch)
@@ -116,9 +130,9 @@ p2p_stencil_kernel(const float* __restrict__ xt,
                                : cap;
     }
     const int m_all = len[0] + len[1] + len[2];
-    const float* xc = xs + col * 3 * L;
-    const float* fc = f + col * K0 * L;
-    const float* nc = NN ? ns + col * 3 * L : nullptr;
+    const Real* xc = xs + col * 3 * L;
+    const Real* fc = f + col * K0 * L;
+    const Real* nc = NN ? ns + col * 3 * L : nullptr;
     for (int s0 = 0; s0 < m_all; s0 += kTile) {
       const int m = min(kTile, m_all - s0);
       __syncthreads();                     // the last tile is consumed
@@ -127,7 +141,9 @@ p2p_stencil_kernel(const float* __restrict__ xt,
         const long g = v < len[0] ? beg[0] + v
                        : v < len[0] + len[1] ? beg[1] + (v - len[0])
                                              : beg[2] + (v - len[0] - len[1]);
-        win[i] = make_float4(xc[g], xc[L + g], xc[2 * L + g], fc[g]);
+        const Real rec[4] = {xc[g], xc[L + g], xc[2 * L + g], fc[g]};
+#pragma unroll
+        for (int r = 0; r < R0; ++r) win[i * R0 + r] = V::pack(rec + W * r);
 #pragma unroll
         for (int c = 1; c < K0; ++c) ext[c - 1][i] = fc[c * L + g];
 #pragma unroll
@@ -135,23 +151,25 @@ p2p_stencil_kernel(const float* __restrict__ xt,
       }
       __syncthreads();
       if (!live) continue;
-      float part[R][K1];
+      Real part[R][K1];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int j = 0; j < K1; ++j) part[r][j] = 0.f;
+        for (int j = 0; j < K1; ++j) part[r][j] = Real(0);
 #pragma unroll (8 / R)
       for (int i = sub; i < m; i += S) {
-        const float4 q = win[i];
-        float fv[K0], nv[3];
-        fv[0] = q.w;
+        Real q[4];
+#pragma unroll
+        for (int r = 0; r < R0; ++r) V::unpack(win[i * R0 + r], q + W * r);
+        Real fv[K0], nv[3];
+        fv[0] = q[3];
 #pragma unroll
         for (int c = 1; c < K0; ++c) fv[c] = ext[c - 1][i];
 #pragma unroll
         for (int c = 0; c < NN; ++c) nv[c] = ext[K0 - 1 + c][i];
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          sctl::uker_acc<KER, true>(px[r] - q.x, py[r] - q.y, pz[r] - q.z,
+          sctl::uker_acc<KER, true>(px[r] - q[0], py[r] - q[1], pz[r] - q[2],
                                     fv, nv, part[r]);
       }
 #pragma unroll
@@ -169,47 +187,69 @@ p2p_stencil_kernel(const float* __restrict__ xt,
       for (int j = 0; j < K1; ++j)
         acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
   if (sub) return;
-  float* o = out + box * cap_t * K1;
+  Real* o = out + box * cap_t * K1;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = t0 + r;
     if (t >= cap_t) break;
 #pragma unroll
-    for (int j = 0; j < K1; ++j) o[t * K1 + j] = t < nt ? acc[r][j] : 0.f;
+    for (int j = 0; j < K1; ++j) o[t * K1 + j] = t < nt ? acc[r][j] : Real(0);
   }
 }
 
-template <int KER>
+template <typename Real>
 struct Launch {
-  static int run(const float* xt, const float* xs, const float* ns,
-                 const float* f, const int* cnt_s, const int* cnt_t,
-                 float* out, int n, int cap, int cap_t, cudaStream_t stream) {
-    // ceil(cap_t / R) S threads rounded to a warp, at most kMaxThreads
-    const int up = ((cap_t + R - 1) / R * S + 31) / 32 * 32;
-    const int threads = up < kMaxThreads ? up : kMaxThreads;
-    const int per_block = threads / S * R;
-    dim3 grid(n * n * n, (cap_t + per_block - 1) / per_block);
-    p2p_stencil_kernel<KER><<<grid, threads, 0, stream>>>(
-        xt, xs, ns, f, cnt_s, cnt_t, out, n, cap, cap_t);
-    return (int)cudaGetLastError();
-  }
+  template <int KER>
+  struct Of {
+    static int run(const Real* xt, const Real* xs, const Real* ns,
+                   const Real* f, const int* cnt_s, const int* cnt_t,
+                   Real* out, int n, int cap, int cap_t,
+                   cudaStream_t stream) {
+      // ceil(cap_t / R) S threads rounded to a warp, at most kMaxThreads
+      const int up = ((cap_t + R - 1) / R * S + 31) / 32 * 32;
+      const int threads = up < kMaxThreads ? up : kMaxThreads;
+      const int per_block = threads / S * R;
+      dim3 grid(n * n * n, (cap_t + per_block - 1) / per_block);
+      p2p_stencil_kernel<Real, KER><<<grid, threads, 0, stream>>>(
+          xt, xs, ns, f, cnt_s, cnt_t, out, n, cap, cap_t);
+      return (int)cudaGetLastError();
+    }
+  };
 };
+
+template <typename Real>
+int p2p_stencil(const Real* xt, const Real* xs, const Real* ns,
+                const Real* f, const int* cnt_s, const int* cnt_t,
+                Real* out, int ker, int n, int cap, int cap_t,
+                cudaStream_t stream) {
+  using namespace sctl;
+  return dispatch_formula<Launch<Real>::template Of, kLapFxU, kLapDxU,
+                          kLapFxdU, kStkFxU, kStkDxU, kStkFSxU>(
+      ker, xt, xs, ns, f, cnt_s, cnt_t, out, n, cap, cap_t, stream);
+}
 
 }  // namespace
 
 // xt (n, n, n, 3, cap_t), xs (n, n, 3, (n+2) cap), ns (n, n, 3,
 // (n+2) cap) (double layers only, else null), f (n, n, k0, (n+2) cap),
 // cnt_s, cnt_t (n, n, n) int32 real slots a box (null: all), out (n, n,
-// n, cap_t, k1); float32.  ker: the formula index of ukernels.cuh, one
+// n, cap_t, k1); float32 (sctl_p2p_stencil) or float64
+// (sctl_p2p_stencil_f64).  ker: the formula index of ukernels.cuh, one
 // of the six kernels with a tree path.
 SCTL_API int sctl_p2p_stencil(const float* xt, const float* xs,
                               const float* ns, const float* f,
                               const int* cnt_s, const int* cnt_t,
                               float* out, int ker, int n, int cap, int cap_t,
                               cudaStream_t stream) {
-  using namespace sctl;
-  return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, cnt_s,
-                                             cnt_t, out, n, cap, cap_t,
-                                             stream);
+  return p2p_stencil<float>(xt, xs, ns, f, cnt_s, cnt_t, out, ker, n, cap,
+                            cap_t, stream);
+}
+
+SCTL_API int sctl_p2p_stencil_f64(const double* xt, const double* xs,
+                                  const double* ns, const double* f,
+                                  const int* cnt_s, const int* cnt_t,
+                                  double* out, int ker, int n, int cap,
+                                  int cap_t, cudaStream_t stream) {
+  return p2p_stencil<double>(xt, xs, ns, f, cnt_s, cnt_t, out, ker, n, cap,
+                             cap_t, stream);
 }

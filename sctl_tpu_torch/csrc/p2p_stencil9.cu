@@ -42,6 +42,20 @@
 // to 5.0e-6 of the maximum) in the lean formula form, 8 pairs a loop
 // pass; the two lanes meet by one warp shuffle.  No atomics: a launch
 // repeats bit for bit.
+//
+// The double build (the float64 KIFMM on the card) is the same kernel on
+// Real = double: the same compacted entries and counts, fresh partial
+// sums an entry, the lean double rsqrt (ukernels.cuh) and the same
+// summation order and shuffle, so a launch repeats bit for bit.  A
+// slot's (x, y, z, f_0) take two double2 records where float's take one
+// float4 (Rec16, common.cuh), and the further planes are double: phase
+// 4's window (6 SL slots of 4 values, SL 512) is 98 KB against 49 KB, so
+// 2 blocks an SM fit where float fits 4 (the route rule `stencil9_fits`
+// counts 8 bytes a value).  The block takes at most 512 threads, so that
+// the double sums keep 128 registers a thread (targets past 256 lanes'
+// worth go in passes).  Bound: the DP pipe (64 lane-operations a clock
+// per SM): 14 DP instructions a Laplace pair (chip_smoke.py reads them
+// from the SASS).
 #include "common.cuh"
 #include "ukernels.cuh"
 
@@ -49,26 +63,35 @@ namespace {
 
 constexpr int kZ = 4;               // z boxes per block
 constexpr int S = 2;                // lanes a target
-constexpr int kMaxThreads = 1024;
 
-// float planes beyond the float4 (x, y, z, f_0) of a slot
+// threads a block at most: 1,024 in float, 512 in double
+template <typename Real>
+__host__ __device__ constexpr int max_threads() {
+  return sizeof(Real) == 4 ? 1024 : 512;
+}
+
+// planes beyond the (x, y, z, f_0) of a slot
 template <int KER>
 constexpr int extra_planes() {
   return sctl::Dims<KER>::k0 - 1 + (sctl::Dims<KER>::nrm ? 3 : 0);
 }
 
-template <int KER>
-__global__ void __launch_bounds__(kMaxThreads)
-p2p_stencil9_kernel(const float* __restrict__ xt,
-                    const float* __restrict__ xs,
-                    const float* __restrict__ ns,
-                    const float* __restrict__ f,
+template <typename Real, int KER>
+__global__ void __launch_bounds__(max_threads<Real>())
+p2p_stencil9_kernel(const Real* __restrict__ xt,
+                    const Real* __restrict__ xs,
+                    const Real* __restrict__ ns,
+                    const Real* __restrict__ f,
                     const int* __restrict__ cnt9,
-                    const int* __restrict__ cnt_t, float* __restrict__ out,
+                    const int* __restrict__ cnt_t, Real* __restrict__ out,
                     int n, int SL, int cap_t) {
   using D = sctl::Dims<KER>;
+  using V = sctl::Rec16<Real>;
+  using Rec = typename V::T;
   constexpr int K0 = D::k0, K1 = D::k1, NN = D::nrm ? 3 : 0;
-  extern __shared__ float4 win[];
+  constexpr int W = V::W, R0 = 4 / W;      // records of (x, y, z, f_0)
+  extern __shared__ float4 smem[];
+  Rec* win = reinterpret_cast<Rec*>(smem);
   // real slots of the block's 6 entries and real targets of its 4
   // boxes; then the staged offset of each entry and each box's first
   // thread
@@ -95,18 +118,20 @@ p2p_stencil9_kernel(const float* __restrict__ xt,
   __syncthreads();
 
   const long slab = (long)(n + 2) * SL;
-  const float* xc = xs + (long)col * 3 * slab;
-  const float* nc = NN ? ns + (long)col * 3 * slab : nullptr;
-  const float* fc = f + (long)col * K0 * slab;
+  const Real* xc = xs + (long)col * 3 * slab;
+  const Real* nc = NN ? ns + (long)col * 3 * slab : nullptr;
+  const Real* fc = f + (long)col * K0 * slab;
   const int Wmax = (kZ + 2) * SL;
-  float* ext = reinterpret_cast<float*>(win + Wmax);   // (E, Wmax)
+  Real* ext = reinterpret_cast<Real*>(win + Wmax * R0);   // (E, Wmax)
   for (int j = 0; j < nz + 2; ++j) {
     const int m = c9[j];
     const long g0 = (long)(z0 + j) * SL;
     for (int i = tid; i < m; i += blockDim.x) {
       const long g = g0 + i;
       const int w = soff[j] + i;
-      win[w] = make_float4(xc[g], xc[slab + g], xc[2 * slab + g], fc[g]);
+      const Real v[4] = {xc[g], xc[slab + g], xc[2 * slab + g], fc[g]};
+#pragma unroll
+      for (int r = 0; r < R0; ++r) win[w * R0 + r] = V::pack(v + W * r);
 #pragma unroll
       for (int c = 1; c < K0; ++c) ext[(c - 1) * Wmax + w] = fc[c * slab + g];
 #pragma unroll
@@ -119,9 +144,9 @@ p2p_stencil9_kernel(const float* __restrict__ xt,
   for (int i = tid; i < nz * cap_t; i += blockDim.x) {
     const int zl = i / cap_t, t = i - zl * cap_t;
     if (t >= ct[zl]) {
-      float* o = out + ((box0 + zl) * cap_t + t) * K1;
+      Real* o = out + ((box0 + zl) * cap_t + t) * K1;
 #pragma unroll
-      for (int j = 0; j < K1; ++j) o[j] = 0.f;
+      for (int j = 0; j < K1; ++j) o[j] = Real(0);
     }
   }
   __syncthreads();
@@ -135,32 +160,35 @@ p2p_stencil9_kernel(const float* __restrict__ xt,
 #pragma unroll
     for (int j = 1; j < kZ; ++j) zl += g >= toff[j];
     const int t = g - toff[zl];
-    const float* xb = xt + (box0 + zl) * 3 * cap_t;
-    float x = 0.f, y = 0.f, z = 0.f;
+    const Real* xb = xt + (box0 + zl) * 3 * cap_t;
+    Real x = Real(0), y = Real(0), z = Real(0);
     if (live) {
       x = xb[t];
       y = xb[cap_t + t];
       z = xb[2 * cap_t + t];
     }
-    float acc[K1];
+    Real acc[K1];
 #pragma unroll
-    for (int j = 0; j < K1; ++j) acc[j] = 0.f;
+    for (int j = 0; j < K1; ++j) acc[j] = Real(0);
 #pragma unroll 1
     for (int e = zl; live && e < zl + 3; ++e) {   // the window's entries
-      float part[K1];
+      Real part[K1];
 #pragma unroll
-      for (int j = 0; j < K1; ++j) part[j] = 0.f;
+      for (int j = 0; j < K1; ++j) part[j] = Real(0);
       const int hi = soff[e + 1];
 #pragma unroll 8
       for (int s = soff[e] + sub; s < hi; s += S) {
-        const float4 q = win[s];
-        float fv[K0], nv[3];
-        fv[0] = q.w;
+        Real q[4];
+#pragma unroll
+        for (int r = 0; r < R0; ++r) V::unpack(win[s * R0 + r], q + W * r);
+        Real fv[K0], nv[3];
+        fv[0] = q[3];
 #pragma unroll
         for (int c = 1; c < K0; ++c) fv[c] = ext[(c - 1) * Wmax + s];
 #pragma unroll
         for (int c = 0; c < NN; ++c) nv[c] = ext[(K0 - 1 + c) * Wmax + s];
-        sctl::uker_acc<KER, true>(x - q.x, y - q.y, z - q.z, fv, nv, part);
+        sctl::uker_acc<KER, true>(x - q[0], y - q[1], z - q[2], fv, nv,
+                                  part);
       }
 #pragma unroll
       for (int j = 0; j < K1; ++j) acc[j] += part[j];
@@ -172,7 +200,7 @@ p2p_stencil9_kernel(const float* __restrict__ xt,
       for (int j = 0; j < K1; ++j)
         acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
     if (live && sub == 0) {
-      float* o = out + ((box0 + zl) * cap_t + t) * K1;
+      Real* o = out + ((box0 + zl) * cap_t + t) * K1;
 #pragma unroll
       for (int j = 0; j < K1; ++j) o[j] = acc[j];
     }
@@ -180,46 +208,65 @@ p2p_stencil9_kernel(const float* __restrict__ xt,
 }
 
 // S lanes for each target slot of kZ boxes, rounded to a warp, at most
-// kMaxThreads
+// max_threads
+template <typename Real>
 int threads(int cap_t) {
   const int up = (S * kZ * cap_t + 31) / 32 * 32;
-  return up < kMaxThreads ? up : kMaxThreads;
+  return up < max_threads<Real>() ? up : max_threads<Real>();
 }
 
-template <int KER>
+template <typename Real, int KER>
 size_t smem_bytes(int SL) {
-  return (sizeof(float4) + sizeof(float) * extra_planes<KER>())
-         * (size_t)(kZ + 2) * SL;
+  return sizeof(Real) * (4 + extra_planes<KER>()) * (size_t)(kZ + 2) * SL;
 }
 
-template <int KER>
+template <typename Real>
 struct Launch {
-  static int run(const float* xt, const float* xs, const float* ns,
-                 const float* f, const int* cnt9, const int* cnt_t,
-                 float* out, int n, int SL, int cap_t, cudaStream_t stream) {
-    const size_t smem = smem_bytes<KER>(SL);
-    cudaError_t err = allow_smem(p2p_stencil9_kernel<KER>, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((n + kZ - 1) / kZ, n * n);
-    p2p_stencil9_kernel<KER><<<grid, threads(cap_t), smem, stream>>>(
-        xt, xs, ns, f, cnt9, cnt_t, out, n, SL, cap_t);
-    return (int)cudaGetLastError();
-  }
+  template <int KER>
+  struct Of {
+    static int run(const Real* xt, const Real* xs, const Real* ns,
+                   const Real* f, const int* cnt9, const int* cnt_t,
+                   Real* out, int n, int SL, int cap_t,
+                   cudaStream_t stream) {
+      const size_t smem = smem_bytes<Real, KER>(SL);
+      cudaError_t err = allow_smem(p2p_stencil9_kernel<Real, KER>, smem);
+      if (err != cudaSuccess) return (int)err;
+      dim3 grid((n + kZ - 1) / kZ, n * n);
+      p2p_stencil9_kernel<Real, KER>
+          <<<grid, threads<Real>(cap_t), smem, stream>>>(
+              xt, xs, ns, f, cnt9, cnt_t, out, n, SL, cap_t);
+      return (int)cudaGetLastError();
+    }
+  };
 };
 
 // resident blocks an SM at these widths, from the occupancy API
-template <int KER>
+template <typename Real>
 struct Occupancy {
-  static int run(int SL, int cap_t, int* layout, int* blocks) {
-    layout[0] = S;
-    layout[1] = threads(cap_t);
-    const size_t smem = smem_bytes<KER>(SL);
-    cudaError_t err = allow_smem(p2p_stencil9_kernel<KER>, smem);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, p2p_stencil9_kernel<KER>, threads(cap_t), smem);
-  }
+  template <int KER>
+  struct Of {
+    static int run(int SL, int cap_t, int* layout, int* blocks) {
+      layout[0] = S;
+      layout[1] = threads<Real>(cap_t);
+      const size_t smem = smem_bytes<Real, KER>(SL);
+      cudaError_t err = allow_smem(p2p_stencil9_kernel<Real, KER>, smem);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, p2p_stencil9_kernel<Real, KER>, layout[1], smem);
+    }
+  };
 };
+
+template <typename Real>
+int p2p_stencil9(const Real* xt, const Real* xs, const Real* ns,
+                 const Real* f, const int* cnt9, const int* cnt_t,
+                 Real* out, int ker, int n, int SL, int cap_t,
+                 cudaStream_t stream) {
+  using namespace sctl;
+  return dispatch_formula<Launch<Real>::template Of, kLapFxU, kLapDxU,
+                          kLapFxdU, kStkFxU, kStkDxU, kStkFSxU>(
+      ker, xt, xs, ns, f, cnt9, cnt_t, out, n, SL, cap_t, stream);
+}
 
 }  // namespace
 
@@ -227,25 +274,39 @@ struct Occupancy {
 // (n+2)*SL) (double layers only, else null), f (n, n, k0, (n+2)*SL),
 // cnt9 (n, n, n+2) int32 real slots of each slab entry, its first (null:
 // all SL), cnt_t (n, n, n) int32 real target slots (null: all cap_t),
-// out (n, n, n, cap_t, k1); float32.  ker: the formula index of
-// ukernels.cuh, one of the six kernels with a tree path.
+// out (n, n, n, cap_t, k1); float32 (sctl_p2p_stencil9) or float64
+// (sctl_p2p_stencil9_f64).  ker: the formula index of ukernels.cuh, one
+// of the six kernels with a tree path.
 SCTL_API int sctl_p2p_stencil9(const float* xt, const float* xs,
                                const float* ns, const float* f,
                                const int* cnt9, const int* cnt_t, float* out,
                                int ker, int n, int SL, int cap_t,
                                cudaStream_t stream) {
-  using namespace sctl;
-  return dispatch_formula<Launch, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, xt, xs, ns, f, cnt9, cnt_t,
-                                             out, n, SL, cap_t, stream);
+  return p2p_stencil9<float>(xt, xs, ns, f, cnt9, cnt_t, out, ker, n, SL,
+                             cap_t, stream);
 }
 
-// The block at (SL, cap_t), [lanes a target, threads], into
-// layout[0..1], and the resident blocks an SM of formula ker into
-// *blocks (the occupancy API).
-SCTL_API int sctl_p2p_stencil9_occupancy(int ker, int SL, int cap_t,
-                                         int* layout, int* blocks) {
+SCTL_API int sctl_p2p_stencil9_f64(const double* xt, const double* xs,
+                                   const double* ns, const double* f,
+                                   const int* cnt9, const int* cnt_t,
+                                   double* out, int ker, int n, int SL,
+                                   int cap_t, cudaStream_t stream) {
+  return p2p_stencil9<double>(xt, xs, ns, f, cnt9, cnt_t, out, ker, n, SL,
+                              cap_t, stream);
+}
+
+// The block at (SL, cap_t) of the float (f64 = 0) or double build,
+// [lanes a target, threads], into layout[0..1], and the resident blocks
+// an SM of formula ker into *blocks (the occupancy API).
+SCTL_API int sctl_p2p_stencil9_occupancy(int ker, int f64, int SL,
+                                         int cap_t, int* layout,
+                                         int* blocks) {
   using namespace sctl;
-  return dispatch_formula<Occupancy, kLapFxU, kLapDxU, kLapFxdU, kStkFxU,
-                          kStkDxU, kStkFSxU>(ker, SL, cap_t, layout, blocks);
+  if (f64)
+    return dispatch_formula<Occupancy<double>::Of, kLapFxU, kLapDxU,
+                            kLapFxdU, kStkFxU, kStkDxU, kStkFSxU>(
+        ker, SL, cap_t, layout, blocks);
+  return dispatch_formula<Occupancy<float>::Of, kLapFxU, kLapDxU, kLapFxdU,
+                          kStkFxU, kStkDxU, kStkFSxU>(ker, SL, cap_t, layout,
+                                                      blocks);
 }

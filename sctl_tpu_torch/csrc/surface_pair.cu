@@ -48,6 +48,19 @@
 // (sctl_tpu_torch/surface_sweep.py times kMaxK = 1, 2 and 4).  The
 // TPU's bf16 hi/lo one-hot matmuls (pallas_sl.py:62-68) serve its matrix
 // unit only and are not carried over.
+//
+// The double build (the float64 KIFMM on the card) is the same kernel on
+// Real = double: the same real slots and per-box counts, fresh partial
+// sums a tile, the lean double rsqrt (a MUFU seed and two Newton steps,
+// ukernels.cuh) and the same summation order, so a launch repeats bit
+// for bit.  A source's values take two double2 records where float's
+// take one float4 (Rec16, common.cuh): the warp-wide broadcast reads
+// stay single 16-byte loads.  A lane holds at most 5 surface points
+// (kMaxMC of double), so p = 8 (ns 296) takes two passes: 10 points of
+// double sums would pass the registers of 256 threads.  The output
+// stage's doubles halve the boxes a warp (2 at p = 6).  Bound: the DP
+// pipe (64 lane-operations a clock per SM): 14 DP instructions a Laplace
+// pair (chip_smoke.py reads them from the SASS).
 #include "common.cuh"
 #include "ukernels.cuh"
 
@@ -55,84 +68,94 @@ namespace {
 
 constexpr int kWarps = 8;    // warps a block
 constexpr int kTile = 64;    // sources staged at a time, summed apart
-constexpr int kMaxMC = 10;   // surface points a lane in one pass
 constexpr int kStageBytes = 40 * 1024;  // output stage budget
 constexpr int kMaxK = 4;     // boxes a warp at most (a power of two)
 
-// float4 records of a source: x, y, z, the k0 densities, the normal
-template <int KER>
+// surface points a lane in one pass at most
+template <typename Real>
+__host__ __device__ constexpr int max_mc() {
+  return sizeof(Real) == 4 ? 10 : 5;
+}
+
+// 16-byte records of a source: x, y, z, the k0 densities, the normal
+template <typename Real, int KER>
 __host__ __device__ constexpr int records() {
-  return (3 + sctl::Dims<KER>::k0 + (sctl::Dims<KER>::nrm ? 3 : 0) + 3) / 4;
+  return sctl::records_of<Real>(3 + sctl::Dims<KER>::k0 +
+                                (sctl::Dims<KER>::nrm ? 3 : 0));
 }
 
 // boxes a warp takes in turn: the most of kMaxK, kMaxK / 2, ..., 1
-// whose stage (k1 rows of 32 MC surface points, kWarps K + 1 floats
+// whose stage (k1 rows of 32 MC surface points, kWarps K + 1 values
 // each) fits kStageBytes
-template <int KER, int MC>
+template <typename Real, int KER, int MC>
 __host__ __device__ constexpr int boxes_per_warp(int k = kMaxK) {
-  return k == 1 || sctl::Dims<KER>::k1 * 32 * MC * 4 * (kWarps * k + 1) <=
-                       kStageBytes
+  return k == 1 || sctl::Dims<KER>::k1 * 32 * MC * (int)sizeof(Real) *
+                           (kWarps * k + 1) <= kStageBytes
              ? k
-             : boxes_per_warp<KER, MC>(k / 2);
+             : boxes_per_warp<Real, KER, MC>(k / 2);
 }
 
 // dynamic shared memory of a block: the warps' source tiles and the
 // output stage
-template <int KER, int MC>
+template <typename Real, int KER, int MC>
 constexpr size_t smem_bytes() {
-  return sizeof(float4) * kWarps * kTile * records<KER>() +
-         sizeof(float) * sctl::Dims<KER>::k1 * 32 * MC *
-             (kWarps * boxes_per_warp<KER, MC>() + 1);
+  return sizeof(typename sctl::Rec16<Real>::T) * kWarps * kTile *
+             records<Real, KER>() +
+         sizeof(Real) * sctl::Dims<KER>::k1 * 32 * MC *
+             (kWarps * boxes_per_warp<Real, KER, MC>() + 1);
 }
 
-template <int KER, int MC>
+template <typename Real, int KER, int MC>
 __global__ void __launch_bounds__(kWarps * 32)
-surface_pair_kernel(const float* __restrict__ surf,
-                    const float* __restrict__ pts,
-                    const float* __restrict__ nrm,
-                    const float* __restrict__ f,
-                    const int* __restrict__ cnt, float* __restrict__ out,
+surface_pair_kernel(const Real* __restrict__ surf,
+                    const Real* __restrict__ pts,
+                    const Real* __restrict__ nrm,
+                    const Real* __restrict__ f,
+                    const int* __restrict__ cnt, Real* __restrict__ out,
                     int ns, int B, int cap) {
   using D = sctl::Dims<KER>;
+  using V = sctl::Rec16<Real>;
+  using Rec = typename V::T;
   constexpr int K0 = D::k0, K1 = D::k1, NN = D::nrm ? 3 : 0;
-  constexpr int R = records<KER>(), NP = 32 * MC;
-  constexpr int K = boxes_per_warp<KER, MC>(), BB = kWarps * K;
+  constexpr int R = records<Real, KER>(), W = V::W, NP = 32 * MC;
+  constexpr int K = boxes_per_warp<Real, KER, MC>(), BB = kWarps * K;
   constexpr int ROW = BB + 1;
   extern __shared__ float4 smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = blockIdx.x * BB;
   const int nb = min(BB, B - b0);
   const long N = (long)B * cap;
-  float4* st = smem + warp * kTile * R;
-  float* so = reinterpret_cast<float*>(smem + kWarps * kTile * R);
+  Rec* st = reinterpret_cast<Rec*>(smem) + warp * kTile * R;
+  Real* so = reinterpret_cast<Real*>(reinterpret_cast<Rec*>(smem) +
+                                     kWarps * kTile * R);
   for (int m0 = 0; m0 < ns; m0 += NP) {   // passes over the surface
-    float cx[MC], cy[MC], cz[MC];
+    Real cx[MC], cy[MC], cz[MC];
 #pragma unroll
     for (int i = 0; i < MC; ++i) {
       const int m = m0 + lane + 32 * i;
       // a point past ns sums a dummy and is not stored
-      cx[i] = m < ns ? surf[3 * m] : 0.f;
-      cy[i] = m < ns ? surf[3 * m + 1] : 0.f;
-      cz[i] = m < ns ? surf[3 * m + 2] : 0.f;
+      cx[i] = m < ns ? surf[3 * m] : Real(0);
+      cy[i] = m < ns ? surf[3 * m + 1] : Real(0);
+      cz[i] = m < ns ? surf[3 * m + 2] : Real(0);
     }
     for (int k = 0; k < K; ++k) {      // the warp's boxes in turn
       // column c of the stage; a box past the last runs no tile
       const int c = warp * K + k, b = b0 + c;
       const int n = b >= B ? 0 : cnt ? max(0, min(cnt[b], cap)) : cap;
       const long g0 = (long)b * cap;
-      float acc[MC][K1];
+      Real acc[MC][K1];
 #pragma unroll
       for (int i = 0; i < MC; ++i)
 #pragma unroll
-        for (int j = 0; j < K1; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < K1; ++j) acc[i][j] = Real(0);
       for (int s0 = 0; s0 < n; s0 += kTile) {
         const int nt = min(kTile, n - s0);
         __syncwarp();
         for (int s = lane; s < nt; s += 32) {
           const long g = g0 + s0 + s;
-          float v[4 * R];
+          Real v[W * R];
 #pragma unroll
-          for (int q = 0; q < 4 * R; ++q) v[q] = 0.f;
+          for (int q = 0; q < W * R; ++q) v[q] = Real(0);
 #pragma unroll
           for (int q = 0; q < 3; ++q) v[q] = pts[q * N + g];
 #pragma unroll
@@ -140,27 +163,19 @@ surface_pair_kernel(const float* __restrict__ surf,
 #pragma unroll
           for (int q = 0; q < NN; ++q) v[3 + K0 + q] = nrm[q * N + g];
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-            st[s * R + r] = make_float4(v[4 * r], v[4 * r + 1],
-                                        v[4 * r + 2], v[4 * r + 3]);
+          for (int r = 0; r < R; ++r) st[s * R + r] = V::pack(v + W * r);
         }
         __syncwarp();
-        float part[MC][K1];
+        Real part[MC][K1];
 #pragma unroll
         for (int i = 0; i < MC; ++i)
 #pragma unroll
-          for (int j = 0; j < K1; ++j) part[i][j] = 0.f;
+          for (int j = 0; j < K1; ++j) part[i][j] = Real(0);
 #pragma unroll 2
         for (int s = 0; s < nt; ++s) {
-          float v[4 * R];
+          Real v[W * R];
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float4 q = st[s * R + r];
-            v[4 * r] = q.x;
-            v[4 * r + 1] = q.y;
-            v[4 * r + 2] = q.z;
-            v[4 * r + 3] = q.w;
-          }
+          for (int r = 0; r < R; ++r) V::unpack(st[s * R + r], v + W * r);
 #pragma unroll
           for (int i = 0; i < MC; ++i)
             sctl::uker_acc<KER, true>(cx[i] - v[0], cy[i] - v[1],
@@ -192,94 +207,127 @@ surface_pair_kernel(const float* __restrict__ surf,
 }
 
 // surface points a lane (MC) and passes for ns points: the fewest
-// passes of at most kMaxMC a lane, each with the smallest instantiated
+// passes of at most max_mc a lane, each with the smallest instantiated
 // MC that covers it
+template <typename Real>
 void layout(int ns, int* mc, int* passes) {
   const int rows = (ns + 31) / 32;
-  *passes = (rows + kMaxMC - 1) / kMaxMC;
+  *passes = (rows + max_mc<Real>() - 1) / max_mc<Real>();
   const int need = (rows + *passes - 1) / *passes;
   *mc = need <= 2 ? 2 : need <= 5 ? 5 : 10;
 }
 
-template <int KER, int MC>
-int run_mc(const float* surf, const float* pts, const float* nrm,
-           const float* f, const int* cnt, float* out, int ns, int B,
+template <typename Real, int KER, int MC>
+int run_mc(const Real* surf, const Real* pts, const Real* nrm,
+           const Real* f, const int* cnt, Real* out, int ns, int B,
            int cap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<KER, MC>();
-  cudaError_t err = allow_smem(surface_pair_kernel<KER, MC>, smem);
+  constexpr size_t smem = smem_bytes<Real, KER, MC>();
+  cudaError_t err = allow_smem(surface_pair_kernel<Real, KER, MC>, smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int BB = kWarps * boxes_per_warp<KER, MC>();
+  constexpr int BB = kWarps * boxes_per_warp<Real, KER, MC>();
   const int grid = (B + BB - 1) / BB;
-  surface_pair_kernel<KER, MC><<<grid, kWarps * 32, smem, stream>>>(
+  surface_pair_kernel<Real, KER, MC><<<grid, kWarps * 32, smem, stream>>>(
       surf, pts, nrm, f, cnt, out, ns, B, cap);
   return (int)cudaGetLastError();
 }
 
-template <int KER, int MC>
+template <typename Real, int KER, int MC>
 int blocks_mc(int* boxes, int* blocks) {
-  constexpr size_t smem = smem_bytes<KER, MC>();
-  *boxes = boxes_per_warp<KER, MC>();
-  cudaError_t err = allow_smem(surface_pair_kernel<KER, MC>, smem);
+  constexpr size_t smem = smem_bytes<Real, KER, MC>();
+  *boxes = boxes_per_warp<Real, KER, MC>();
+  cudaError_t err = allow_smem(surface_pair_kernel<Real, KER, MC>, smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, surface_pair_kernel<KER, MC>, kWarps * 32, smem);
+      blocks, surface_pair_kernel<Real, KER, MC>, kWarps * 32, smem);
 }
 
-template <int KER>
+template <typename Real>
 struct Launch {
-  static int run(const float* surf, const float* pts, const float* nrm,
-                 const float* f, const int* cnt, float* out, int ns, int B,
-                 int cap, cudaStream_t stream) {
-    int mc, passes;
-    layout(ns, &mc, &passes);
-    switch (mc) {
-      case 2: return run_mc<KER, 2>(surf, pts, nrm, f, cnt, out, ns, B,
+  template <int KER>
+  struct Of {
+    static int run(const Real* surf, const Real* pts, const Real* nrm,
+                   const Real* f, const int* cnt, Real* out, int ns, int B,
+                   int cap, cudaStream_t stream) {
+      int mc, passes;
+      layout<Real>(ns, &mc, &passes);
+      if (mc == 2)
+        return run_mc<Real, KER, 2>(surf, pts, nrm, f, cnt, out, ns, B,
                                     cap, stream);
-      case 5: return run_mc<KER, 5>(surf, pts, nrm, f, cnt, out, ns, B,
-                                    cap, stream);
-      default: return run_mc<KER, 10>(surf, pts, nrm, f, cnt, out, ns, B,
-                                      cap, stream);
+      if constexpr (max_mc<Real>() >= 10) {
+        if (mc == 10)
+          return run_mc<Real, KER, 10>(surf, pts, nrm, f, cnt, out, ns, B,
+                                       cap, stream);
+      }
+      return run_mc<Real, KER, 5>(surf, pts, nrm, f, cnt, out, ns, B, cap,
+                                  stream);
     }
-  }
+  };
 };
 
 // the layout at ns surface points and the resident blocks an SM, from
 // the occupancy API
-template <int KER>
+template <typename Real>
 struct Occupancy {
-  static int run(int ns, int* lay, int* blocks) {
-    layout(ns, &lay[0], &lay[1]);
-    lay[2] = kWarps * 32;
-    switch (lay[0]) {
-      case 2: return blocks_mc<KER, 2>(&lay[3], blocks);
-      case 5: return blocks_mc<KER, 5>(&lay[3], blocks);
-      default: return blocks_mc<KER, 10>(&lay[3], blocks);
+  template <int KER>
+  struct Of {
+    static int run(int ns, int* lay, int* blocks) {
+      layout<Real>(ns, &lay[0], &lay[1]);
+      lay[2] = kWarps * 32;
+      if (lay[0] == 2) return blocks_mc<Real, KER, 2>(&lay[3], blocks);
+      if constexpr (max_mc<Real>() >= 10) {
+        if (lay[0] == 10) return blocks_mc<Real, KER, 10>(&lay[3], blocks);
+      }
+      return blocks_mc<Real, KER, 5>(&lay[3], blocks);
     }
-  }
+  };
 };
+
+template <typename Real>
+int surface_pair(const Real* surf, const Real* pts, const Real* nrm,
+                 const Real* f, const int* cnt, Real* out, int ker, int ns,
+                 int B, int cap, cudaStream_t stream) {
+  using namespace sctl;
+  return dispatch_formula<Launch<Real>::template Of, kLapFxU, kLapDxU,
+                          kStkFxU, kStkDxU, kStkFSxU>(
+      ker, surf, pts, nrm, f, cnt, out, ns, B, cap, stream);
+}
 
 }  // namespace
 
 // surf (ns, 3), pts (3, B*cap), nrm (3, B*cap) (double layers only,
 // else null), f (k0, B*cap), cnt (B) int32 real slots of each box, its
-// first (null: all cap), out (k1, ns, B); float32.  ker: the formula
-// index of ukernels.cuh, one of the S2M kernels.
+// first (null: all cap), out (k1, ns, B); float32 (sctl_surface_pair)
+// or float64 (sctl_surface_pair_f64).  ker: the formula index of
+// ukernels.cuh, one of the S2M kernels.
 SCTL_API int sctl_surface_pair(const float* surf, const float* pts,
                                const float* nrm, const float* f,
                                const int* cnt, float* out, int ker, int ns,
                                int B, int cap, cudaStream_t stream) {
-  using namespace sctl;
-  return dispatch_formula<Launch, kLapFxU, kLapDxU, kStkFxU, kStkDxU,
-                          kStkFSxU>(ker, surf, pts, nrm, f, cnt, out, ns, B,
-                                    cap, stream);
+  return surface_pair<float>(surf, pts, nrm, f, cnt, out, ker, ns, B, cap,
+                             stream);
 }
 
-// The layout at ns surface points, [surface points a lane, passes,
-// threads a block, boxes a warp], into layout[0..3], and the resident
-// blocks an SM of formula ker into *blocks (the occupancy API).
-SCTL_API int sctl_surface_pair_occupancy(int ker, int ns, int* layout,
-                                         int* blocks) {
+SCTL_API int sctl_surface_pair_f64(const double* surf, const double* pts,
+                                   const double* nrm, const double* f,
+                                   const int* cnt, double* out, int ker,
+                                   int ns, int B, int cap,
+                                   cudaStream_t stream) {
+  return surface_pair<double>(surf, pts, nrm, f, cnt, out, ker, ns, B, cap,
+                              stream);
+}
+
+// The layout at ns surface points of the float (f64 = 0) or double
+// build, [surface points a lane, passes, threads a block, boxes a
+// warp], into layout[0..3], and the resident blocks an SM of formula
+// ker into *blocks (the occupancy API).
+SCTL_API int sctl_surface_pair_occupancy(int ker, int f64, int ns,
+                                         int* layout, int* blocks) {
   using namespace sctl;
-  return dispatch_formula<Occupancy, kLapFxU, kLapDxU, kStkFxU, kStkDxU,
-                          kStkFSxU>(ker, ns, layout, blocks);
+  if (f64)
+    return dispatch_formula<Occupancy<double>::Of, kLapFxU,
+                            kLapDxU, kStkFxU, kStkDxU, kStkFSxU>(
+        ker, ns, layout, blocks);
+  return dispatch_formula<Occupancy<float>::Of, kLapFxU, kLapDxU,
+                          kStkFxU, kStkDxU, kStkFSxU>(ker, ns, layout,
+                                                      blocks);
 }

@@ -67,7 +67,9 @@ class ParticleFMM:
     data: at accuracy=8 in float32 (p = 8, BASELINE.md's rung 2) the
     Laplace M2L runs the 316-offset grid kernel at levels >= 3, and at
     a few hundred points a leaf the near field runs the halo stencil
-    (KIFMM's module docstring).
+    (KIFMM's module docstring); in float64 (rung 4) the M2L runs the
+    per-parity sweep, and at that leaf size S2M and L2T the U-list
+    kernel.
     """
 
     def __init__(self, accuracy: int = 6, device=None,

@@ -15,7 +15,8 @@ The evaluation follows the JAX package's TPU route stage by stage:
        else the 316-offset grid sweep (ops/m2l.py `m2l_grid`; Laplace
        p = 8), else the per-parity sweep as batched matrix products, as
        the JAX package's scan runs it outside Pallas (Stokes); level 2
-       always the per-parity sweep
+       always the per-parity sweep.  float64: the per-parity sweep at
+       the exact ranks at every level, the JAX package's float64 route
   L2L  one concatenated matrix product per level
   L2T  shared-surface evaluation at each box's real targets (ops/sl.py
        `l2t_surface`, by `cnt_t_box`; zero past them)
@@ -42,21 +43,27 @@ stencil.
 Box capacities are quantiles of the box counts; the points beyond them
 travel in overflow sidebands evaluated in plain torch.  Tensors on the
 card go through the CUDA kernels, tensors on the CPU through their
-plain versions.  The operator tables are built cold on the host in
-float64, once per process for each (translation kernel, p, rcond)
-(`unit_tables`; no disk cache).
+plain versions; the routes follow the dtype and the shapes, never the
+device, and every pair kernel has a float32 and a float64 build.  The
+operator tables are built cold on the host in float64, once per
+process for each (translation kernel, p, rcond, hiprec) (`unit_tables`;
+no disk cache is written).  With hiprec the pseudo-inverses and the
+M2L tables are refined in 80-bit longdouble, or read from the committed
+lite table file in the data directory (`config.data_path`) where there
+is one.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import resolve_device
+from ..config import data_path, resolve_device
 from ..ops._launch_checks import CHUNK_PAIRS
 from ..ops.kernels import (KERNELS, KernelSpec, Laplace3D_FxdU,
                            Laplace3D_FxU, Stokes3D_FSxU)
@@ -69,6 +76,7 @@ from ..ops.p2p import (box_ranges, p2p_stencil, p2p_stencil9, p2p_ulist,
 from ..ops.sl import (l2t_surface, l2t_surface_fits, surface_pair,
                       surface_pair_fits)
 from ..ops.uker import TREE_KERNELS, check_supported
+from ..quadmath import ld_gemm
 from ..tree import morton as mt
 from ..tree.tree import UniformTree
 
@@ -117,6 +125,29 @@ def _pinv(a: np.ndarray, rcond: float = 1e-9) -> np.ndarray:
     cut = rcond * s[0]
     sinv = np.where(s > cut, 1 / np.where(s > cut, s, 1), 0.0)
     return (vt.T * sinv) @ u.T
+
+
+def _pinv_ns(a: np.ndarray, rcond: float) -> np.ndarray:
+    """Truncated pseudo-inverse refined in longdouble
+    (sctl_tpu/fmm/kifmm.py:79-98): the float64 SVD's, then three
+    Newton-Schulz steps X <- X (2I - A X) through `ld_gemm`, which drive
+    the float64 SVD's error on the singular values near the cutoff
+    (relative eps / rcond) below 1e-16."""
+    x = _pinv(a, rcond).astype(np.longdouble)
+    al = a.astype(np.longdouble)
+    eye2 = 2.0 * np.eye(a.shape[0], dtype=np.longdouble)
+    for _ in range(3):
+        x = ld_gemm(x, eye2 - ld_gemm(al, x))
+    return x
+
+
+def table_path(ker_name: str, p: int, rcond: float, hiprec: bool) -> str:
+    """The JAX package's file name of the unit tables of (ker_name, p,
+    rcond, hiprec) in the data directory (sctl_tpu/fmm/kifmm.py:118-130);
+    the committed hiprec tables are its "_lite" form."""
+    hp = "hp" if hiprec else ""
+    return os.path.join(data_path(),
+                        f"kifmm_{ker_name}_p{p}_r{rcond:.3g}_unit_v4{hp}.npz")
 
 
 def _outer_scale(mat: np.ndarray, lam: float, row_exp, col_exp):
@@ -195,20 +226,25 @@ class KIFMMOperators:
     builds its (26, 8 r2, 8 r) stack; "grid", the 316-offset sweep
     `m2l_grid` (Laplace p = 8), which builds the (316, r2, r)
     transposed stack; "parity", the per-parity sweep as batched matrix
-    products (Stokes), which builds no stack.  float64 (the CPU only)
-    keeps the route by translation kernel: blocked for Laplace, parity
-    for Stokes.  All run the route's ranks (`_rank_caps`).  Timed on an
-    H100 (PERF.md, chip_smoke.py phases 4, 6c and 7): Laplace p=6 and
-    p=8 and Stokes p=6 in float32; for Stokes at level 6 the blocked
-    kernel on the tensor cores now beats the sweep, but its stack is
-    over the gate (PERF.md, open questions)."""
+    products (Stokes), which builds no stack.  float64 takes "parity"
+    on every device, as the JAX package runs float64 (its Pallas M2L
+    kernels are float32 only, sctl_tpu/fmm/kifmm.py:1186-1188,
+    :1216-1217).  All run the route's ranks (`_rank_caps`).  Timed on
+    an H100 (PERF.md, chip_smoke.py phases 4, 6c, 7 and 8): Laplace p=6
+    and p=8 and Stokes p=6 in float32, Laplace p=6 and p=8 in float64;
+    for Stokes at level 6 the blocked kernel on the tensor cores now
+    beats the sweep, but its stack is over the gate (PERF.md, open
+    questions).
+
+    hiprec: the tables of `unit_tables(..., hiprec=True)`, refined in
+    longdouble (BASELINE.md rung 7)."""
 
     TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
               "cb_unit", "cc_unit", "vb_unit", "ca_unit")
 
     def __init__(self, ker_trans: KernelSpec, p: int, rcond: float,
                  device, dtype: torch.dtype,
-                 tables: Optional[dict] = None):
+                 tables: Optional[dict] = None, hiprec: bool = False):
         check_supported(ker_trans.name, (Laplace3D_FxU.name,
                                          Stokes3D_FSxU.name))
         self.ker_trans = ker_trans
@@ -219,15 +255,13 @@ class KIFMMOperators:
         self.n_surf = len(self.surf)
         self.offsets, self.parity_valid = _vlist_offsets()
         if tables is None:
-            tables = unit_tables(ker_trans.name, p, rcond)
+            tables = unit_tables(ker_trans.name, p, rcond, hiprec)
         for name in self.TABLES:
             setattr(self, name, np.asarray(tables[name], np.float64))
         self.device, self.dtype = torch.device(device), dtype
         self._rank_caps(dtype)
-        self.m2l_route = (
-            m2l_route(self.blk_r, self.blk_r2) if dtype == torch.float32
-            else "blocked" if ker_trans.name == Laplace3D_FxU.name
-            else "parity")
+        self.m2l_route = (m2l_route(self.blk_r, self.blk_r2)
+                          if dtype == torch.float32 else "parity")
         self._on_device = False
 
     def device_tables(self) -> "KIFMMOperators":
@@ -271,35 +305,44 @@ class KIFMMOperators:
                 lm, np.tile(s_exp, nrow // len(s_exp))) for lm in lam],
         }
 
-    def _build_unit(self, ker_trans, surf, rcond):
+    def _build_unit(self, ker_trans, surf, rcond, hiprec=False):
         """Unit-box tables: parent side 1 (children 1/2), M2L at side 1.
-        Child corners in Morton child order c = x + 2y + 4z."""
+        Child corners in Morton child order c = x + 2y + 4z.  hiprec:
+        the pseudo-inverses and the M2M and L2L products in longdouble
+        (sctl_tpu/fmm/kifmm.py:239-289), the tables stored in float64."""
         child_pos = np.array([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
                               for c in range(8)])
         s_exp = np.asarray(ker_trans.src_scal, np.float64)
         t_exp = np.asarray(ker_trans.trg_scal, np.float64)
         s_in = surf * (RAD_IN / 2)
         s_out = surf * (RAD_OUT / 2)
-        self.uc2e_unit = _pinv(_kmat(ker_trans, s_out, s_in), rcond)
-        self.dc2e_unit = _pinv(_kmat(ker_trans, s_in, s_out), rcond)
-        dc2e_half = _outer_scale(self.dc2e_unit, 0.5, s_exp, t_exp)
+        pinv = _pinv_ns if hiprec else _pinv
+        f64 = lambda a: np.asarray(a, np.float64)
+        uc2e = pinv(_kmat(ker_trans, s_out, s_in), rcond)
+        dc2e = pinv(_kmat(ker_trans, s_in, s_out), rcond)
+        self.uc2e_unit, self.dc2e_unit = f64(uc2e), f64(dc2e)
+        self._dc2e_work = dc2e            # in the working precision
+        dc2e_half = _outer_scale(dc2e, 0.5, s_exp, t_exp)
         cc = (child_pos - 0.5) * 0.5
         m2m, l2l = [], []
         for c in range(8):
             k = _kmat(ker_trans, s_out, surf * (RAD_IN / 4) + cc[c])
-            m2m.append(self.uc2e_unit @ k)
+            m2m.append(f64(uc2e @ k.astype(uc2e.dtype)))
             k2 = _kmat(ker_trans, surf * (RAD_IN / 4) + cc[c], s_out)
-            l2l.append(dc2e_half @ k2)
+            l2l.append(f64(dc2e_half @ k2.astype(dc2e.dtype)))
         self.m2m_unit = np.stack(m2m)
         self.l2l_unit = np.stack(l2l)
-        self.m2l_unit = np.stack([
-            self.dc2e_unit @ _kmat(ker_trans, s_in, s_in + d * 1.0)
-            for d in self.offsets])
+        self.m2l_unit = m2l_family(ker_trans, self.dc2e_unit, s_in,
+                                   self.offsets)
 
-    def _compress_m2l_unit(self):
+    def _compress_m2l_unit(self, ker_trans, surf, rcond, hiprec=False):
         """Joint two-sided factorization M_d = U A_d V^T of the unit M2L
-        family, lossless to about 1e-12; ranks rounded up to 8."""
-        ctol = 1e-10
+        family, lossless to about 1e-12; ranks rounded up to 8.  hiprec
+        (sctl_tpu/fmm/kifmm.py:267-324): the cutoff follows rcond, and
+        A_d = (U^T dc2e) K_d V is recomputed through `ld_gemm`, since the
+        float64 product dc2e K_d loses about eps / rcond to cancellation
+        against dc2e's entries of about 1 / rcond."""
+        ctol = max(1e-13, min(1e-10, 0.1 * rcond)) if hiprec else 1e-10
         M = self.m2l_unit
         ns_ = M.shape[1]
         A = np.transpose(M, (1, 0, 2)).reshape(ns_, -1)
@@ -323,6 +366,14 @@ class KIFMMOperators:
         self.ca_unit = np.einsum("ork,kn->orn", C, self.vb_unit,
                                  optimize=True)
         self.m2l_unit = None          # build input only
+        if hiprec:
+            W = ld_gemm(self.cb_unit.T, self._dc2e_work)
+            Vl = self.vb_unit.astype(np.longdouble)
+            s_in = surf * (RAD_IN / 2)
+            for i, d in enumerate(self.offsets):
+                k = _kmat(ker_trans, s_in, s_in + d * 1.0)
+                self.ca_unit[i] = np.float64(
+                    ld_gemm(ld_gemm(W, k.astype(np.longdouble)), Vl))
 
     def _rank_caps(self, dtype):
         """Rank caps of the f32 route (sctl_tpu/fmm/kifmm.py:423-435):
@@ -399,17 +450,69 @@ def cat_tables(m2m: np.ndarray, l2l: np.ndarray):
             np.transpose(l2l, (2, 0, 1)).reshape(nd, 8 * nd))
 
 
+def m2l_family(ker_trans: KernelSpec, dc2e: np.ndarray, s_in: np.ndarray,
+               offsets: np.ndarray) -> np.ndarray:
+    """(316, nd, nd) unit M2L operators: for each offset d, the source
+    box's equivalent surface at d to the target's check surface,
+    through dc2e."""
+    return np.stack([dc2e @ _kmat(ker_trans, s_in, s_in + d * 1.0)
+                     for d in offsets])
+
+
+# the tables the committed lite files hold as they are; cc_unit and
+# ca_unit are rebuilt from them (sctl_tpu/fmm/kifmm.py:496-551)
+LITE_TABLES = ("uc2e_unit", "dc2e_unit", "m2m_unit", "l2l_unit",
+               "cb_unit", "vb_unit")
+
+
+def read_lite_tables(path: str, ker_trans: KernelSpec, p: int) -> dict:
+    """The unit tables of a lite file (the JAX package's
+    `_load_cache_lite`, sctl_tpu/fmm/kifmm.py:511-551): LITE_TABLES as
+    stored; cc_unit = cb^T M_d and ca_unit = cc_unit vb over the M2L
+    family rebuilt in float64 from dc2e, plus the stored longdouble
+    refinement of ca_unit, an int8 (1/127 steps) or float16 delta
+    scaled per offset.  The same numpy as the JAX package's, so on one
+    host the two read equal tables bit for bit."""
+    z = np.load(path)
+    t = {name: z[name] for name in LITE_TABLES}
+    qd = z["ca_delta"]
+    delta = np.float64(qd)
+    if qd.dtype == np.int8:
+        delta /= 127.0
+    delta *= z["ca_scale"][:, None, None]
+    offsets, _ = _vlist_offsets()
+    M = m2l_family(ker_trans, t["dc2e_unit"], cube_surface(p) * (RAD_IN / 2),
+                   offsets)
+    C = np.einsum("nm,omk->onk", t["cb_unit"].T, M, optimize=True)
+    del M
+    t["cc_unit"] = C
+    t["ca_unit"] = np.einsum("ork,kn->orn", C, t["vb_unit"],
+                             optimize=True) + delta
+    return t
+
+
 @functools.lru_cache(maxsize=None)
-def unit_tables(ker_name: str, p: int, rcond: float) -> dict:
+def unit_tables(ker_name: str, p: int, rcond: float,
+                hiprec: bool = False) -> dict:
     """The unit-box tables (`KIFMMOperators.TABLES`) of translation
-    kernel `ker_name` at order p and pinv cutoff rcond, built cold on the
-    host in float64 once per process and shared by every KIFMMOperators
-    of those parameters (which read them and never write them)."""
-    ops = KIFMMOperators.__new__(KIFMMOperators)
-    ops.offsets, ops.parity_valid = _vlist_offsets()
-    ops._build_unit(KERNELS[ker_name], cube_surface(p), rcond)
-    ops._compress_m2l_unit()
-    return {name: np.ascontiguousarray(getattr(ops, name), np.float64)
+    kernel `ker_name` at order p and pinv cutoff rcond, once per process
+    and shared by every KIFMMOperators of those parameters (which read
+    them and never write them): built cold on the host in float64; with
+    hiprec read from the lite file of `table_path` where the data
+    directory holds it, else built cold with the longdouble refinements
+    (minutes at p = 10)."""
+    ker = KERNELS[ker_name]
+    lite = table_path(ker_name, p, rcond, hiprec)[:-4] + "_lite.npz"
+    if hiprec and os.path.exists(lite):
+        t = read_lite_tables(lite, ker, p)
+    else:
+        ops = KIFMMOperators.__new__(KIFMMOperators)
+        ops.offsets, ops.parity_valid = _vlist_offsets()
+        surf = cube_surface(p)
+        ops._build_unit(ker, surf, rcond, hiprec)
+        ops._compress_m2l_unit(ker, surf, rcond, hiprec)
+        t = {name: getattr(ops, name) for name in KIFMMOperators.TABLES}
+    return {name: np.ascontiguousarray(t[name], np.float64)
             for name in KIFMMOperators.TABLES}
 
 
@@ -417,10 +520,11 @@ def operators_from_numpy(tables: dict, device, dtype: torch.dtype,
                          ker_trans: KernelSpec = Laplace3D_FxU
                          ) -> KIFMMOperators:
     """The port's operators from unit tables computed elsewhere, e.g.
-    by the JAX package's KIFMMOperators: `tables` maps each name of
-    `KIFMMOperators.TABLES` to its numpy array, "p" to the order and
-    "rcond" to the pinv cutoff the tables were built with; `ker_trans`
-    is their translation kernel (Stokes3D_FSxU for Stokes)."""
+    by the JAX package's KIFMMOperators (hiprec ones too): `tables` maps
+    each name of `KIFMMOperators.TABLES` to its numpy array, "p" to the
+    order and "rcond" to the pinv cutoff the tables were built with;
+    `ker_trans` is their translation kernel (Stokes3D_FSxU for
+    Stokes)."""
     return KIFMMOperators(ker_trans, int(tables["p"]),
                           float(tables["rcond"]), device, dtype,
                           tables=tables)
@@ -459,9 +563,10 @@ def _pad_index(tree: UniformTree, cap: int):
 
 
 # Pair budget of one chunk of the overflow-sideband sums on the card:
-# their (..., T, S) float32 temporaries (a few per pair) stay near
-# 1 GiB of the card's 80 GB, and the 1e7-point run needs tens of
-# chunks, not hundreds.  The CPU keeps the plain versions' budget.
+# their (..., T, S) temporaries (a few per pair) stay near 1 GiB of the
+# card's 80 GB in float32, 2 GiB in float64, and the 1e7-point run
+# needs tens of chunks, not hundreds.  The CPU keeps the plain versions'
+# budget.
 SIDEBAND_CHUNK_PAIRS_CUDA = 1 << 26
 
 
@@ -499,8 +604,8 @@ def _mark(marks, name: str) -> None:
 
 
 # Element budget of one chunk of the per-parity M2L sweep's stacked
-# windows: about 1 GiB of float32 on the card; the CPU keeps the plain
-# versions' budget.
+# windows: about 1 GiB of float32 (2 GiB of float64) on the card; the
+# CPU keeps the plain versions' budget.
 PARITY_CHUNK_ELEMS_CUDA = 1 << 28
 
 
@@ -510,8 +615,12 @@ class KIFMM:
 
     device : "cuda" (default) runs the CUDA kernels, "cpu" their plain
              versions.
-    dtype  : torch.float32 (the card's only type) or torch.float64
-             (CPU only).
+    dtype  : torch.float32 or torch.float64, on either device (float64
+             is the JAX package's default off the TPU).
+    rcond  : pinv cutoff of the operators, default 3e-5 in float32 and
+             1e-9 in float64 (sctl_tpu/fmm/kifmm.py:219-224).
+    hiprec : operator tables refined in longdouble (`unit_tables`), for
+             BASELINE.md's rung 7 (p = 10 or 12, rcond 1e-10, float64).
     The double layers (Laplace3D-DxU, Stokes3D-DxU) read source normals:
     `setup(..., n_src=)` takes them and refuses to run without.
     """
@@ -522,12 +631,10 @@ class KIFMM:
                  rcond: Optional[float] = None,
                  operators: Optional[KIFMMOperators] = None,
                  ker_l2t: Optional[KernelSpec] = None,
-                 ker_s2m: Optional[KernelSpec] = None):
+                 ker_s2m: Optional[KernelSpec] = None,
+                 hiprec: bool = False):
         check_supported(ker_s2t.name, TREE_KERNELS)
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError(
-                f"KIFMM on the card runs float32 only, not {dtype}")
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(f"KIFMM dtype {dtype}")
         self.ker_s2t = ker_s2t
@@ -540,6 +647,7 @@ class KIFMM:
         # pinv cutoff: f32 loses accuracy to rounding below ~3e-5
         self.rcond = rcond if rcond is not None else (
             3e-5 if dtype == torch.float32 else 1e-9)
+        self.hiprec = hiprec
         self._ops = operators
 
     # -- setup -----------------------------------------------------------
@@ -570,7 +678,7 @@ class KIFMM:
         if (self._ops is None or self._ops.p != self.p
                 or self._ops.ker_trans.name != self.ker_trans.name):
             self._ops = KIFMMOperators(self.ker_trans, self.p, self.rcond,
-                                       dev, dt)
+                                       dev, dt, hiprec=self.hiprec)
         ops = self._ops.device_tables()
         lam = self.scale / (1 << L)
         s_exp, t_exp = self.ker_trans.src_scal, self.ker_trans.trg_scal
@@ -629,17 +737,18 @@ class KIFMM:
         self.rng_e = box_ranges(i32(np.full(src.n_boxes, ops.n_surf)),
                                 ops.n_surf)
         self.SL = -(-9 * self.cap_s // 128) * 128
-        # routes by shape: the shared-surface kernels take a box count
-        # that is a multiple of 128 and the capacities of their route
-        # rules, otherwise the U-list kernel; the near field the slab
-        # stencil where its block holds the caps, otherwise the halo
-        # stencil (see the module docstring)
+        # routes by shape and element size, the same on every device:
+        # the shared-surface kernels take a box count that is a
+        # multiple of 128 and the capacities of their route rules,
+        # otherwise the U-list kernel; the near field the slab stencil
+        # where its block holds the caps, otherwise the halo stencil
+        # (see the module docstring)
         self.surface_route = (
             src.n_boxes % 128 == 0
-            and surface_pair_fits(self.ker_s2m, self.cap_s)
-            and l2t_surface_fits(self.ker_l2t, ops.n_surf))
+            and surface_pair_fits(self.ker_s2m, self.cap_s, dt)
+            and l2t_surface_fits(self.ker_l2t, ops.n_surf, dt))
         self.near_route = ("stencil9" if stencil9_fits(
-            self.ker_s2t, self.cap_t, self.SL) else "stencil")
+            self.ker_s2t, self.cap_t, self.SL, dt) else "stencil")
         self.p2p_nrm = self.ker_s2t.needs_normal
         if self.near_route == "stencil9":
             # each slab entry's real points first, one gather an array

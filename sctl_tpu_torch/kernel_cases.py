@@ -14,7 +14,11 @@ The shared-surface and stencil cases' boxes hold their real points in
 their first slots, as many as drawn around the KIFMM's mean counts
 (Poisson), and the kernels get those counts (the slab stencil as a
 compacted slab, `slab_index`).
-The others are zero, as the padding of the main path is.
+The others are zero, as the padding of the main path is.  With
+dtype=torch.float64 the pair kernels' cases ("stage[f64]",
+"stage[kernel,f64]") run their float64 builds on the same inputs cast
+to float64, held to the plain version in float64; M2L has no float64
+build and no such case.
 
 The U-list kernel's cases (`ulist_cases`) take their widths from a
 set-up `AdaptiveFMM` instead: T = its target capacity, each box's real
@@ -52,7 +56,8 @@ from .ops.m2l import (N_VALID, blocked_operands, grid_operands, m2l_grid,
                       m2l_grid_plain, m2l_windows, parity_offsets)
 from .ops.p2p import (p2p, p2p_plain, p2p_stencil, p2p_stencil9,
                       p2p_stencil9_plain, p2p_stencil_plain, p2p_ulist,
-                      p2p_ulist_plain, slab_gather, slab_index, to_halo)
+                      p2p_ulist_plain, slab_gather, slab_index,
+                      stencil9_fits, to_halo)
 from .ops.sl import (l2t_surface, l2t_surface_plain, surface_pair,
                      surface_pair_plain)
 from .ops.uker import L2T_KERNELS, S2M_KERNELS, SUPPORTED, TREE_KERNELS
@@ -61,43 +66,53 @@ N_BOXES, M2L_H, P2P_N, STENCIL_N, ULIST_G = 4096, 8, 16, 8, 32
 P2P_T, P2P_S = 4096, 39_000
 
 
-def surface_pair_work(kernel, ns: int, B: int, n_src: int) -> dict:
+def _pair_work(kernel, pairs: int, dtype, floats: int, ints: int) -> dict:
+    """A pair kernel's work in float32 or float64: `pairs` pairs of the
+    kernel's operations; `floats` values of the type and `ints` int32
+    counts read or written once."""
+    return dict(pairs=pairs, pair_flops=kernel.flops,
+                f64=dtype == torch.float64,
+                bytes=dtype.itemsize * floats + 4 * ints)
+
+
+def surface_pair_work(kernel, ns: int, B: int, n_src: int,
+                      dtype=torch.float32) -> dict:
     """The real sources' pairs with the surface; bytes of the surface,
     the real sources, the counts and the outputs, each once."""
-    return dict(pairs=n_src * ns, pair_flops=kernel.flops,
-                bytes=4 * (3 * ns + kernel.src_floats * n_src + B
-                           + kernel.kdim1 * ns * B))
+    return _pair_work(kernel, n_src * ns, dtype,
+                      3 * ns + kernel.src_floats * n_src
+                      + kernel.kdim1 * ns * B, B)
 
 
-def l2t_surface_work(kernel, ns: int, B: int, cap_t: int,
-                     n_trg: int) -> dict:
+def l2t_surface_work(kernel, ns: int, B: int, cap_t: int, n_trg: int,
+                     dtype=torch.float32) -> dict:
     """The real targets' pairs with the surface; bytes of the surface,
     the real targets, the densities, the counts and the whole output
     (zeros past the counts), each once."""
-    return dict(pairs=n_trg * ns, pair_flops=kernel.flops,
-                bytes=4 * (3 * ns + 3 * n_trg + kernel.kdim0 * ns * B + B
-                           + kernel.kdim1 * B * cap_t))
+    return _pair_work(kernel, n_trg * ns, dtype,
+                      3 * ns + 3 * n_trg + kernel.kdim0 * ns * B
+                      + kernel.kdim1 * B * cap_t, B)
 
 
 def p2p_stencil9_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
-                      n_slots: int) -> dict:
+                      n_slots: int, dtype=torch.float32) -> dict:
     """The real pairs; bytes of the real targets, the whole output
     (zeros past the counts), the slab entries' real slots and the two
     count arrays, each once."""
-    return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * (3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
-                           + kernel.src_floats * n_slots
-                           + n ** 3 + n * n * (n + 2)))
+    return _pair_work(kernel, pairs, dtype,
+                      3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
+                      + kernel.src_floats * n_slots,
+                      n ** 3 + n * n * (n + 2))
 
 
 def p2p_stencil_work(kernel, pairs: int, n: int, cap_t: int, n_trg: int,
-                     n_src: int) -> dict:
+                     n_src: int, dtype=torch.float32) -> dict:
     """The real pairs; bytes of the real targets and sources, the two
     count arrays and the whole output (zeros past the counts), each
     once."""
-    return dict(pairs=pairs, pair_flops=kernel.flops,
-                bytes=4 * (3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
-                           + kernel.src_floats * n_src + 2 * n ** 3))
+    return _pair_work(kernel, pairs, dtype,
+                      3 * n_trg + kernel.kdim1 * n ** 3 * cap_t
+                      + kernel.src_floats * n_src, 2 * n ** 3)
 
 
 def m2l_grid_work(n: int, r: int, r2: int) -> dict:
@@ -229,11 +244,11 @@ def m2l_kernel(kf):
 
 
 def main_path_work(kf) -> dict:
-    """Counts of each kernel's work on a set-up KIFMM's own data: the
-    shared-surface kernels, the route's M2L kernel at the leaf level
-    (the blocked one on its parent grid) and the route's near-field
-    stencil, pairs of real targets with the real sources of their
-    neighbour boxes."""
+    """Counts of each kernel's work on a set-up KIFMM's own data, in its
+    dtype: the shared-surface kernels, the route's M2L kernel at the
+    leaf level (the blocked one on its parent grid) and the route's
+    near-field stencil, pairs of real targets with the real sources of
+    their neighbour boxes."""
     ops = kf._ops
     ns = ops.n_surf
     cs = np.minimum(kf.src_tree.box_cnt, kf.cap_s)
@@ -242,18 +257,21 @@ def main_path_work(kf) -> dict:
     near = np.where(nb >= 0, cs[np.maximum(nb, 0)], 0).sum(axis=1)
     B, n = kf.src_tree.n_boxes, 1 << kf.depth
     pairs = int((ct * near).sum())
+    dt = kf.dtype
     work = {
-        "surface_pair": surface_pair_work(kf.ker_s2m, ns, B, int(cs.sum())),
+        "surface_pair": surface_pair_work(kf.ker_s2m, ns, B, int(cs.sum()),
+                                          dt),
         "l2t_surface": l2t_surface_work(kf.ker_l2t, ns, B, kf.cap_t,
-                                        int(ct.sum())),
+                                        int(ct.sum()), dt),
     }
     if kf.near_route == "stencil9":
         work["p2p_stencil9"] = p2p_stencil9_work(
             kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()),
-            int(kf.cnt9.sum()))
+            int(kf.cnt9.sum()), dt)
     else:
         work["p2p_stencil"] = p2p_stencil_work(
-            kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()), int(cs.sum()))
+            kf.ker_s2t, pairs, n, kf.cap_t, int(ct.sum()), int(cs.sum()),
+            dt)
     if m2l_kernel(kf) == "m2l_grid_blocked":
         work["m2l_grid_blocked"] = m2l_grid_blocked_work(n // 2,
                                                          ops.m2l_blk)
@@ -277,19 +295,23 @@ def _unit_normals(rng, shape, axis):
     return n / np.linalg.norm(n, axis=axis, keepdims=True)
 
 
-def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
+def kernel_cases(kf, seed: int = 0, kernel=None,
+                 dtype: torch.dtype = torch.float32) -> dict:
     """name -> (kernel call, plain call, library call or None, work) at
-    the widths of the set-up float32 KIFMM `kf`, on its device.  Each
-    call takes no argument and returns a tensor; the library call is
-    one PyTorch call computing the same function (timed as a yardstick
-    only).  Without `kernel`, the kernels of kf's main path (its M2L
-    kernel by its route, none for the per-parity sweep; its near-field
-    stencil by its route) with its own kernel roles; with it, the pair
-    kernels that take that formula, in it (no M2L)."""
+    the widths of the set-up KIFMM `kf`, on its device.  Each call takes
+    no argument and returns a tensor; the library call is one PyTorch
+    call computing the same function (timed as a yardstick only).
+    Without `kernel`, the kernels of kf's main path (its M2L kernel by
+    its route, none for the per-parity sweep; its near-field stencil by
+    its route) with its own kernel roles; with it, the pair kernels that
+    take that formula, in it (no M2L).  dtype float64: the pair kernels'
+    float64 builds on the float32 cases' inputs cast to float64, named
+    "stage[f64]" (no M2L)."""
     rng = np.random.default_rng(seed)
     dev = kf.device
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device=dev)
+                                    device=dev).to(dtype)
+    tag = "[f64]" if dtype == torch.float64 else ""
     cap_s, cap_t, SL = kf.cap_s, kf.cap_t, kf.SL
     lam = kf.scale / (1 << kf.depth)
     mean_s = np.minimum(kf.src_tree.box_cnt, cap_s).mean()
@@ -319,11 +341,11 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         nrm = (slots(_unit_normals(rng, (B, cap_s, 3), 2))
                if ker.needs_normal else None)
         fl = slots(rng.normal(size=(B, cap_s, ker.kdim0)) * vs[..., None])
-        a = (ker, surf, pts, fl, cap_s, nrm, i32(cnt_s))
-        cases["surface_pair"] = (
+        a = (ker, surf.to(dtype), pts, fl, cap_s, nrm, i32(cnt_s))
+        cases["surface_pair" + tag] = (
             lambda a=a: surface_pair(*a),
             lambda dtype=None, a=a: surface_pair_plain(*_cast(a, dtype)),
-            None, surface_pair_work(ker, ns, B, int(cnt_s.sum())))
+            None, surface_pair_work(ker, ns, B, int(cnt_s.sum()), dtype))
 
     kl = roles.get("l2t_surface")
     if kl is not None:
@@ -331,13 +353,15 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
         xt = (rng.random((B, cap_t, 3)) - 0.5) * lam
         xtl = f32(xt.transpose(2, 0, 1).reshape(3, -1))
         q = f32(rng.normal(size=(kl.kdim0, ns, B)))
-        a = (kl, surf, xtl, q, cap_t, i32(cnt_t))
-        cases["l2t_surface"] = (
+        a = (kl, surf.to(dtype), xtl, q, cap_t, i32(cnt_t))
+        cases["l2t_surface" + tag] = (
             lambda a=a: l2t_surface(*a),
             lambda dtype=None, a=a: l2t_surface_plain(*_cast(a, dtype)),
-            None, l2t_surface_work(kl, ns, B, cap_t, int(cnt_t.sum())))
+            None, l2t_surface_work(kl, ns, B, cap_t, int(cnt_t.sum()),
+                                   dtype))
 
-    m2l = m2l_kernel(kf) if kernel is None else None
+    m2l = (m2l_kernel(kf) if kernel is None and dtype == torch.float32
+           else None)
     if m2l == "m2l_grid_blocked":
         h, K, N = M2L_H, 8 * kf._ops.blk_r2, 8 * kf._ops.blk_r
         mats = f32(rng.normal(size=(26, K, N)) / np.sqrt(K))
@@ -365,6 +389,9 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
             lambda: torch.matmul(wins, mcat), m2l_grid_work(n, r, r2))
 
     kn = roles.get(near)
+    if (kn is not None and near == "p2p_stencil9"
+            and not stencil9_fits(kn, cap_t, SL, dtype)):
+        kn = None       # a KIFMM of these widths takes the halo stencil
     if kn is not None:
         n = P2P_N if near == "p2p_stencil9" else STENCIL_N
         lo = np.stack(np.meshgrid(*([np.arange(n)] * 3), indexing="ij"),
@@ -391,23 +418,23 @@ def kernel_cases(kf, seed: int = 0, kernel=None) -> dict:
             lay = lambda a: slab_gather(f32(a), idx)
             a = (kn, n, SL, cap_t, xt_g, lay(xs_b), lay(f_b),
                  None if nrm_b is None else lay(nrm_b), cnt9, cnt(cnt_t))
-            cases[near] = (lambda a=a: p2p_stencil9(*a),
-                           lambda dtype=None, a=a: p2p_stencil9_plain(
-                               *_cast(a, dtype)), None,
-                           p2p_stencil9_work(kn, pairs, n, cap_t,
-                                             int(cnt_t.sum()),
-                                             int(cnt9.sum())))
+            cases[near + tag] = (lambda a=a: p2p_stencil9(*a),
+                                 lambda dtype=None, a=a: p2p_stencil9_plain(
+                                     *_cast(a, dtype)), None,
+                                 p2p_stencil9_work(kn, pairs, n, cap_t,
+                                                   int(cnt_t.sum()),
+                                                   int(cnt9.sum()), dtype))
         else:
             lay = lambda a: to_halo(f32(a), ident, n)
             a = (kn, n, cap_s, cap_t, xt_g, lay(xs_b), lay(f_b),
                  None if nrm_b is None else lay(nrm_b), cnt(cnt_s),
                  cnt(cnt_t))
-            cases[near] = (lambda a=a: p2p_stencil(*a),
-                           lambda dtype=None, a=a: p2p_stencil_plain(
-                               *_cast(a, dtype)), None,
-                           p2p_stencil_work(kn, pairs, n, cap_t,
-                                            int(cnt_t.sum()),
-                                            int(cnt_s.sum())))
+            cases[near + tag] = (lambda a=a: p2p_stencil(*a),
+                                 lambda dtype=None, a=a: p2p_stencil_plain(
+                                     *_cast(a, dtype)), None,
+                                 p2p_stencil_work(kn, pairs, n, cap_t,
+                                                  int(cnt_t.sum()),
+                                                  int(cnt_s.sum()), dtype))
     return cases
 
 
@@ -430,13 +457,17 @@ def _parity_windows(qp, mats_t):
     return torch.stack(wins), torch.stack(mcat)
 
 
-def formula_cases(kf, seed: int = 0, stages=None) -> dict:
-    """"stage[kernel]" -> case of `kernel_cases` for every formula each
-    pair kernel of the uniform KIFMM takes (those of `stages` only,
-    when given), at kf's widths."""
-    return {f"{stage}[{name}]": case for name in TREE_KERNELS
-            for stage, case in kernel_cases(kf, seed, KERNELS[name]).items()
-            if stages is None or stage in stages}
+def formula_cases(kf, seed: int = 0, stages=None,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """"stage[kernel]" ("stage[kernel,f64]" in float64) -> case of
+    `kernel_cases` for every formula each pair kernel of the uniform
+    KIFMM takes (those of `stages` only, when given), at kf's widths."""
+    tag = ",f64" if dtype == torch.float64 else ""
+    return {f"{key.split('[')[0]}[{name}{tag}]": case
+            for name in TREE_KERNELS
+            for key, case in kernel_cases(kf, seed, KERNELS[name],
+                                          dtype).items()
+            if stages is None or key.split("[")[0] in stages}
 
 
 def p2p_cases(device, seed: int = 0, n_trg: int = P2P_T,

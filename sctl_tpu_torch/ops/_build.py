@@ -35,27 +35,37 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # stream; each returns a cudaError_t as int.  The two `_smem` queries
 # take nothing, the `_occupancy` queries no stream.  The pair kernels
 # take the formula index of csrc/ukernels.cuh (ops/uker.py FORMULA)
-# first among the ints.
+# first among the ints; each has a float32 and a float64 build (`_f64`,
+# or `_f32` and `_f64` for the direct sum) of one signature, and its
+# occupancy query takes the formula and 1 for the float64 build.
+_SURFACE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_L2T = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_STENCIL = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ULIST = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_DIRECT = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    "sctl_surface_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sctl_l2t_surface": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sctl_surface_pair": _SURFACE,
+    "sctl_surface_pair_f64": _SURFACE,
+    "sctl_l2t_surface": _L2T,
+    "sctl_l2t_surface_f64": _L2T,
     "sctl_m2l_grid_blocked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sctl_m2l_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sctl_p2p_stencil": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sctl_p2p_stencil9": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sctl_p2p_ulist": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sctl_p2p_ulist_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P],
-    "sctl_p2p_direct_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sctl_p2p_direct_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sctl_p2p_stencil": _STENCIL,
+    "sctl_p2p_stencil_f64": _STENCIL,
+    "sctl_p2p_stencil9": _STENCIL,
+    "sctl_p2p_stencil9_f64": _STENCIL,
+    "sctl_p2p_ulist": _ULIST,
+    "sctl_p2p_ulist_f64": _ULIST,
+    "sctl_p2p_direct_f32": _DIRECT,
+    "sctl_p2p_direct_f64": _DIRECT,
     # no stream: the dynamic shared memory of a block, in bytes; the
     # pair kernels' resident blocks an SM, into the last pointer
     "sctl_m2l_grid_blocked_smem": [],
     "sctl_m2l_grid_smem": [],
-    "sctl_p2p_stencil9_occupancy": [_I, _I, _I, _P, _P],
+    "sctl_p2p_stencil9_occupancy": [_I, _I, _I, _I, _P, _P],
     "sctl_p2p_direct_occupancy": [_I, _I, _P, _P],
-    "sctl_surface_pair_occupancy": [_I, _I, _P, _P],
-    "sctl_l2t_surface_occupancy": [_I, _I, _I, _P, _P],
+    "sctl_surface_pair_occupancy": [_I, _I, _I, _P, _P],
+    "sctl_l2t_surface_occupancy": [_I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

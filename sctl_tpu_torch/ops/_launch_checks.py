@@ -1,7 +1,7 @@
 """Argument checks shared by the kernel wrappers: a CUDA kernel takes
 contiguous float tensors of one type it was built for (float32; the
-direct sum and the U list also float64) and int32 counts and indices on
-one card, and nothing else."""
+pair kernels also float64) and int32 counts and indices on one card,
+and nothing else."""
 
 from __future__ import annotations
 

@@ -18,10 +18,10 @@ z-1..z+1 of each of the 9 neighbour columns where they lie, by the
 boxes' counts.  The U-list kernel reads each box's run of one flat
 source list (`box_ranges` for box-major slots).
 
-On a CUDA tensor `p2p` launches csrc/p2p_direct.cu and `p2p_ulist`
-csrc/p2p_ulist.cu (each float32 or float64), `p2p_stencil9`
-csrc/p2p_stencil9.cu and `p2p_stencil` csrc/p2p_stencil.cu (float32);
-on a CPU tensor each runs its plain version.
+On a CUDA tensor `p2p` launches csrc/p2p_direct.cu, `p2p_ulist`
+csrc/p2p_ulist.cu, `p2p_stencil9` csrc/p2p_stencil9.cu and
+`p2p_stencil` csrc/p2p_stencil.cu, each in its float32 or float64 build
+by the tensors' type; on a CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -201,21 +201,26 @@ def to_slab(a, rast_to_mort, n: int, SL: int):
     return slab_gather(a, slab_index(rast_to_mort, n, a.shape[1], SL)[0])
 
 
-def stencil9_fits(kernel: KernelSpec, cap_t: int, SL: int) -> bool:
+def stencil9_fits(kernel: KernelSpec, cap_t: int, SL: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
     """Whether csrc/p2p_stencil9.cu's block takes these widths: the
     target slots of 4 z boxes, at most 1,024, and the (4 + 2) SL window
-    in the 227 KB of shared memory, at 4 bytes a slot for each
-    coordinate, density component and (for the double layers) normal
-    component."""
-    return 4 * cap_t <= 1024 and 4 * kernel.src_floats * 6 * SL <= 227 * 1024
+    in the 227 KB of shared memory, at the element size of `dtype` (4
+    or 8 bytes) a slot for each coordinate, density component and (for
+    the double layers) normal component."""
+    return (4 * cap_t <= 1024
+            and dtype.itemsize * kernel.src_floats * 6 * SL <= 227 * 1024)
 
 
-def stencil9_layout(kernel: KernelSpec, SL: int, cap_t: int) -> dict:
-    """csrc/p2p_stencil9.cu's block at these widths: lanes a target,
-    threads, and the resident blocks an SM (the occupancy API)."""
+def stencil9_layout(kernel: KernelSpec, SL: int, cap_t: int,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """csrc/p2p_stencil9.cu's block at these widths in the build of
+    `dtype`: lanes a target, threads, and the resident blocks an SM (the
+    occupancy API)."""
     lay, blocks = (ctypes.c_int * 2)(), ctypes.c_int(0)
     err = library().sctl_p2p_stencil9_occupancy(
-        FORMULA[kernel.name], SL, cap_t, lay, ctypes.byref(blocks))
+        FORMULA[kernel.name], int(dtype == torch.float64), SL, cap_t, lay,
+        ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"sctl_p2p_stencil9_occupancy: CUDA error {err}")
     return dict(lanes_per_target=lay[0], threads=lay[1],
@@ -266,7 +271,9 @@ def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
          are left out.
     cnt_t (n, n, n) int32, raster order: each box's real targets, its
          first slots (None: all cap_t); the slots past it come out zero.
-    -> (n, n, n, cap_t, k1) unscaled potentials, raster order.
+    -> (n, n, n, cap_t, k1) unscaled potentials, raster order, in the
+    inputs' type: on the card float32 or float64, one type for every
+    float tensor.
     """
     check_supported(kernel.name, TREE_KERNELS)
     n = nside
@@ -289,23 +296,29 @@ def p2p_stencil9(kernel: KernelSpec, nside: int, SL: int, cap_t: int,
     if not on_cuda(*tensors):
         return p2p_stencil9_plain(kernel, n, SL, cap_t, xt_g, xs_s, f_s,
                                   ns_s, cnt9, cnt_t)
-    check_kernel_args("p2p_stencil9", xt_g=xt_g, xs_s=xs_s, f_s=f_s,
-                      **({} if ns_s is None else {"ns_s": ns_s}))
+    dt = check_kernel_args("p2p_stencil9", (torch.float32, torch.float64),
+                           xt_g=xt_g, xs_s=xs_s, f_s=f_s,
+                           **({} if ns_s is None else {"ns_s": ns_s}))
     check_index_args("p2p_stencil9", cnt9=cnt9, cnt_t=cnt_t)
-    if not stencil9_fits(kernel, cap_t, SL):
+    if not stencil9_fits(kernel, cap_t, SL, dt):
         raise NotImplementedError(f"p2p_stencil9: cap_t {cap_t} or SL "
                                   f"{SL} exceeds the kernel's block for "
-                                  f"{kernel.name}")
-    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
+                                  f"{kernel.name} in {dt}")
+    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=dt,
                       device=xt_g.device)
-    launch("sctl_p2p_stencil9", xt_g.data_ptr(), xs_s.data_ptr(),
-           _ptr(ns_s), f_s.data_ptr(), _ptr(cnt9), _ptr(cnt_t),
-           out.data_ptr(), FORMULA[kernel.name], n, SL, cap_t)
+    f64 = dt == torch.float64
+    launch("sctl_p2p_stencil9_f64" if f64 else "sctl_p2p_stencil9",
+           xt_g.data_ptr(), xs_s.data_ptr(), _ptr(ns_s), f_s.data_ptr(),
+           _ptr(cnt9), _ptr(cnt_t), out.data_ptr(), FORMULA[kernel.name],
+           n, SL, cap_t)
     p2p_stencil9.launches += 1
+    p2p_stencil9.launches_f64 += f64
     return out
 
 
 p2p_stencil9.launches = 0
+# the launches of the float64 build among them
+p2p_stencil9.launches_f64 = 0
 
 
 def to_halo(a, rast_to_mort, n: int):
@@ -380,8 +393,10 @@ def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
          and target points, its first slots (None: every slot).  Source
          slots past cnt_s are left out, target slots past cnt_t come
          out zero.
-    -> (n, n, n, cap_t, k1) unscaled potentials, raster order.  Any
-    (cap, cap_t): the card's block streams the sources in tiles.
+    -> (n, n, n, cap_t, k1) unscaled potentials, raster order, in the
+    inputs' type: on the card float32 or float64, one type for every
+    float tensor.  Any (cap, cap_t): the card's block streams the
+    sources in tiles.
     """
     check_supported(kernel.name, TREE_KERNELS)
     n = nside
@@ -405,19 +420,25 @@ def p2p_stencil(kernel: KernelSpec, nside: int, cap: int, cap_t: int,
     if not on_cuda(*tensors):
         return p2p_stencil_plain(kernel, n, cap, cap_t, xt_g, xs_h, f_h,
                                  ns_h, cnt_s, cnt_t)
-    check_kernel_args("p2p_stencil", xt_g=xt_g, xs_h=xs_h, f_h=f_h,
-                      **({} if ns_h is None else {"ns_h": ns_h}))
+    dt = check_kernel_args("p2p_stencil", (torch.float32, torch.float64),
+                           xt_g=xt_g, xs_h=xs_h, f_h=f_h,
+                           **({} if ns_h is None else {"ns_h": ns_h}))
     check_index_args("p2p_stencil", cnt_s=cnt_s, cnt_t=cnt_t)
-    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=torch.float32,
+    out = torch.empty((n, n, n, cap_t, kernel.kdim1), dtype=dt,
                       device=xt_g.device)
-    launch("sctl_p2p_stencil", xt_g.data_ptr(), xs_h.data_ptr(),
-           _ptr(ns_h), f_h.data_ptr(), _ptr(cnt_s), _ptr(cnt_t),
-           out.data_ptr(), FORMULA[kernel.name], n, cap, cap_t)
+    f64 = dt == torch.float64
+    launch("sctl_p2p_stencil_f64" if f64 else "sctl_p2p_stencil",
+           xt_g.data_ptr(), xs_h.data_ptr(), _ptr(ns_h), f_h.data_ptr(),
+           _ptr(cnt_s), _ptr(cnt_t), out.data_ptr(), FORMULA[kernel.name],
+           n, cap, cap_t)
     p2p_stencil.launches += 1
+    p2p_stencil.launches_f64 += f64
     return out
 
 
 p2p_stencil.launches = 0
+# the launches of the float64 build among them
+p2p_stencil.launches_f64 = 0
 
 
 def _ptr(t):

@@ -138,7 +138,8 @@ def run_stencil9(lib, args):
     if err:
         raise RuntimeError(f"launch: CUDA error {err}")
     lay = (ctypes.c_int * 2)()
-    blocks = _blocks(lib.sctl_p2p_stencil9_occupancy, ker, SL, cap_t, lay)
+    blocks = _blocks(lib.sctl_p2p_stencil9_occupancy, ker, 0, SL, cap_t,
+                     lay)
     return out, f"{lay[1]} threads a block, {blocks} blocks an SM"
 
 

@@ -132,12 +132,12 @@ def layout(src_name, lib, c) -> str:
     blocks = ctypes.c_int(0)
     if src_name == "surface_pair.cu":
         lay = (ctypes.c_int * 4)()
-        err = lib.sctl_surface_pair_occupancy(LAP, ns, lay,
+        err = lib.sctl_surface_pair_occupancy(LAP, 0, ns, lay,
                                               ctypes.byref(blocks))
         text = f"{lay[3]} boxes a warp, {lay[0]} surface points a lane"
     else:
         lay = (ctypes.c_int * 3)()
-        err = lib.sctl_l2t_surface_occupancy(LAP, ns, c["cap_t"], lay,
+        err = lib.sctl_l2t_surface_occupancy(LAP, 0, ns, c["cap_t"], lay,
                                              ctypes.byref(blocks))
         text = f"{lay[1]} boxes x {lay[2]} threads a block"
     if err:

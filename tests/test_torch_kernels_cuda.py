@@ -21,7 +21,13 @@ box's real slots by per-box counts, for every formula at p = 6 and 8,
 at the wide capacities of phase 7 and of depth-3 trees, at 128 and
 32,768 boxes, repeated bit for bit; KIFMMs on the card against the
 CPU: p=6 and p=8 at depth 4, a depth-2 one, whose near field runs
-through the halo stencil, and a Stokes double layer.
+through the halo stencil, and a Stokes double layer.  The float64
+builds of the four kernels the float64 KIFMM runs (`surface_pair`,
+`l2t_surface`, `p2p_stencil9`, `p2p_stencil`) against their plain
+versions in float64 at 1e-12 of the maximum, for every formula at
+ragged widths with boxes of no point and at their caps, repeated bit
+for bit, their layouts, mixed types refused; and the float64 KIFMM and
+ParticleFMM on the card against the CPU.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -182,14 +188,22 @@ def test_kernel_matches_plain(cases, name):
 
 
 def test_float64_on_card_raises(cuda_device):
+    """float64 tensors mixed with float32 ones, and float16 ones, raise
+    before any launch: a kernel has a float32 and a float64 build, one
+    type for every float tensor (float64 alone launches the float64
+    build: the `_f64` tests below)."""
     from sctl_tpu_torch.ops import Laplace3D_FxU
     from sctl_tpu_torch.ops.sl import surface_pair
     surf = torch.zeros((152, 3), dtype=torch.float64, device=cuda_device)
     pts = torch.zeros((3, 128 * 8), dtype=torch.float64,
                       device=cuda_device)
-    f = torch.zeros((1, 128 * 8), dtype=torch.float64, device=cuda_device)
+    f = torch.zeros((1, 128 * 8), dtype=torch.float32, device=cuda_device)
+    n = surface_pair.launches
     with pytest.raises(NotImplementedError):
         surface_pair(Laplace3D_FxU, surf, pts, f, 8)
+    with pytest.raises(NotImplementedError):
+        surface_pair(Laplace3D_FxU, surf.half(), pts.half(), f.half(), 8)
+    assert surface_pair.launches == n
 
 
 @pytest.mark.parametrize("p,route", [(6, "blocked"), (8, "grid")])
@@ -1013,3 +1027,261 @@ def test_surface_layouts(cuda_device):
         assert lay["blocks_per_sm"] > 1
         assert l2t_surface_layout(Laplace3D_FxU, ns,
                                   cap_t)["blocks_per_sm"] > 1
+
+
+# ---- the float64 builds of the four kernels of the float64 KIFMM ------
+
+F64_BAR = 1e-12
+
+
+def _check_f64(out, plain, args, launches_before, fn):
+    """The float64 build: a float64 output within F64_BAR of the plain
+    version in float64 on the same inputs (the lean double rsqrt is
+    within a few ulp and the sums run in another order), one more
+    float64 launch."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    assert out.dtype == torch.float64
+    assert fn.launches_f64 == launches_before + 1
+    assert rel_max_err(out, plain(*args)) < F64_BAR
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_stencil_f64_ragged_matches_plain(cuda_device, name):
+    """The halo stencil's float64 build for the six tree formulas at
+    ragged widths, with boxes of 0, 1 and cap sources and targets; the
+    target slots past the counts exactly zero."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil_plain
+    args = _f64(_stencil_ragged(KERNELS[name], 40))
+    n = p2p_stencil.launches_f64
+    out = p2p_stencil(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, p2p_stencil_plain, args, n, p2p_stencil)
+    cnt_t, cap_t = args[-1], args[3]
+    pad = torch.arange(cap_t, device="cuda") >= cnt_t[..., None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_stencil_f64_wide_caps_match_plain(cuda_device):
+    """Phase 7's capacities in float64 (cap 344, cap_t 328: windows of
+    several 512-slot tiles), the Stokes double layer."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil_plain
+    args = _f64(_stencil_ragged(KERNELS["Stokes3D-DxU"], 41, n=3, cap=344,
+                                cap_t=328))
+    n = p2p_stencil.launches_f64
+    out = p2p_stencil(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, p2p_stencil_plain, args, n, p2p_stencil)
+
+
+@pytest.mark.parametrize("name", ULIST)
+def test_p2p_stencil9_f64_ragged_matches_plain(cuda_device, name):
+    """The slab stencil's float64 build for the six tree formulas on the
+    compacted slab at ragged widths and counts (the slots past each
+    entry's count hold nonzero values, which it must skip)."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9, p2p_stencil9_plain
+    args = _f64(_stencil9_ragged(KERNELS[name], 42))
+    n = p2p_stencil9.launches_f64
+    out = p2p_stencil9(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, p2p_stencil9_plain, args, n, p2p_stencil9)
+    cnt_t, cap_t = args[-1], args[3]
+    pad = torch.arange(cap_t, device="cuda") >= cnt_t[..., None]
+    assert (out[pad] == 0).all()
+
+
+def test_p2p_stencil9_f64_widest_block_matches_plain(cuda_device):
+    """The widest float64 block the rule takes: cap_t 256 (1,024 target
+    slots, two passes of the 512 threads) and cap 128 (SL 1,152, a
+    window of 221 KB), where float32's rule takes SL up to 2,420; and
+    every slot (no counts) on the same slab."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import (p2p_stencil9, p2p_stencil9_plain,
+                                        stencil9_fits, stencil9_layout)
+    ker = KERNELS["Laplace3D-FxU"]
+    args = _f64(_stencil9_ragged(ker, 43, n=3, cap=128, cap_t=256))
+    SL = args[2]
+    assert SL == 1152 and stencil9_fits(ker, 256, SL, torch.float64)
+    assert not stencil9_fits(ker, 256, 1280, torch.float64)
+    assert stencil9_fits(ker, 256, 1280, torch.float32)
+    lay = stencil9_layout(ker, SL, 256, torch.float64)
+    assert lay["threads"] == 512 and lay["blocks_per_sm"] >= 1
+    n = p2p_stencil9.launches_f64
+    out = p2p_stencil9(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, p2p_stencil9_plain, args, n, p2p_stencil9)
+    every = args[:8] + (None, None)
+    out = p2p_stencil9(*every)
+    torch.cuda.synchronize()
+    _check_f64(out, p2p_stencil9_plain, every, n + 1, p2p_stencil9)
+
+
+@pytest.mark.parametrize("p", [6, 8])
+@pytest.mark.parametrize("name", S2M)
+def test_surface_pair_f64_ragged_matches_plain(cuda_device, name, p):
+    """S2M's float64 build for the five S2M formulas at p = 6 and 8
+    (ns 152 in one pass, 296 in two of 5 surface points a lane), boxes
+    of 0, 1 and cap sources."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import surface_pair, surface_pair_plain
+    args = _f64(_s2m_ragged(KERNELS[name], 44, p=p))
+    n = surface_pair.launches_f64
+    out = surface_pair(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (KERNELS[name].kdim1, args[1].shape[0], 128)
+    _check_f64(out, surface_pair_plain, args, n, surface_pair)
+
+
+@pytest.mark.parametrize("p", [6, 8])
+@pytest.mark.parametrize("name", L2T)
+def test_l2t_surface_f64_ragged_matches_plain(cuda_device, name, p):
+    """L2T's float64 build for the three L2T formulas at p = 6 and 8,
+    boxes of 0, 1 and cap_t targets; the target slots past the counts
+    exactly zero."""
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.sl import l2t_surface, l2t_surface_plain
+    args = _f64(_l2t_ragged(KERNELS[name], 45, p=p))
+    n = l2t_surface.launches_f64
+    out = l2t_surface(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, l2t_surface_plain, args, n, l2t_surface)
+    _check_l2t_zeros(out, args)
+
+
+@pytest.mark.parametrize("stage", ["surface_pair", "l2t_surface"])
+def test_surface_kernels_f64_wide_match_plain(cuda_device, stage):
+    """The float64 builds at phase 7's widths: cap 344 (S2M) and cap_t
+    328 (L2T) at p = 8."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops import sl
+    fn = getattr(sl, stage)
+    if stage == "surface_pair":
+        args = _f64(_s2m_ragged(Laplace3D_FxU, 46, cap=344, p=8))
+    else:
+        args = _f64(_l2t_ragged(Laplace3D_FxU, 46, cap_t=328, p=8))
+    n = fn.launches_f64
+    out = fn(*args)
+    torch.cuda.synchronize()
+    _check_f64(out, getattr(sl, stage + "_plain"), args, n, fn)
+
+
+def test_f64_builds_repeat_bit_for_bit(cuda_device):
+    """One launch of each float64 build repeated gives the same bits."""
+    from sctl_tpu_torch.ops import Stokes3D_DxU, Stokes3D_FSxU, Stokes3D_FxU
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil9
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    for fn, args in (
+            (p2p_stencil, _f64(_stencil_ragged(Stokes3D_FxU, 47))),
+            (p2p_stencil9, _f64(_stencil9_ragged(Stokes3D_FxU, 47))),
+            (surface_pair, _f64(_s2m_ragged(Stokes3D_DxU, 47, p=8))),
+            (l2t_surface, _f64(_l2t_ragged(Stokes3D_FSxU, 47, p=8)))):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), fn.__name__
+
+
+def test_f64_mixed_dtypes_raise(cuda_device):
+    """float64 coordinates with float32 densities raise in each of the
+    four wrappers before any launch."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_stencil9
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    cases = ((p2p_stencil, _stencil_ragged(Laplace3D_FxU, 48), 6),
+             (p2p_stencil9, _stencil9_ragged(Laplace3D_FxU, 48), 6),
+             (surface_pair, _s2m_ragged(Laplace3D_FxU, 48), 3),
+             (l2t_surface, _l2t_ragged(Laplace3D_FxU, 48), 3))
+    for fn, args, k in cases:
+        mixed = _f64(args[:k]) + args[k:]
+        n = fn.launches
+        with pytest.raises(NotImplementedError):
+            fn(*mixed)
+        assert fn.launches == n, fn.__name__
+
+
+def test_f64_layouts(cuda_device):
+    """The float64 builds' layouts from the occupancy API: S2M at most
+    5 surface points a lane (one pass at p = 6, two at p = 8) and 2
+    boxes a warp at p = 6; L2T and the slab stencil (at phase 4's
+    widths, 384 threads) at least one block an SM."""
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops.p2p import stencil9_layout
+    from sctl_tpu_torch.ops.sl import l2t_surface_layout, surface_pair_layout
+    f64 = torch.float64
+    for ns, passes, k in ((152, 1, 2), (296, 2, 2)):
+        lay = surface_pair_layout(Laplace3D_FxU, ns, f64)
+        assert lay["points_per_lane"] == 5 and lay["passes"] == passes
+        assert lay["boxes_per_warp"] == k and lay["blocks_per_sm"] >= 1
+    for ns, cap_t in ((152, 48), (296, 328)):
+        assert l2t_surface_layout(Laplace3D_FxU, ns, cap_t,
+                                  f64)["blocks_per_sm"] >= 1
+    lay = stencil9_layout(Laplace3D_FxU, 512, 48, f64)
+    assert lay["threads"] == 384 and lay["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("name", ["Laplace3D-FxU", "Stokes3D-FxU"])
+def test_kifmm_f64_card_matches_cpu(cuda_device, name):
+    """The float64 KIFMM at depth 4 on the card (the float64 builds of
+    surface_pair, l2t_surface and p2p_stencil9; the per-parity M2L
+    sweep at the exact ranks) against the CPU's plain versions on the
+    same tables, p = 4, rcond 1e-9.  Bar 1e-9 of the maximum: the pinv
+    operators amplify float64 rounding about a million-fold (the port
+    and the JAX package differ by 1.8e-10 at p = 6,
+    tests/test_torch_kifmm.py)."""
+    from sctl_tpu_torch.fmm import KIFMM, KIFMMOperators
+    from sctl_tpu_torch.ops import KERNELS
+    from sctl_tpu_torch.ops.p2p import p2p_stencil9
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    ker = KERNELS[name]
+    rng = np.random.default_rng(49)
+    x = rng.random((16 ** 3 * 30, 3))
+    f = rng.normal(size=(len(x), ker.kdim0))
+    cpu = KIFMM(ker, p=4, depth=4, device="cpu",
+                dtype=torch.float64).setup(x, x)
+    tables = {k: getattr(cpu._ops, k) for k in KIFMMOperators.TABLES}
+    ops = KIFMMOperators(cpu.ker_trans, 4, cpu.rcond, cuda_device,
+                         torch.float64, tables=tables)
+    card = KIFMM(ker, p=4, depth=4, device=cuda_device, dtype=torch.float64,
+                 operators=ops).setup(x, x)
+    assert card._ops.m2l_route == "parity"
+    assert card.surface_route and card.near_route == "stencil9"
+    counts = [fn.launches_f64 for fn in (surface_pair, l2t_surface,
+                                         p2p_stencil9)]
+    u_card = card.eval(f)
+    assert [fn.launches_f64 for fn in (surface_pair, l2t_surface,
+                                       p2p_stencil9)] == [
+        c + 1 for c in counts]
+    u_cpu = cpu.eval(f)
+    assert np.abs(u_card - u_cpu).max() < 1e-9 * np.abs(u_cpu).max()
+
+
+def test_particle_fmm_f64_card_halo_route(cuda_device):
+    """ParticleFMM(accuracy=8, float64) on the card at about 330 points
+    a leaf (depth 3 at 170,000 points): the halo stencil's float64
+    build, and S2M and L2T through the float64 U-list kernel, as the
+    surface rule refuses cap_s past 227 at 8 bytes; against its direct
+    sum (the float64 p2p) at 500 targets, bar 1e-6 (BASELINE.md rung
+    4: 8.1e-8 at p = 8)."""
+    from sctl_tpu_torch.fmm import ParticleFMM
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import p2p_stencil, p2p_ulist
+    rng = np.random.default_rng(50)
+    x = rng.random((170_000, 3))
+    f = rng.normal(size=(len(x), 1))
+    fmm = ParticleFMM(accuracy=8, device=cuda_device, dtype=torch.float64)
+    fmm.set_kernel_s2t("s", "t", Laplace3D_FxU)
+    fmm.set_src_coord("s", x)
+    fmm.set_src_density("s", f)
+    fmm.set_trg_coord("t", x)
+    n_st, n_ul = p2p_stencil.launches_f64, p2p_ulist.launches_f64
+    u = fmm.eval("t")
+    kf = next(iter(fmm._kifmm_cache.values()))
+    assert kf.depth == 3 and kf.near_route == "stencil"
+    assert not kf.surface_route and kf._ops.m2l_route == "parity"
+    assert p2p_stencil.launches_f64 == n_st + 1
+    assert p2p_ulist.launches_f64 == n_ul + 2
+    X = torch.as_tensor(x, device=cuda_device)
+    u_d = direct_eval_blocked(Laplace3D_FxU, X[:500], X, torch.as_tensor(
+        f, device=cuda_device)).cpu().numpy()
+    assert np.abs(u[:500] - u_d).max() < 1e-6 * np.abs(u_d).max()

@@ -73,8 +73,10 @@ def test_slice_f64_matches_jax():
     The bar is 1e-9, not 1e-12: the pinv operators (rcond 1e-9) amplify
     rounding about a million-fold.  Measured on this input: 1-ulp random
     noise put into the port's own S2M check potentials moves its result
-    by 1.9e-10 of the maximum, and the two packages differ by 1.8e-10;
-    the M2L and L2T orders of summation and coordinate forms were each
+    by 1.9e-10 of the maximum, and the two packages differ by 1.8e-10
+    (3.0e-10 since the port's float64 M2L is the per-parity sweep, the
+    JAX package's float64 route; tests/test_torch_kifmm_f64.py); the
+    M2L and L2T orders of summation and coordinate forms were each
     ruled out as the cause (each changes the result by < 1e-15)."""
     xs, xt, f = _cloud(0)
     jk = J_KIFMM(J_LAP, p=6, depth=3, use_pallas_p2p=False,
