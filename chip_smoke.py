@@ -44,7 +44,7 @@ Phases, each printed on flushed lines with the seconds since start:
             M2L kernel (3xTF32 on the tensor cores) at each level 3-6 on
             the run's own stack: its time against its CUDA-core and
             tensor-core bounds, its split, the bytes its blocks copy
-            (tile counts; ncu's DRAM bytes where ncu runs), and its error
+            (tile counts), and its error
             against float64, at most twice the float32 plain version's.
 4b. depth 2 ParticleFMM(Laplace3D_FxU) on 45,000 uniform points from
             numpy.random.default_rng(1): the tree path at automatic depth
@@ -99,6 +99,41 @@ Phases, each printed on flushed lines with the seconds since start:
             apply's inputs against its bound and its DP-instruction
             floor (cuobjdump), its error against its plain version in
             float64 (bar 1e-12).
+5L. bie laplace  the Laplace double layer at bench_bie's width: the
+            interior Dirichlet problem of tests/test_bie.py:89-124 on
+            torus_patches(nu=48, nv=20, q=6), 34,560 unknowns, float32,
+            tolerance 1e-6, the device near engine, the far field through
+            the adaptive FMM (cold Laplace tables, p=6; its U list
+            p2p_ulist's Laplace3D-DxU formula), A(s) = D s - s/2, boundary
+            data the float64 p2p sum of a unit charge at (0, 6, 0.5),
+            gmres_device to 1e-6.  Setup seconds by stage, the apply
+            (median of 5, by stage from CUDA events), the U-list kernel
+            on one apply's inputs against its bound and plain version in
+            float64 (at most twice the float32 plain version's error),
+            its launches an apply.  Bars: under 120 iterations, the
+            residual recomputed at most 1.5e-6, the error at the 16
+            interior ring points against the exact potential at most
+            1e-4.
+5h. bie host  the host near path on the card: torus_patches(nu=12,
+            nv=6, q=6), Laplace3D-DxU, tolerance 1e-6, float32: the
+            device engine and the host path (use_device_near=False) on
+            one geometry, the same near pairs, each engine's setup seconds
+            and fallback count; their applies of one density within
+            30 tol; the host path writes its near cache under a temporary
+            directory and an op over a bare ParametricPatchList (no
+            device_geom, so the host path by default) reads it, skips the
+            near stages and applies bit for bit as the host path's (the
+            near scatter in its deterministic form).
+5q. legacy  LegacyQuadrature on BasisElemList.discretize(8,
+            sphere_patches(n_per_face=2, q=6).charts), 24 elements,
+            order_singular 12, order_direct 8: Laplace on the surface and
+            at the near and deep targets of tests/test_legacy_quadrature.py
+            (Gauss identity, 2e-4), the Stokes double layer of a rigid
+            translation (5e-3); setup seconds (host, float64), eval ms on
+            the card (the far sum through p2p); the card's eval in float64
+            within 1e-12 and in float32 within 1e-5 (off the surface;
+            twice the float32 CPU eval's error on it) of the same setup's
+            float64 CPU eval.
 
 6a. direct  ParticleFMM(float32) on 39,000 points from
             numpy.random.default_rng(3), one run for each of the eight
@@ -215,7 +250,7 @@ Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched (phase 8
 the float64 counts, `launches_f64`).  Then a line with phase 8's
 figures, a line with the BIE legs' figures (phase 5's baseline and
-recycling, phase 5f), one JSON line with each kernel's numbers
+recycling, phases 5f, 5L, 5h, 5q), one JSON line with each kernel's numbers
 (launches summed over phases 4 to 7; p2p_ulist's float64 build under
 "f64"; the four float64 builds as "name[f64]" entries with their
 launches over phase 8), the card's name and power limit, the run's
@@ -294,6 +329,15 @@ F64_CUTOFF = 15_000
 F64_TOL = 1e-10
 F64_MAX_ITER = 200
 F64_RESID_BAR = 2e-10
+# phase 5h, the host near path on a smaller torus
+HOST_NU, HOST_NV = 12, 6
+# phase 5q: the card's float32 legacy eval against the CPU's on the same
+# setup: off the surface against the float64 eval; on it against the
+# float32 eval, where the two float32 sums round r . n of near-coincident
+# pairs in other orders (the card fuses its multiply-adds): on an H100
+# they read 2.6e-5 (Laplace) and 4.4e-5 (Stokes) apart
+LEGACY_F32_BAR = 1e-5
+LEGACY_F32_SURFACE_BAR = 1e-4
 # ParticleFMM.eval_tensor against eval, float32
 EVAL_TENSOR_BAR = 1e-6
 P8_N = 10_000_000
@@ -691,58 +735,11 @@ def m2l_levels(torch, kf, label):
         del qp, out
         torch.cuda.empty_cache()
     top = rows[kf.depth]
-    top["dram"] = ncu_dram(name, kf.depth, mats.shape)
+    # DRAM bytes need Nsight Compute's counters, which need profiling
+    # rights a plain run lacks; the tile counts' estimate stands
+    top["dram"] = "not measured: no profiler counters"
     log(f"{label}: {name} DRAM bytes at level {kf.depth}: {top['dram']}")
     return rows
-
-
-def ncu_dram(name, lvl, shape):
-    """DRAM bytes read and written by one launch of the M2L kernel
-    `name` at level `lvl` with a random stack of `shape`, as Nsight
-    Compute measures them, in a child process; where ncu is missing or
-    fails, why (the estimate from the tile counts stands then).  After
-    one failure the run does not try again."""
-    import os
-    import shutil
-    if ncu_dram.failed:
-        return ncu_dram.failed
-    ncu = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
-    if not os.path.exists(ncu):
-        ncu_dram.failed = "not measured: no ncu on this machine"
-        return ncu_dram.failed
-    n = 1 << lvl
-    grid = name == "m2l_grid"
-    q = (f"({n} + 6,) * 3 + ({shape[1]},)" if grid
-         else f"({n // 2} + 2,) * 3 + ({shape[1]},)")
-    code = (
-        "import torch\n"
-        "from sctl_tpu_torch.ops import m2l\n"
-        f"q = torch.randn({q}, device='cuda')\n"
-        f"m = torch.randn({tuple(shape)}, device='cuda')\n"
-        f"t = m2l.{'grid' if grid else 'blocked'}_operands(m)\n"
-        f"m2l.{name}(q, m, t)\n"
-        "torch.cuda.synchronize()\n")
-    try:
-        run = subprocess.run(
-            [ncu, "--csv", "-k", "regex:m2l_", "--metrics",
-             "dram__bytes_read.sum,dram__bytes_write.sum", sys.executable,
-             "-c", code], capture_output=True, text=True, timeout=240)
-    except subprocess.TimeoutExpired:
-        ncu_dram.failed = "not measured: ncu timed out"
-        return ncu_dram.failed
-    vals = {}
-    for ln in run.stdout.splitlines():
-        for metric in ("dram__bytes_read.sum", "dram__bytes_write.sum"):
-            if metric in ln:
-                vals[metric] = ln.split('","')[-3:]
-    if run.returncode or not vals:
-        tail = (run.stdout + run.stderr).strip().splitlines()[-2:]
-        ncu_dram.failed = f"not measured: ncu rc {run.returncode}: {tail}"
-        return ncu_dram.failed
-    return vals
-
-
-ncu_dram.failed = None
 
 
 def reset(counters):
@@ -844,7 +841,7 @@ def _bie_setup(torch):
         f"{sum(int((v[0] >= 0).sum()) for v in af.vtab.values())}; "
         f"near pairs "
         f"{len(op.near_pairs)}, near matrices "
-        f"{op._near_mats.numel() * 4 / 2 ** 20:.1f} MiB; near engine s "
+        f"{op._near_mats_dev.numel() * 4 / 2 ** 20:.1f} MiB; near engine s "
         + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in op._near_prof.items()))
     return lst, op
@@ -1069,25 +1066,27 @@ def rel_resid(torch, A, x, b):
                  / torch.linalg.vector_norm(b))
 
 
-def interior_error(torch, lst, op, x, src, qs):
-    """bench.py's interior check: the double layer of the solution,
-    through its far-field quadrature in float64, at 16 points of a ring
-    inside the torus, against the exact Stokeslet -> relative max
-    error."""
+def interior_error(torch, lst, op, x, src, qs, dl=None, sl=None):
+    """bench.py's interior check: the double layer `dl` (default
+    Stokes3D-DxU) of the solution, through its far-field quadrature in
+    float64, at 16 points of a ring inside the torus, against the exact
+    field of the sources through `sl` (default the Stokeslet) ->
+    relative max error."""
     import numpy as np
     from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
                                     direct_eval_blocked)
+    dl, sl = dl or Stokes3D_DxU, sl or Stokes3D_FxU
     c64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                     device="cuda")
     th = np.linspace(0, 2 * np.pi, 17)[:-1]
     xt_int = np.stack([(2.0 + 0.15 * np.cos(7 * th)) * np.cos(th),
                        (2.0 + 0.15 * np.cos(7 * th)) * np.sin(th),
                        0.15 * np.sin(7 * th)], 1)
-    sigma = x.double().reshape(-1, 3).cpu().numpy()
+    sigma = x.double().reshape(-1, dl.kdim0).cpu().numpy()
     Ff = lst.get_far_field_density(sigma) * op.wf[:, None]
-    u_num = direct_eval_blocked(Stokes3D_DxU, c64(xt_int), c64(op.Xf),
+    u_num = direct_eval_blocked(dl, c64(xt_int), c64(op.Xf),
                                 c64(Ff), ns=c64(op.Xnf)).cpu().numpy()
-    u_ex = direct_eval_blocked(Stokes3D_FxU, c64(xt_int), c64(src),
+    u_ex = direct_eval_blocked(sl, c64(xt_int), c64(src),
                                c64(qs)).cpu().numpy()
     return float(np.abs(u_num - u_ex).max() / np.abs(u_ex).max())
 
@@ -1225,6 +1224,316 @@ def phase_bie_f64(torch, counters, ops5):
     return launches, row, summary
 
 
+def _stage_ms(torch, fn):
+    """CUDA-event milliseconds of each stage fn(marks) records."""
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    return stages
+
+
+def phase_bie_laplace(torch, counters, smi):
+    """5L: the Laplace double-layer BIE at bench_bie's width: the
+    interior Dirichlet problem (tests/test_bie.py:89-124) on
+    torus_patches(nu=48, nv=20, q=6), 34,560 unknowns, float32, the
+    device near engine, the far field through the adaptive FMM (cold
+    Laplace tables, p=6), A(s) = D s - s/2, boundary data of a unit
+    charge at phase 5's Stokeslet position, gmres_device to 1e-6."""
+    import numpy as np
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.kernel_cases import rel_max_err, ulist_main_work
+    from sctl_tpu_torch.linalg import gmres_device
+    from sctl_tpu_torch.ops import (Laplace3D_DxU, Laplace3D_FxU,
+                                    direct_eval_blocked)
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    reset(counters)
+    t = time.perf_counter()
+    lst = torus_patches(nu=48, nv=20, q=6, R=2.0, r=0.5)
+    op = BoundaryIntegralOp(Laplace3D_DxU, device="cuda",
+                            dtype=torch.float32)
+    op.set_accuracy(BIE_TOL)
+    op.add_elem_list(lst)
+    op.setup()
+    setup_s = time.perf_counter() - t
+    af = op._far_fmm
+    if af is None or op._near_mats_dev is None:
+        raise SystemExit("chip_smoke: the Laplace BIE did not take the "
+                         "adaptive FMM and the device near engine")
+    log(f"bie laplace setup: {setup_s:.2f} s; by stage s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in op.setup_times.items())
+        + f"; unknowns {op.dim(0)}, far nodes {len(op.Xf)}, leaves "
+        f"{af.n_leaf}, levels {af.L}, near pairs {len(op.near_pairs)}, "
+        f"fallback pairs {op._near_fallback_count}; near engine s "
+        + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in op._near_prof.items()) + f"; on '{smi}'")
+
+    X, _, _ = lst.get_node_coord()
+    src, qs = np.array([BIE_SRC2]), np.ones((1, 1))
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    b = direct_eval_blocked(Laplace3D_FxU, c64(X), c64(src),
+                            c64(qs)).reshape(-1).float()
+
+    def A(sig, marks=None):
+        return (op.compute_potential_tensor(sig, marks).reshape(-1)
+                - 0.5 * sig)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sig0 = torch.randn(b.shape, generator=gen, device="cuda")
+    A(sig0)                                                 # warm
+    apply_s, apply_all = _median_time(
+        torch, lambda rep: A(sig0 * (1.0 + 1e-6 * (rep + 1))), 5)
+    stages = _stage_ms(torch, lambda marks: A(sig0, marks))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, iters, err = gmres_device(A, b, tol=BIE_TOL, max_iter=BIE_MAX_ITER)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    resid = rel_resid(torch, A, x, b)
+    launches = read(counters)
+    interior = interior_error(torch, lst, op, x, src, qs, Laplace3D_DxU,
+                              Laplace3D_FxU)
+    log(f"bie laplace: apply s {['%.4f' % a for a in apply_all]}, median "
+        f"{apply_s:.4f} s; stage ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; solve {solve_s:.3f} s, {iters} iterations, residual "
+        f"{float(err) / float(torch.linalg.vector_norm(b)):.3e} returned, "
+        f"{resid:.3e} recomputed (bar {BIE_RESID_BAR:g}); interior rel err "
+        f"vs the exact potential {interior:.3e} (bar "
+        f"{BIE_INTERIOR_BAR:g}); launches {launches}; on '{smi}'")
+
+    # the U-list kernel (the Laplace3D-DxU formula) on one apply's inputs
+    fp = af.pad_density(torch.randn((len(op.Xf), 1), generator=gen,
+                                    device="cuda"))
+    args = af.ulist_args(fp)
+    ul_ms = cuda_ms(torch, lambda: p2p_ulist(af.ker_s2t, *args), 10)
+    plain_ms = cuda_ms(torch, lambda: p2p_ulist_plain(af.ker_s2t, *args), 3)
+    p2p_ulist.launches = 0
+    A(sig0)
+    per_apply = p2p_ulist.launches
+    u64 = p2p_ulist_plain(af.ker_s2t, *[
+        a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in args])
+    err64 = rel_max_err(p2p_ulist(af.ker_s2t, *args), u64)
+    plain64 = rel_max_err(p2p_ulist_plain(af.ker_s2t, *args), u64)
+    del u64, fp, args
+    work = ulist_main_work(af)
+    b_ms, b_by = bound(work)
+    log(f"bie laplace U list: p2p_ulist[{af.ker_s2t.name}] {ul_ms:.4f} ms "
+        f"per apply in {per_apply} launch(es), plain {plain_ms:.4f} ms, the "
+        f"apply's U stage {stages['U']:.3f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}, {ops_limit(work)}), pairs {work['pairs']}; against its "
+        f"plain version in float64 {err64:.3e} (the float32 plain version "
+        f"{plain64:.3e}, bar twice that); on '{smi}'")
+    if not (per_apply == 1 and err64 <= 2 * plain64):
+        raise SystemExit(f"chip_smoke: the Laplace BIE U list: {per_apply} "
+                         f"launches an apply, float64 error {err64:.3e} "
+                         f"(plain {plain64:.3e})")
+    if not (int(iters) < BIE_MAX_ITER and np.isfinite(resid)
+            and resid <= BIE_RESID_BAR and np.isfinite(interior)
+            and interior <= BIE_INTERIOR_BAR):
+        raise SystemExit(f"chip_smoke: the Laplace BIE solve failed: "
+                         f"{iters} iterations, residual {resid:.3e}, "
+                         f"interior {interior:.3e}")
+    if not (launches["p2p_ulist"] > 0 and launches["p2p"] > 0):
+        raise SystemExit(f"chip_smoke: the Laplace BIE path did not launch "
+                         f"p2p_ulist and p2p: {launches}")
+    summary = dict(setup_s=setup_s, setup_by_stage=op.setup_times,
+                   near_engine=op._near_prof, apply_s=apply_s,
+                   apply_stages_ms=stages, solve_s=solve_s,
+                   iterations=int(iters), resid=resid, interior=interior,
+                   unknowns=op.dim(0), ulist_ms=ul_ms, ulist_plain_ms=plain_ms,
+                   ulist_bound_ms=b_ms, ulist_pairs=work["pairs"],
+                   ulist_err64=err64, ulist_plain_err64=plain64,
+                   ulist_per_apply=per_apply)
+    return launches, summary
+
+
+def phase_bie_host(torch, counters, smi):
+    """5h: the host near path on the card: torus_patches(nu=12, nv=6,
+    q=6), Laplace3D-DxU, tol 1e-6, float32: the device engine and the
+    host path on one geometry, the near cache read back by an op over a
+    bare ParametricPatchList (no device_geom)."""
+    import os
+    import tempfile
+    import warnings
+    import numpy as np
+    from sctl_tpu_torch.bie import (BoundaryIntegralOp, ParametricPatchList,
+                                    torus_patches)
+    from sctl_tpu_torch.ops import Laplace3D_DxU
+    reset(counters)
+    lst = torus_patches(nu=HOST_NU, nv=HOST_NV, q=6, R=2.0, r=0.5)
+    bare = ParametricPatchList(lst.charts, q=6,
+                               surface_batch=lst._surface_batch)
+
+    def make(elems, **attrs):
+        op = BoundaryIntegralOp(Laplace3D_DxU, device="cuda",
+                                dtype=torch.float32)
+        op.set_accuracy(BIE_TOL)
+        op.add_elem_list(elems)
+        for k, v in attrs.items():
+            setattr(op, k, v)
+        t = time.perf_counter()
+        op.setup()
+        return op, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "near.npz")
+        dev_op, dev_s = make(lst)
+        host_op, host_s = make(lst, use_device_near=False, near_cache=path)
+        bare_op, bare_s = make(bare, near_cache=path)
+    sig = torch.randn(dev_op.dim(0), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(6))
+    u_dev = dev_op.compute_potential_tensor(sig)
+    u_host = host_op.compute_potential_tensor(sig)
+    agree = float((u_dev - u_host).abs().max() / u_host.abs().max())
+    # the scatter of the near corrections in its deterministic form for
+    # the bit-for-bit comparison (index_add_ on the card sums atomically)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            bit_equal = torch.equal(host_op.compute_potential_tensor(sig),
+                                    bare_op.compute_potential_tensor(sig))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    launches = read(counters)
+    log(f"bie host: torus {HOST_NU} x {HOST_NV}, {dev_op.dim(0)} unknowns, "
+        f"near pairs {len(dev_op.near_pairs)} (device engine) and "
+        f"{len(host_op.near_pairs)} (host path); setup s: device engine "
+        f"{dev_s:.2f} (near stages "
+        f"{dev_op.setup_times['near_assembly']:.2f}, fallback pairs "
+        f"{dev_op._near_fallback_count}), host path {host_s:.2f} (near "
+        f"stages {host_op.setup_times['near_assembly']:.2f}: "
+        + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in host_op._near_prof.items())
+        + f"), the bare list from the near cache {bare_s:.2f} (cache read "
+        f"{bare_op.setup_times.get('near_cache', float('nan')):.2f}); "
+        f"applies of one density: device engine vs host path {agree:.3e} of "
+        f"the max (bar {30 * BIE_TOL:g}), host path vs cached bare list "
+        f"bit for bit {bit_equal}; launches {launches}; on '{smi}'")
+    ok = (dev_op._near_mats_dev is not None
+          and host_op._near_mats_dev is None
+          and dev_op.near_pairs == host_op.near_pairs
+          and not bare_op._device_near_ok()
+          and "near_cache" in bare_op.setup_times
+          and "near_assembly" not in bare_op.setup_times
+          and np.isfinite(agree) and agree <= 30 * BIE_TOL and bit_equal
+          and launches["p2p"] > 0)
+    if not ok:
+        raise SystemExit("chip_smoke: the host near path phase failed")
+    summary = dict(unknowns=dev_op.dim(0), near_pairs=len(dev_op.near_pairs),
+                   device_engine_setup_s=dev_s, host_path_setup_s=host_s,
+                   cached_setup_s=bare_s,
+                   device_engine_near_s=dev_op.setup_times["near_assembly"],
+                   host_path_near_s=host_op.setup_times["near_assembly"],
+                   fallback=[dev_op._near_fallback_count,
+                             host_op._near_fallback_count],
+                   agree=agree, bit_equal=bit_equal)
+    return launches, summary
+
+
+def _legacy_leg(torch, q64, Xt, rng, setup_s, smi, name):
+    """One kernel of 5q: its Gauss identity, eval ms on the card, and
+    the card's evals against the CPU's on the same setup: float64 both
+    ways; float32 against the float64 CPU eval off the surface, against
+    the float32 CPU eval on it."""
+    import numpy as np
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    n_e, k0 = q64.elems.n_elem, q64.ker.kdim0
+    size = q64.elems.basis.size
+    q32 = q64.to("cuda", torch.float32)
+    qcpu, qcpu32 = (q64.to("cpu", dt) for dt in (torch.float64,
+                                                  torch.float32))
+    if k0 == 3:
+        u0 = np.array([0.3, -1.1, 0.7])
+        dens = np.broadcast_to(u0, (n_e, size, 3)).copy()
+        ident = float(np.abs(q64.eval(dens) + 0.5 * u0).max()
+                      / np.abs(u0).max())
+        ident_bar = 5e-3
+    else:
+        u = q64.eval(np.ones((n_e, size, 1)))[:, 0]
+        exact = -0.5 if Xt is None else np.array([-1.0, -1.0, -1.0, 0.0])
+        ident = float(np.abs(u - exact).max())
+        ident_bar = 2e-4
+    sig = rng.normal(size=(n_e, size, k0))
+    d = torch.as_tensor(sig, device="cuda")
+    eval_ms = cuda_ms(torch, lambda: q64.eval_tensor(d), 5)
+    eval32_ms = cuda_ms(torch, lambda: q32.eval_tensor(d), 5)
+    ref, ref32 = qcpu.eval(sig), qcpu32.eval(sig)
+    u32 = q32.eval(sig)
+    e64, gap32, cpu_gap32 = rel(q64.eval(sig), ref), rel(u32, ref), \
+        rel(ref32, ref)
+    # on the surface float32 itself is 1e-2 from float64 (the far sum's
+    # sources lie a fraction of a node spacing from its targets: r . n
+    # cancels), so there the card's float32 eval is held to the CPU's
+    e32, bar32 = ((gap32, LEGACY_F32_BAR) if Xt is not None
+                  else (rel(u32, ref32), LEGACY_F32_SURFACE_BAR))
+    ok = bool(ident <= ident_bar and e64 <= 1e-12 and e32 <= bar32
+              and np.isfinite([ident, e64, e32]).all())
+    log(f"legacy {name}: eval ms float64 {eval_ms:.4f}, float32 "
+        f"{eval32_ms:.4f}; Gauss identity {ident:.3e} (bar {ident_bar:g}); "
+        f"card float64 against the float64 CPU eval {e64:.3e} (bar 1e-12); "
+        f"card float32 against the "
+        f"{'float64' if Xt is not None else 'float32'} CPU eval {e32:.3e} "
+        f"(bar {bar32:g}); float32 from float64: card {gap32:.3e}, "
+        f"CPU {cpu_gap32:.3e}; on '{smi}'")
+    return dict(setup_s=setup_s, pairs=len(q64._pairs), identity=ident,
+                identity_bar=ident_bar, eval_ms_f64=eval_ms,
+                eval_ms_f32=eval32_ms, err_f64=e64, err_f32=e32,
+                f32_from_f64=gap32, f32_from_f64_cpu=cpu_gap32,
+                bar_f32=bar32, ok=ok)
+
+
+def phase_legacy(torch, counters, smi):
+    """5q: LegacyQuadrature on the card: 24 elements of order 8 on
+    sphere_patches(n_per_face=2), order_singular 12, order_direct 8,
+    set up on the card in float64 (the Duffy blocks there, the rest on
+    the host); the Gauss identities of tests/test_legacy_quadrature.py
+    (Laplace on the surface and at near and deep targets, 2e-4; the
+    Stokes double layer of a rigid translation, 5e-3); eval on the card
+    in float64 and float32 against the CPU's on the same setup."""
+    import numpy as np
+    from sctl_tpu_torch.bie import (BasisElemList, LegacyQuadrature,
+                                    sphere_patches)
+    from sctl_tpu_torch.ops import Laplace3D_DxU, Stokes3D_DxU
+    elems = BasisElemList.discretize(8, sphere_patches(n_per_face=2,
+                                                       q=6).charts)
+    xt = np.array([[0.0, 0.0, 0.9], [0.55, 0.55, 0.55], [0.0, 0.0, 0.2],
+                   [0.0, 1.4, 0.0]])
+    rng = np.random.default_rng(9)
+    reset(counters)
+    legs, ok = {}, True
+    for Xt, ker in ((None, Laplace3D_DxU), (None, Stokes3D_DxU),
+                    (xt, Laplace3D_DxU)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        q64 = LegacyQuadrature(ker, elems, 12, 8, device="cuda",
+                               dtype=torch.float64).setup(Xt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        name = (ker.name.split("3D")[0].lower()
+                + ("_surface" if Xt is None else "_targets"))
+        log(f"legacy setup {name}: {ker.name} "
+            f"{'on the surface' if Xt is None else 'at 4 targets'}: "
+            f"{setup_s:.2f} s (the Duffy blocks on the card in float64), "
+            f"near pairs {len(q64._pairs)}; on '{smi}'")
+        legs[name] = _legacy_leg(torch, q64, Xt, rng, setup_s, smi, name)
+        ok &= legs[name].pop("ok")
+    launches = read(counters)
+    log(f"legacy: launches {launches} (the evals on the card: identities, "
+        f"timings, comparisons); on '{smi}'")
+    if not (ok and launches["p2p"] > 0):
+        raise SystemExit(f"chip_smoke: the legacy quadrature phase failed: "
+                         f"{legs}")
+    return launches, legs
+
+
 def _sample_err(u, u_ref):
     """max |u - u_ref| / max |u_ref| of two (n, k) arrays."""
     import numpy as np
@@ -1312,16 +1621,35 @@ def _tree_kernels_launched(kf, launches):
     return all(launches[k] > 0 for k in need)
 
 
-def phase_tree(torch, counters):
-    """6b: ParticleFMM's tree path for the four other tree kernels."""
+def build_in_background(fn, *args):
+    """fn(*args) in a thread of its own, started now -> a future of
+    (host seconds, the perf_counter time it ended)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed():
+        t = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t, time.perf_counter()
+
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(timed)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_tree(torch, counters, tables):
+    """6b: ParticleFMM's tree path for the four other tree kernels.
+    `tables`: the future of its cold Stokes table build, which runs in
+    the background from phase 5f's setup on (the host float64 SVDs of
+    the table use the cores that 5f's per-pair host rule leaves idle)."""
     import numpy as np
     from sctl_tpu_torch.fmm import ParticleFMM
-    from sctl_tpu_torch.fmm.kifmm import unit_tables
     from sctl_tpu_torch.ops import KERNELS, direct_eval_blocked
     t = time.perf_counter()
-    unit_tables("Stokes3D-FSxU", P, 3e-5)
+    build_s, ended = tables.result()
     log(f"tree: cold Stokes3D-FSxU table build (p={P}, rcond 3e-5) "
-        f"{time.perf_counter() - t:.2f} s")
+        f"{build_s:.2f} s in the background from phase 5f on, ended at "
+        f"{ended - T0:.1f} s; 6b waited {time.perf_counter() - t:.2f} s")
     rng = np.random.default_rng(4)
     x = rng.random((TREE_N, 3))
     nrm = rng.normal(size=(TREE_N, 3))
@@ -2397,13 +2725,20 @@ def main():
     l5, rows["p2p_ulist"], bie_baseline, ops5 = phase_bie(torch,
                                                           all_counters)
     torch.cuda.empty_cache()
+    from sctl_tpu_torch.fmm.kifmm import unit_tables
+    tables6b = build_in_background(unit_tables, "Stokes3D-FSxU", P, 3e-5)
     l5f, ulist_f64, bie_f64 = phase_bie_f64(torch, all_counters, ops5)
     del ops5
     rows["p2p_ulist"]["f64"].update(ulist_f64)
     main_rows["p2p_ulist"] = dict(rows["p2p_ulist"], launches=0)
     torch.cuda.empty_cache()
+    l5L, bie_laplace = phase_bie_laplace(torch, all_counters, smi)
+    torch.cuda.empty_cache()
+    l5h, bie_host = phase_bie_host(torch, all_counters, smi)
+    l5q, legacy = phase_legacy(torch, all_counters, smi)
+    torch.cuda.empty_cache()
     l6a, rows["p2p"] = phase_direct(torch, all_counters)
-    l6b = phase_tree(torch, all_counters)
+    l6b = phase_tree(torch, all_counters, tables6b)
     l6c, main_rows["p2p"], st6c, spread6c = phase_stokes(torch,
                                                          all_counters)
     main_rows["p2p"]["launches"] = 0
@@ -2422,7 +2757,8 @@ def main():
     main_rows["p2p_stencil"]["stokes_6c"] = st6c
     for name in ROUTES:
         main_rows[name]["launches"] += sum(
-            lc.get(name, 0) for lc in (l4b, l5, l5f, l6a, l6b, l6c, l7))
+            lc.get(name, 0) for lc in (l4b, l5, l5f, l5L, l5h, l5q, l6a,
+                                       l6b, l6c, l7))
     log("kernels: launches over phases 4 to 7: " + ", ".join(
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
@@ -2479,7 +2815,10 @@ def main():
                    for k, v in f8.items() if k.startswith(name + "[")}))
     log("f64 ladder: " + json.dumps(f64_summary))
     log("bie legs: " + json.dumps({"bie": bie_baseline,
-                                   "bie_f64": bie_f64}))
+                                   "bie_f64": bie_f64,
+                                   "bie_laplace": bie_laplace,
+                                   "bie_host": bie_host,
+                                   "legacy": legacy}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -9,8 +9,10 @@ operator and GMRES.  The third holds `ParticleFMM` over all eight
 kernels: the direct sum and the uniform KIFMM for the six kernels with
 a tree path.  Later slices hold `ParticleFMM(accuracy=8)`, the Krylov
 layer (`linalg`: the host and device GMRES, Krylov recycling, flexible
-and longdouble GMRES), `ParticleFMM.eval_tensor` and the BIE solve in
-float64 on the card.  Every TPU kernel on these paths is hand-written
+and longdouble GMRES), `ParticleFMM.eval_tensor`, the BIE solve in
+float64 on the card, the KIFMM in float64 on the card, and the rest of
+the single-device BIE layer (the host near path, the near cache, the
+legacy quadrature).  Every TPU kernel on these paths is hand-written
 CUDA under `csrc/`.
 """
 

@@ -1,5 +1,5 @@
 """Boundary integral operator u = int K(x, y) sigma(y) dS(y) on one
-device (counterpart of sctl_tpu/bie/boundary_integral.py:62-719).
+device (counterpart of sctl_tpu/bie/boundary_integral.py:51-706).
 
   ElementListBase     the geometry protocol an element list implements.
   BoundaryIntegralOp  setup: concatenate the element lists, collect the
@@ -7,14 +7,17 @@ device (counterpart of sctl_tpu/bie/boundary_integral.py:62-719).
                       adaptive FMM above `far_fmm_cutoff` far nodes, a
                       direct sum below), find the near (target,
                       element) pairs on the host and assemble their
-                      corrected operators K_near - K_far on the device
-                      (near_device.py); apply: far-field density
-                      interpolation, the far field, the near
-                      corrections as one batched product and scatter.
+                      corrected operators K_near - K_far: on the device
+                      (near_device.py) for one element list with a
+                      `device_geom`, on the host in float64 otherwise
+                      (`use_device_near` forces either), or read them
+                      from `near_cache`; apply: far-field density
+                      interpolation, the far field, the near corrections
+                      as one batched product and scatter.
 
 Device tensors in and out: `compute_potential_tensor` is the
-counterpart of `compute_potential_jnp`.  The distributed apply and the
-near cache of the JAX package are not ported.
+counterpart of `compute_potential_jnp`.  The distributed setup and
+apply of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ import torch
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
 from ..ops.kernels import KernelSpec
+
+
+def host_kernel_matrix(kernel: KernelSpec, xt, xs, ns=None) -> np.ndarray:
+    """(Ns*k0, Nt*k1) kernel matrix on the host in float64 numpy: the
+    setup-time quadrature makes thousands of small kernel evaluations."""
+    from ..ops.kernels_np import full_matrix_np
+    return full_matrix_np(kernel, np.asarray(xt), np.asarray(xs),
+                          None if ns is None else np.asarray(ns))
 
 
 class ElementListBase(abc.ABC):
@@ -65,6 +76,24 @@ class ElementListBase(abc.ABC):
             self.far_field_density_matrix(e) @ wf[fdsp[e]:fdsp[e + 1]]
             for e in range(self.size())])
 
+    @abc.abstractmethod
+    def near_interac(self, kernel: KernelSpec, xt: np.ndarray, elem: int,
+                     tol: float) -> np.ndarray:
+        """(n_nodes_e*k0, k1) accurate operator: density at element
+        `elem`'s nodes -> potential at the one near target xt."""
+
+    def self_interac(self, kernel: KernelSpec, tol: float):
+        """Per-element singular operators (n_nodes_e*k0, n_nodes_e*k1):
+        near_interac at each of the element's own nodes."""
+        X, _, cnt = self.get_node_coord()
+        dsp = np.concatenate([[0], np.cumsum(cnt)])
+        out = []
+        for e in range(self.size()):
+            xe = X[dsp[e]:dsp[e + 1]]
+            out.append(np.concatenate(
+                [self.near_interac(kernel, x, e, tol) for x in xe], axis=1))
+        return out
+
 
 class BoundaryIntegralOp:
     """op = BoundaryIntegralOp(Stokes3D_DxU, device="cuda")
@@ -79,8 +108,14 @@ class BoundaryIntegralOp:
     have float64 builds on the card).  `trg_normal_dot_prod` is
     accepted and not read, as in the JAX package.  Settable before
     setup: `far_fmm_cutoff` (far nodes from which the adaptive FMM
-    takes the far field), `far_fmm_p` (its order) and
-    `far_fmm_operators` (its KIFMMOperators, built cold when None).
+    takes the far field), `far_fmm_p` (its order), `far_fmm_operators`
+    (its KIFMMOperators, built cold when None), `use_device_near` (None:
+    the device near engine for one element list with a `device_geom`,
+    the host path otherwise; True or False forces one; the rule does
+    not read the device) and `near_cache` (an .npz path: the near pairs
+    and the corrected near operators, in the JAX package's layout, read
+    when its key matches the geometry and written after a host-path
+    assembly).
     """
 
     def __init__(self, kernel: KernelSpec, trg_normal_dot_prod=False,
@@ -98,6 +133,11 @@ class BoundaryIntegralOp:
         self.far_fmm_cutoff = DIRECT_CUTOFF
         self.far_fmm_p = 6
         self.far_fmm_operators = None
+        self.near_cache: Optional[str] = None
+        self.use_device_near: Optional[bool] = None
+        self._near_mats = None          # host list of (R_i, k1) arrays
+        self._near_mats_dev = None      # (P, R, k1) tensor on the device
+        self._near_fallback_count = None
         self._node_w_cache = None
 
     def set_accuracy(self, tol: float):
@@ -140,15 +180,14 @@ class BoundaryIntegralOp:
 
     # -- setup ------------------------------------------------------------
     def setup(self):
-        """Far field, near pairs, near operators and the apply tables.
-        Host seconds of each stage (the device fenced after each) go to
-        `setup_times`."""
+        """Far field, near pairs, near operators (or `near_cache`) and
+        the apply tables.  Host seconds of each stage (the device fenced
+        after each) go to `setup_times`."""
         if self._setup_done:
             return self
         import time
         from ..fmm.adaptive import AdaptiveFMM
         from ..fmm.fmm import _TREE_L2T
-        from .near_device import assemble_near_device
         times = {}
         t0 = [time.perf_counter()]
 
@@ -195,15 +234,78 @@ class BoundaryIntegralOp:
             tick("operators")
             self._far_fmm = fmm.setup(self.Xf, self.Xt_eff, n_src=self.Xnf)
             tick("far_fmm_tree")
-        self._build_near_list()
-        tick("near_list")
-        self._near_mats = assemble_near_device(self)
-        tick("near_assembly")
+        self._near_mats = self._near_mats_dev = None
+        if self.near_cache is not None and self._load_near_cache(
+                self.near_cache):
+            tick("near_cache")
+        else:
+            self._build_near_list()
+            tick("near_list")
+            self._build_near_matrices()
+            tick("near_assembly")
+            if self.near_cache is not None and self._near_mats is not None:
+                self._save_near_cache(self.near_cache)
         self._setup_device_apply()
         tick("apply_tables")
         self.setup_times = times
         self._setup_done = True
         return self
+
+    # -- near cache (sctl_tpu boundary_integral.py:360-419) ---------------
+    def _near_mats_list(self):
+        """Near matrices as a host list; from the device engine's
+        (P, R, k1) tensor by one download."""
+        if self._near_mats is None and self._near_mats_dev is not None:
+            k1 = self.kernel.kdim1
+            blob = self._near_mats_dev.double().cpu().numpy()
+            self._near_mats = [b.reshape(-1, k1) for b in blob]
+        return [] if self._near_mats is None else self._near_mats
+
+    def _near_key(self) -> str:
+        """Geometry and settings fingerprint of the near cache, as the
+        JAX package computes it."""
+        import hashlib
+        h = hashlib.md5()
+        for a in (self.X, self.Xt_eff, self.Xf, self.wf, self.df):
+            h.update(np.ascontiguousarray(a).tobytes())
+        h.update(f"{self.kernel.name}:{self.tol:.6g}:v1".encode())
+        return h.hexdigest()
+
+    def _save_near_cache(self, path):
+        """The host path's pairs and float64 operators as an .npz of
+        key, pairs, rows and blob.  The device engine's results are not
+        written: the key names neither the engine nor the type."""
+        import os
+        k1 = self.kernel.kdim1
+        mats = self._near_mats
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            np.savez(path, key=np.asarray(self._near_key()),
+                     pairs=np.asarray(self.near_pairs,
+                                      np.int64).reshape(-1, 2),
+                     rows=np.asarray([m.shape[0] for m in mats], np.int64),
+                     blob=(np.concatenate([m.reshape(-1, k1) for m in mats])
+                           if mats else np.zeros((0, k1))))
+        except OSError:
+            pass
+
+    def _load_near_cache(self, path) -> bool:
+        """Pairs and operators from `path` if its key matches."""
+        import os
+        if not os.path.exists(path):
+            return False
+        try:
+            z = np.load(path)
+            if str(z["key"]) != self._near_key():
+                return False
+            dsp = np.concatenate([[0], np.cumsum(z["rows"])])
+            blob = z["blob"]
+            self.near_pairs = [(int(a), int(b)) for a, b in z["pairs"]]
+            self._near_mats = [blob[dsp[i]:dsp[i + 1]]
+                               for i in range(len(dsp) - 1)]
+            return True
+        except Exception:
+            return False
 
     def _build_near_list(self):
         """Near pairs (target, element): targets closer than dist_far to
@@ -264,13 +366,79 @@ class BoundaryIntegralOp:
                                  np.concatenate(out_e)], 1), axis=0)
         self.near_pairs = [(int(a), int(b)) for a, b in te]
 
+    def _device_near_ok(self) -> bool:
+        """The near engine: `use_device_near` if set, else the device
+        engine for one element list with a `device_geom`."""
+        if self.use_device_near is not None:
+            return bool(self.use_device_near)
+        return (len(self.elem_lists) == 1
+                and getattr(self.elem_lists[0], "device_geom", None)
+                is not None)
+
+    def _build_near_matrices(self):
+        """K_near(t, e) = NearInterac(t, e) - far-quadrature block(t, e)
+        (sctl_tpu boundary_integral.py:513-577): the device engine's
+        (P, R, k1) tensor, or on the host in float64 a list of
+        (n_e k0, k1) arrays: `near_interac_batch` for an element list
+        that has it, `near_interac` pair by pair otherwise, minus the
+        far-quadrature block, one kernel call and product an element.
+        Stage seconds go to `_near_prof`; the pairs that took the
+        per-pair rule to `_near_fallback_count`."""
+        import time
+        from ..ops.kernels_np import block_matrix_np
+        if self._device_near_ok():
+            from .near_device import assemble_near_device
+            self._near_mats_dev, self._near_fallback_count = \
+                assemble_near_device(self)
+            return
+        ker = self.kernel
+        t0 = time.perf_counter()
+        pair_t = np.array([t for (t, _) in self.near_pairs], np.int64)
+        pair_e = np.array([e for (_, e) in self.near_pairs], np.int64)
+        mats = [None] * len(pair_t)
+        by_list, nfb = {}, 0
+        for pi, e in enumerate(pair_e):
+            by_list.setdefault(self._elem_of[e][0], []).append(pi)
+        for li, pis in by_list.items():
+            lst = self.elem_lists[li]
+            pis = np.asarray(pis)
+            les = np.array([self._elem_of[e][1] for e in pair_e[pis]])
+            if hasattr(lst, "near_interac_batch"):
+                exact = lst.near_interac_batch(ker, self.Xt_eff[pair_t[pis]],
+                                               les, self.tol)
+                nfb += getattr(lst, "last_fallback_count", 0)
+            else:
+                exact = [lst.near_interac(ker, self.Xt_eff[t], le, self.tol)
+                         for t, le in zip(pair_t[pis], les)]
+            for j, pi in enumerate(pis):
+                mats[pi] = np.array(exact[j], np.float64)
+        t1 = time.perf_counter()
+        for e in np.unique(pair_e):
+            pis = np.where(pair_e == e)[0]
+            li, le = self._elem_of[e]
+            s, t = self.far_dsp[e], self.far_dsp[e + 1]
+            kf = (block_matrix_np(ker, self.Xt_eff[pair_t[pis]],
+                                  self.Xf[s:t], self.Xnf[s:t])
+                  * self.wf[None, s:t, None, None])     # (T, nf, k0, k1)
+            far = np.tensordot(kf, self.elem_lists[li]
+                               .far_field_density_matrix(le),
+                               axes=([1], [1])).transpose(0, 3, 1, 2)
+            for j, pi in enumerate(pis):
+                mats[pi] -= far[j].reshape(mats[pi].shape)
+        self._near_mats = mats
+        self._near_fallback_count = nfb
+        self._near_prof = {"exact": t1 - t0,
+                           "far": time.perf_counter() - t1,
+                           "fallback_n": nfb}
+
     def _setup_device_apply(self):
         """Padded device tables of the apply: per-element far-field
         interpolation as one batched product, the near corrections as
-        one batched product and scatter."""
+        one (P, R, k1) product and scatter (host lists of different
+        node counts padded to the widest R with zero rows)."""
         ker = self.kernel
         E = len(self._elem_of)
-        k0 = ker.kdim0
+        k0, k1 = ker.kdim0, ker.kdim1
         max_ne = int(self.node_cnt.max())
         max_nf = int(self.far_cnt.max())
         interp = np.zeros((E, max_nf, max_ne))
@@ -295,15 +463,27 @@ class BoundaryIntegralOp:
             "Xf": t(self.Xf), "Xnf": t(self.Xnf),
         }
         self._n_near = P = len(self.near_pairs)
-        if P:
-            R = self._near_mats.shape[1]
-            pe = np.array([e for (_, e) in self.near_pairs])
-            self._dev.update({
-                "near_mats": self._near_mats,
-                "near_sidx": ti((self.node_dsp[pe] * k0)[:, None]
-                                + np.arange(R)),
-                "near_ti": ti([t_ for (t_, _) in self.near_pairs]),
-            })
+        if not P:
+            return
+        pe = np.array([e for (_, e) in self.near_pairs])
+        if self._near_mats_dev is not None:
+            R = self._near_mats_dev.shape[1]
+            mats = self._near_mats_dev
+            sidx = (self.node_dsp[pe] * k0)[:, None] + np.arange(R)
+        else:
+            rows = np.array([m.shape[0] for m in self._near_mats])
+            R = int(rows.max())
+            blob = np.zeros((P, R, k1))
+            sidx = np.zeros((P, R), np.int64)
+            for pi, (m, e) in enumerate(zip(self._near_mats, pe)):
+                blob[pi, :rows[pi]] = m.reshape(rows[pi], k1)
+                sidx[pi, :rows[pi]] = self.node_dsp[e] * k0 + np.arange(
+                    rows[pi])
+            mats = t(blob)
+        self._dev.update({
+            "near_mats": mats, "near_sidx": ti(sidx),
+            "near_ti": ti([t_ for (t_, _) in self.near_pairs]),
+        })
 
     # -- evaluation ---------------------------------------------------------
     def compute_potential_tensor(self, sigma: torch.Tensor,

@@ -14,12 +14,12 @@ exact-difference chart dX = X(u0 + delta) - X(u0) (`DeviceGeom.delta`),
 with the target entering as r0 = xt - X(u0), computed on the host in
 float64.
 
-This is the port's only near engine: an element list without a
-`device_geom` raises NotImplementedError.  A pair whose preimage fails
-or that neither Duffy order nor the escalation rung resolves goes, as
-in the JAX package, to the element list's per-pair host rule
-(`near_interac`: Duffy, then adaptive subdivision, in float64); their
-count is op._near_prof["fallback_n"].
+The engine needs one element list with a `device_geom`;
+BoundaryIntegralOp takes the host path (float64 numpy) otherwise.  A
+pair whose preimage fails or that neither Duffy order nor the escalation
+rung resolves goes, as in the JAX package, to the element list's
+per-pair host rule (Duffy, then adaptive subdivision, in float64),
+all such pairs in one batch; their count is returned.
 """
 
 from __future__ import annotations
@@ -225,9 +225,10 @@ def _pad_rows_f(a, C):
 def assemble_near_device(op, chunk_scale: float = 1.0):
     """op's near-correction matrices K_near(t, e) - K_far(t, e) on
     op.device in op.dtype: a (P, nq*k0, k1) tensor, pairs ordered as
-    op.near_pairs.  Needs one ParametricPatchList with a `device_geom`
-    and uniform node and far-node counts per element.  Stage seconds
-    (host clock, the device fenced after each stage) go to op._near_prof."""
+    op.near_pairs, and the number of pairs that took the per-pair host
+    rule.  Needs one ParametricPatchList with a `device_geom` and
+    uniform node and far-node counts per element.  Stage seconds (host
+    clock, the device fenced after each stage) go to op._near_prof."""
     import time
     prof = {}
     t_last = [time.perf_counter()]
@@ -248,9 +249,9 @@ def assemble_near_device(op, chunk_scale: float = 1.0):
     geom = getattr(lst, "device_geom", None)
     if len(op.elem_lists) != 1 or geom is None:
         raise NotImplementedError(
-            "the near quadrature runs on the device engine only, which "
-            "needs one element list with a device_geom; the host near "
-            "quadrature is not ported")
+            "the device near engine needs one element list with a "
+            "device_geom; use_device_near=False (or None) takes the host "
+            "path")
     ker = op.kernel
     k0, k1 = ker.kdim0, ker.kdim1
     nq, nf = lst.q ** 2, lst.qf ** 2
@@ -259,7 +260,8 @@ def assemble_near_device(op, chunk_scale: float = 1.0):
     P = len(pair_t)
     out = torch.zeros((P + 1, nq, k0 * k1), dtype=dtype, device=dev)
     if P == 0:
-        return out[:0].reshape(0, nq * k0, k1)
+        op._near_prof = prof
+        return out[:0].reshape(0, nq * k0, k1), 0
     Xt, tol = op.Xt_eff, op.tol
     kname, kscale = ker.name, float(ker.scale_factor)
 
@@ -362,7 +364,7 @@ def assemble_near_device(op, chunk_scale: float = 1.0):
     fb = np.where((band == -2) | miss)[0]
     prof["fallback_n"] = len(fb)
     if len(fb):
-        m = lst.near_interac(ker, Xt[pair_t[fb]], pair_e[fb], tol)
+        m = lst._near_interac_pairs(ker, Xt[pair_t[fb]], pair_e[fb], tol)
         interp = lst.far_field_density_matrix(0)
         vals = np.zeros((len(fb), nq, k0 * k1))
         for j, pi in enumerate(fb):
@@ -376,7 +378,7 @@ def assemble_near_device(op, chunk_scale: float = 1.0):
         out[put(fb)] = put(vals, dtype)
         tick("fallback")
     op._near_prof = prof
-    return out[:P].reshape(P, nq * k0, k1)
+    return out[:P].reshape(P, nq * k0, k1), len(fb)
 
 
 def _duffy_sweep(lst, geom, ker, didx, pair_e, u0, adapt, r0vec, order,

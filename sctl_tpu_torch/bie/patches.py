@@ -1,15 +1,17 @@
 """Tensor-product quadrature patches on parametric surfaces (counterpart
-of sctl_tpu/bie/patches.py:36-215, :403-508, :519, :569).
+of sctl_tpu/bie/patches.py:36-602).
 
   - discretization nodes: q x q tensor Gauss-Legendre per patch;
   - far-field quadrature: upsampled qf x qf Gauss-Legendre with surface
     Jacobian weights and a resolution-based near cutoff dist_far;
   - density interpolation: tensor Lagrange (q -> qf per axis);
-  - `near_interac`: the per-pair host rule (Duffy, then adaptive
-    subdivision) for the few pairs the device near engine
-    (near_device.py) does not resolve.  The batched host near path
-    (`near_interac_batch`) is not ported: the device engine takes its
-    place.
+  - `near_interac_batch`: the host near rule (float64) for many
+    (target, element) pairs: shared Gauss-Legendre ladder rules, the
+    batched Duffy rule at the closest-point preimage, and the per-pair
+    rule for the rest;
+  - `near_interac`: the per-pair rule (Duffy, then adaptive
+    subdivision), for one pair as in the JAX package; the device near
+    engine (near_device.py) hands it the pairs it does not resolve.
 
 Host numpy in float64: the geometry is built once at setup.
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, List
 
 import numpy as np
+import torch
 
 from ..linalg.lagrange import interpolation_matrix
 from ..linalg.quadrule import leg_quad_rule
@@ -29,6 +32,30 @@ from .legacy_quadrature import duffy_quad
 from .near_device import SphereGeom, TorusGeom
 
 _FD_H = 1e-6
+
+
+def _parallel(fn, items):
+    """fn over items in torch.get_num_threads() threads (numpy releases
+    the interpreter lock in its array loops and BLAS calls); each call
+    writes its own rows of the output."""
+    from concurrent.futures import ThreadPoolExecutor
+    items = list(items)
+    workers = max(1, min(torch.get_num_threads(), len(items)))
+    if workers == 1:
+        for it in items:
+            fn(it)
+        return
+    with ThreadPoolExecutor(workers) as pool:
+        for _ in pool.map(fn, items):
+            pass
+
+
+def _groups(eids: np.ndarray):
+    """(element, its rows in ascending order) of each element in eids:
+    one stable sort in place of a mask for each element."""
+    order = np.argsort(eids, kind="stable")
+    ue, start = np.unique(eids[order], return_index=True)
+    return zip(ue, np.split(order, start[1:]))
 
 
 class ParametricPatchList(ElementListBase):
@@ -71,8 +98,7 @@ class ParametricPatchList(ElementListBase):
         if self._surface_batch is not None:
             return np.asarray(self._surface_batch(eids, uv))
         X = np.empty((len(eids), 3))
-        for e in np.unique(eids):
-            m = eids == e
+        for e, m in _groups(eids):
             X[m] = np.asarray(self.charts[e](uv[m]))
         return X
 
@@ -182,8 +208,7 @@ class ParametricPatchList(ElementListBase):
         the per-pair rule's geometry, to the last bit."""
         X, n, J = np.empty((len(eids), 3)), np.empty((len(eids), 3)), \
             np.empty(len(eids))
-        for e in np.unique(eids):
-            m = eids == e
+        for e, m in _groups(eids):
             X[m], n[m], J[m] = self._geom(self.charts[e], uv[m])
         return X, n, J
 
@@ -192,17 +217,159 @@ class ParametricPatchList(ElementListBase):
         return full_matrix_np(kernel, xt[None], X, n).reshape(
             len(X), kernel.kdim0, kernel.kdim1)
 
-    def near_interac(self, kernel: KernelSpec, Xt: np.ndarray,
-                     elems: np.ndarray, tol: float) -> np.ndarray:
-        """(P, q^2 k0, k1) near-singular operators of P (target,
-        element) pairs, each by the per-pair rule of sctl_tpu
-        patches.py:403-508: the geometric-shell Duffy rule at the
-        target's closest-point preimage (orders 16 and 12, or 24 and
-        18 below tol 1e-7), and where the two orders disagree by more
-        than 30 tol, adaptive subdivision.  The subdivision runs for all
-        such pairs at once, one wave of cells per refinement generation
-        (each pair's cells and sums are its own)."""
+    def _node_X(self, elem: int) -> np.ndarray:
+        """(q^2, 3) node coordinates of one element."""
+        return self._node_X_all()[elem]
+
+    def near_interac_batch(self, kernel: KernelSpec, Xt: np.ndarray,
+                           elems: np.ndarray, tol: float) -> np.ndarray:
+        """(P, q^2 k0, k1) near-singular operators of P (target, element)
+        pairs (sctl_tpu patches.py:217-371), in three classes, each in
+        element-grouped waves:
+          - Gauss-Legendre resolvable: the shared tensor rule of the
+            ladder {2, 3, 4, 6} qf picked per pair by the GL error model
+            of dist_far ((2 h_k / d)^{q_k} <= tol / 10);
+          - (near-)singular: the batched Duffy rule at the Gauss-Newton
+            preimage, orders 16 and 12 (24 and 18 below tol 1e-7); where
+            they disagree by more than 30 tol, order + 8;
+          - the rest (a failed preimage, or order + 8 still off): the
+            per-pair rule, all such pairs in one batch.
+        The Duffy class evaluates the geometry and kernel at the live
+        (nonzero-weight) points of the padded rule only; the products
+        are the padded ones, zeros included.  The waves run in
+        torch.get_num_threads() threads.  Each pair's class (k >= 0 the
+        ladder band, -1 Duffy, -2 the per-pair rule) goes to
+        `last_classes`, the count of the last to `last_fallback_count`."""
+        from .legacy_quadrature import duffy_quad_batch
         Xt = np.atleast_2d(np.asarray(Xt, np.float64))
+        elems = np.asarray(elems, np.int64)
+        P = len(elems)
+        k0, k1 = kernel.kdim0, kernel.kdim1
+        nq = self.q ** 2
+        out = np.zeros((P, nq * k0, k1))
+        self.last_fallback_count, self.last_classes = 0, np.zeros(0, int)
+        if P == 0:
+            return out
+        u0, adapt, dphys, ok = self._preimage_batch(Xt, elems)
+        X_all = self._node_X_all()
+        diam = np.linalg.norm(X_all.max(1) - X_all.min(1), axis=1)
+        orders = [m * self.qf for m in self._LADDER]
+        band = np.full(P, -1, np.int64)
+        for k in range(len(orders) - 1, -1, -1):
+            dk = (2.0 * (diam[elems] / orders[k])
+                  * (0.1 * tol) ** (-1.0 / orders[k]))
+            band = np.where(dphys >= dk, k, band)
+        fallback = ~ok
+        band = np.where(fallback, -2, band)
+
+        # ladder classes: one geometry call per band for its elements,
+        # then per-pair kernel blocks and batched products
+        for k, qk in enumerate(orders):
+            idx = np.where(band == k)[0]
+            if len(idx) == 0:
+                continue
+            x1, w1 = leg_quad_rule(qk)
+            uv = np.stack(np.meshgrid(x1, x1, indexing="ij"),
+                          -1).reshape(-1, 2)
+            ww = np.outer(w1, w1).reshape(-1)
+            S = len(ww)
+            ue, inv = np.unique(elems[idx], return_inverse=True)
+            Xg, ng, Jg = self._geom_many(np.repeat(ue, S),
+                                         np.tile(uv, (len(ue), 1)))
+            Xg, ng = Xg.reshape(len(ue), S, 3), ng.reshape(len(ue), S, 3)
+            bw = (self._basis(uv).T[None]
+                  * (ww[None, :] * Jg.reshape(len(ue), S))[:, None, :])
+            chunk = max(64, int(5e6) // S)
+
+            def ladder(c0, idx=idx, inv=inv, Xg=Xg, ng=ng, bw=bw, S=S,
+                       chunk=chunk):
+                sl, ip = idx[c0:c0 + chunk], inv[c0:c0 + chunk]
+                blk = offset_blocks_np(kernel, Xt[sl][:, None, :] - Xg[ip],
+                                       ns=ng[ip])
+                out[sl] = np.matmul(bw[ip], blk.reshape(len(ip), S, k0 * k1)
+                                    ).reshape(len(ip), nq * k0, k1)
+
+            _parallel(ladder, range(0, len(idx), chunk))
+
+        def duffy_eval(sel, order):
+            nds, wts = duffy_quad_batch(u0[sel], order, adapt[sel])
+            Pc, npts = nds.shape[:2]
+            live = wts.reshape(-1) != 0.0
+            pts = nds.reshape(-1, 2)[live]
+            X, n, J = self._geom_many(
+                np.repeat(elems[sel], npts)[live], pts)
+            blk = np.zeros((Pc * npts, k0 * k1))
+            blk[live] = offset_blocks_np(
+                kernel, np.repeat(Xt[sel], npts, axis=0)[live] - X,
+                ns=n).reshape(-1, k0 * k1)
+            bw = np.zeros((Pc * npts, nq))
+            bw[live] = self._basis(pts) * (wts.reshape(-1)[live] * J)[:, None]
+            return np.matmul(bw.reshape(Pc, npts, nq).transpose(0, 2, 1),
+                             blk.reshape(Pc, npts, k0 * k1)).reshape(
+                Pc, nq * k0, k1)
+
+        # singular class: Duffy is the trusted rule there (the Gauss
+        # identity); pairs of similar shell counts chunk together
+        didx = np.where(band == -1)[0]
+        order_hi, order_lo = (16, 12) if tol >= 1e-7 else (24, 18)
+        kkey = np.where(adapt[didx] < 1e-7, 1.0, adapt[didx])
+        didx = didx[np.argsort(-kkey, kind="stable")]
+        miss = np.zeros(P, bool)
+
+        def duffy(sel):
+            hi = duffy_eval(sel, order_hi)
+            out[sel] = hi
+            lo = duffy_eval(sel, order_lo)
+            scale = np.maximum(np.abs(hi).reshape(len(sel), -1).max(1),
+                               1e-300)
+            miss[sel] = (np.abs(hi - lo).reshape(len(sel), -1).max(1)
+                         > 30 * tol * scale)
+
+        def escalate(sel):
+            prev = out[sel].copy()
+            hi2 = duffy_eval(sel, order_hi + 8)
+            out[sel] = hi2
+            scale = np.maximum(np.abs(hi2).reshape(len(sel), -1).max(1),
+                               1e-300)
+            fallback[sel[np.abs(hi2 - prev).reshape(len(sel), -1).max(1)
+                         > 30 * tol * scale]] = True
+
+        _parallel(duffy, [didx[c0:c0 + 512]
+                          for c0 in range(0, len(didx), 512)])
+        retry = didx[miss[didx]]
+        _parallel(escalate, [retry[c0:c0 + 256]
+                             for c0 in range(0, len(retry), 256)])
+
+        fb = np.where(fallback)[0]
+        if len(fb):
+            out[fb] = self._near_interac_pairs(kernel, Xt[fb], elems[fb],
+                                               tol)
+        self.last_fallback_count = len(fb)
+        self.last_classes = np.where(fallback, -2, band)
+        return out
+
+    def near_interac(self, kernel: KernelSpec, xt: np.ndarray, elem: int,
+                     tol: float) -> np.ndarray:
+        """(q^2 k0, k1) near-singular operator of one (target, element)
+        pair (sctl_tpu patches.py:372): the Duffy rule at the target's
+        closest-point preimage, adaptive subdivision where its two
+        orders disagree."""
+        return self._near_interac_pairs(
+            kernel, np.asarray(xt, np.float64)[None],
+            np.array([int(elem)]), tol)[0]
+
+    def _near_interac_pairs(self, kernel: KernelSpec, Xt: np.ndarray,
+                            elems: np.ndarray, tol: float) -> np.ndarray:
+        """`near_interac` for P pairs -> (P, q^2 k0, k1), each by the
+        per-pair rule of sctl_tpu patches.py:393-508: the geometric-shell
+        Duffy rule at the target's closest-point preimage (orders 16
+        and 12, or 24 and 18 below tol 1e-7), and where the two orders
+        disagree by more than 30 tol, adaptive subdivision.  The
+        subdivision runs for all such pairs at once, one wave of cells
+        per refinement generation (each pair's cells and sums are its
+        own)."""
+        Xt = np.atleast_2d(np.asarray(Xt, np.float64))
+        elems = np.asarray(elems, np.int64)
         nq, k0, k1 = self.q ** 2, kernel.kdim0, kernel.kdim1
         out = np.zeros((len(Xt), nq * k0, k1))
         rest = []

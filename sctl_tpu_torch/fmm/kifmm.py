@@ -491,9 +491,17 @@ def read_lite_tables(path: str, ker_trans: KernelSpec, p: int) -> dict:
     return t
 
 
-@functools.lru_cache(maxsize=None)
 def unit_tables(ker_name: str, p: int, rcond: float,
                 hiprec: bool = False) -> dict:
+    """`_unit_tables` with every argument in its cache key: a call that
+    leaves hiprec to its default finds the tables of one that passes
+    it."""
+    return _unit_tables(ker_name, p, rcond, bool(hiprec))
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_tables(ker_name: str, p: int, rcond: float,
+                 hiprec: bool) -> dict:
     """The unit-box tables (`KIFMMOperators.TABLES`) of translation
     kernel `ker_name` at order p and pinv cutoff rcond, once per process
     and shared by every KIFMMOperators of those parameters (which read
@@ -514,6 +522,9 @@ def unit_tables(ker_name: str, p: int, rcond: float,
         t = {name: getattr(ops, name) for name in KIFMMOperators.TABLES}
     return {name: np.ascontiguousarray(t[name], np.float64)
             for name in KIFMMOperators.TABLES}
+
+
+unit_tables.cache_clear = _unit_tables.cache_clear
 
 
 def operators_from_numpy(tables: dict, device, dtype: torch.dtype,

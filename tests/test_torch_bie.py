@@ -1,6 +1,6 @@
 """The port's boundary-integral path against the JAX package's: the
 device near engine (on CPU float64 tensors) against the JAX device
-engine forced on, the Gauss identity, the operator apply with the far
+engine forced on, a bare element list through the host near path, the Gauss identity, the operator apply with the far
 field through the adaptive FMM, and the Stokes torus Dirichlet solve
 of tests/test_bie.py:196-245.  Small geometry: the torus at nu = 6,
 nv = 3."""
@@ -69,7 +69,7 @@ def test_near_engine_matches_jax_torus():
     30 tol."""
     jop, op = _ops(4, 1e-4)
     assert op.near_pairs == jop.near_pairs and jop._near_fallback_count == 0
-    dev = op._near_mats.numpy()
+    dev = op._near_mats_dev.numpy()
     ref = np.asarray(jop._dev["near_mats"], np.float64)
     assert dev.shape == ref.shape
     d = np.abs(dev - ref).reshape(len(dev), -1).max(1) / np.abs(ref).max()
@@ -115,7 +115,7 @@ def _jax_op_on_near(op, tol, path, cutoff=None):
     key = J_Op._near_key(SimpleNamespace(
         X=op.X, Xt_eff=op.Xt_eff, Xf=op.Xf, wf=op.wf, df=op.df,
         kernel=J_DXU, tol=tol))
-    mats = op._near_mats.numpy()
+    mats = op._near_mats_dev.numpy()
     np.savez(path, key=np.asarray(key), rows=np.full(len(mats),
                                                      mats.shape[1]),
              pairs=np.asarray(op.near_pairs, np.int64).reshape(-1, 2),
@@ -174,23 +174,24 @@ def test_stokes_torus_dirichlet_solve(tmp_path):
 
 
 def test_near_interac_matches_jax():
-    """The per-pair host rule the device engine hands its unresolved
-    pairs: nodes of the neighbouring element, at tol 1e-7, through the
-    Duffy rule or (where its two orders disagree) adaptive subdivision,
+    """The per-pair host rule, with the JAX signature near_interac(kernel,
+    xt, elem, tol), that the device engine hands its unresolved pairs:
+    nodes of the neighbouring element, at tol 1e-7, through the Duffy
+    rule or (where its two orders disagree) adaptive subdivision,
     against the JAX package's near_interac pair by pair: the same
     charts and arithmetic, 1e-12 relative."""
     lst = torus_patches(nu=6, nv=3, q=6, R=2.0, r=0.5)
     jl = j_torus(nu=6, nv=3, q=6, R=2.0, r=0.5)
     X, _, _ = lst.get_node_coord()
     Xt = X[36:36 + 36:5]                    # nodes of element 1
-    elems = np.zeros(len(Xt), np.int64)     # against element 0
     adaptive = [lst._near_interac_duffy(Stokes3D_DxU, x, 0, 1e-7) is None
                 for x in Xt]
     assert any(adaptive) and not all(adaptive)
-    m = lst.near_interac(Stokes3D_DxU, Xt, elems, 1e-7)
-    for x, mi in zip(Xt, m):
+    for x in Xt:
+        m = lst.near_interac(Stokes3D_DxU, x, 0, 1e-7)
         ref = jl.near_interac(J_DXU, x, 0, 1e-7)
-        assert np.abs(mi - ref).max() < 1e-12 * np.abs(ref).max()
+        assert m.shape == ref.shape == (36 * 3, 3)
+        assert np.abs(m - ref).max() < 1e-12 * np.abs(ref).max()
 
 
 def test_sqrt_scaling_matches_jax():
@@ -225,15 +226,31 @@ def test_inv_sqrt_scaling_matches_jax():
 
 
 def test_unported_near_paths_raise():
-    """The device engine is the only near engine: an element list
-    without a DeviceGeom raises."""
+    """An element list without a DeviceGeom takes the host near path by
+    default, and its operators match the JAX package's host path (its
+    default on the CPU) pair by pair; forcing the device engine on it
+    raises, as do the translation kernels' operator tables."""
     lst = torus_patches(nu=6, nv=3, q=4)
     bare = ParametricPatchList(lst.charts, q=4,
                                surface_batch=lst._surface_batch)
     op = BoundaryIntegralOp(Stokes3D_DxU, device="cpu", dtype=F64)
     op.set_accuracy(1e-4)
     op.add_elem_list(bare)
+    op.far_fmm_cutoff = 10 ** 12
+    op.setup()
+    assert op._near_mats_dev is None and len(op._near_mats) == len(
+        op.near_pairs) > 0
+    jop = J_Op(J_DXU)
+    jop.set_accuracy(1e-4)
+    jop.add_elem_list(j_torus(nu=6, nv=3, q=4, R=2.0, r=0.5))
+    jop.setup()
+    assert op.near_pairs == jop.near_pairs
+    for m, ref in zip(op._near_mats, jop._near_mats):
+        assert np.abs(m - ref).max() <= 1e-12 * np.abs(ref).max()
+    forced = BoundaryIntegralOp(Stokes3D_DxU, device="cpu", dtype=F64)
+    forced.add_elem_list(bare)
+    forced.use_device_near = True
     with pytest.raises(NotImplementedError):
-        op.setup()
+        forced.setup()
     with pytest.raises(NotImplementedError):      # translation kernels
         KIFMMOperators(Stokes3D_DxU, 4, 1e-9, "cpu", F64)

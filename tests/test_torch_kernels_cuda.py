@@ -1285,3 +1285,112 @@ def test_particle_fmm_f64_card_halo_route(cuda_device):
     u_d = direct_eval_blocked(Laplace3D_FxU, X[:500], X, torch.as_tensor(
         f, device=cuda_device)).cpu().numpy()
     assert np.abs(u[:500] - u_d).max() < 1e-6 * np.abs(u_d).max()
+
+
+# ---- the rest of the single-device BIE: the host near path, the legacy
+# quadrature, the Laplace double layer ------------------------------------
+
+@pytest.mark.parametrize("use_device_near", [False, True])
+def test_bie_near_engines_card_match_cpu(cuda_device, use_device_near):
+    """BoundaryIntegralOp(Laplace3D_DxU) in float64 with the host near path
+    and with the device engine: the card's near operators and apply
+    against the CPU's (the host path's operators are the same numpy on
+    both, bit for bit; the device engine's within 1e-10), the apply
+    within 1e-10 of the maximum."""
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.ops import Laplace3D_DxU
+    ops = []
+    for dev in (cuda_device, "cpu"):
+        op = BoundaryIntegralOp(Laplace3D_DxU, device=dev,
+                                dtype=torch.float64)
+        op.set_accuracy(1e-4)
+        op.add_elem_list(torus_patches(nu=6, nv=3, q=4))
+        op.use_device_near = use_device_near
+        ops.append(op.setup())
+    card, cpu = ops
+    assert card.near_pairs == cpu.near_pairs
+    m_card, m_cpu = (o._dev["near_mats"].cpu().numpy() for o in ops)
+    if use_device_near:
+        assert np.abs(m_card - m_cpu).max() < 1e-10 * np.abs(m_cpu).max()
+    else:
+        assert card._near_mats_dev is None and np.array_equal(m_card, m_cpu)
+    sigma = np.random.default_rng(60).normal(size=card.dim(0))
+    u, u_cpu = card.compute_potential(sigma), cpu.compute_potential(sigma)
+    assert np.abs(u - u_cpu).max() < 1e-10 * np.abs(u_cpu).max()
+
+
+@pytest.mark.parametrize("name", ["Laplace3D-DxU", "Stokes3D-DxU"])
+def test_legacy_quadrature_card_matches_cpu(cuda_device, name):
+    """LegacyQuadrature set up on the card (its Duffy blocks there in
+    float64) against the same setup on the CPU: the correction tables
+    within 1e-10 of their maximum.  Its eval on the card (the far sum
+    through p2p) against the CPU's on the card's tables: float64 within
+    1e-12; float32 within 1e-5 of the float64 eval at off-surface
+    targets, and of the CPU's float32 eval on the surface (where float32
+    itself reads 4e-5 to 4e-4 from float64)."""
+    from sctl_tpu_torch.bie import (BasisElemList, LegacyQuadrature,
+                                    sphere_patches)
+    from sctl_tpu_torch.ops import KERNELS as KS
+    from sctl_tpu_torch.ops.p2p import p2p
+    ker = KS[name]
+    elems = BasisElemList.discretize(6, sphere_patches(q=6).charts)
+    xt = np.array([[0.0, 0.0, 0.9], [0.55, 0.55, 0.55], [0.0, 0.0, 0.2],
+                   [0.0, 1.4, 0.0]])
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    sig = np.random.default_rng(61).normal(size=(6, 36, ker.kdim0))
+    for Xt in (xt, None):
+        q = LegacyQuadrature(ker, elems, 12, 8, device=cuda_device,
+                             dtype=torch.float64).setup(Xt)
+        qc = LegacyQuadrature(ker, elems, 12, 8, device="cpu",
+                              dtype=torch.float64).setup(Xt)
+        assert np.array_equal(q._pairs, qc._pairs)
+        assert rel(q._Mnear, qc._Mnear) < 1e-10
+        if Xt is None:
+            assert rel(q._Msing, qc._Msing) < 1e-10
+        ref = q.to("cpu", torch.float64).eval(sig)
+        n = p2p.launches
+        assert rel(q.eval(sig), ref) < 1e-12 and p2p.launches == n + 1
+        u32 = q.to(cuda_device, torch.float32).eval(sig)
+        if Xt is not None:
+            assert rel(u32, ref) < 1e-5
+        else:
+            assert rel(u32, q.to("cpu", torch.float32).eval(sig)) < 1e-5
+
+
+def test_laplace_bie_apply_card_matches_cpu(cuda_device):
+    """A Laplace3D_DxU BIE apply with the far field through the adaptive
+    FMM (cutoff 1,000 far nodes, p = 4): the card in float64 within
+    1e-10 of the CPU float64 apply on the same tables, one launch of the
+    float64 U-list kernel (its Laplace3D-DxU formula) an apply, and the
+    card in float32 within 1e-5."""
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.fmm import KIFMMOperators
+    from sctl_tpu_torch.ops import Laplace3D_DxU, Laplace3D_FxU
+    from sctl_tpu_torch.ops.p2p import p2p_ulist
+
+    def make(dev, dt, tables=None):
+        op = BoundaryIntegralOp(Laplace3D_DxU, device=dev, dtype=dt)
+        op.set_accuracy(1e-4)
+        op.add_elem_list(torus_patches(nu=8, nv=4, q=4))
+        op.far_fmm_cutoff, op.far_fmm_p = 1000, 4
+        if tables is not None:
+            op.far_fmm_operators = KIFMMOperators(
+                Laplace3D_FxU, 4, tables[1], dev, torch.float64,
+                tables=tables[0])
+        return op.setup()
+
+    cpu = make("cpu", torch.float64)
+    t = ({k: getattr(cpu._far_fmm._ops, k) for k in KIFMMOperators.TABLES},
+         cpu._far_fmm.rcond)
+    card = make(cuda_device, torch.float64, t)
+    card32 = make(cuda_device, torch.float32, t)
+    assert card._far_fmm is not None
+    assert card._far_fmm.ker_s2t.name == "Laplace3D-DxU"
+    sigma = np.random.default_rng(62).normal(size=cpu.dim(0))
+    n = p2p_ulist.launches_f64
+    u = card.compute_potential(sigma)
+    assert p2p_ulist.launches_f64 == n + 1
+    u_cpu = cpu.compute_potential(sigma)
+    assert np.abs(u - u_cpu).max() < 1e-10 * np.abs(u_cpu).max()
+    u32 = card32.compute_potential(sigma)
+    assert np.abs(u32 - u_cpu).max() < 1e-5 * np.abs(u_cpu).max()
