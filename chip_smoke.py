@@ -246,16 +246,52 @@ Phases, each printed on flushed lines with the seconds since start:
             from the committed lite files in ./data/ (rcond 1e-10; bar
             3e-8, :127-146); a missing file fails the phase.
 
+9.  spectral the spectral layer in float64 on the card
+            (sctl_tpu_torch.linalg), each figure with the card's name
+            and power limit.
+    9a.     SphericalHarmonics(512): the Legendre table's host build and
+            its move to the card, shc2grid then grid2shc of 8 vectors
+            from default_rng(9) (bar 1e-8 absolute,
+            tests/test_sph_harm.py:448), each transform's time (CUDA
+            events) and the peak device memory; at p = 128 the card
+            against the CPU on the same inputs (bar 1e-12 of the
+            maximum); the FFT facade's C2C / C2C_INV and R2C / C2R at
+            dims (128, 128, 128), howmany 4: forward and round trip
+            against the CPU and the round trip against the input (bar
+            1e-12), times.
+    9b.     p = 128: vecshc2grid then grid2vecshc with W_00 = X_00 = 0
+            (bar 1e-9 absolute); stokes_eval_sl and stokes_eval_dl at
+            1,000 targets on each of the spheres r = 0.55 and 1.7
+            against direct sums of Stokes3D_FxU and Stokes3D_DxU
+            (normals the sphere's points) over a (2p+2) x (4p+4) grid
+            through direct_eval_blocked, the float64 p2p (bars 2e-5 and
+            1e-3 of the maximum, tests/test_sph_harm.py:253-258, and
+            1e-8 beside them, which a float32 slip on either side
+            fails); the same oracle through the plain p2p on the CPU at
+            the first 300 targets, held against the card's potentials
+            (1e-8) and against the card's oracle (bar 1e-12);
+            stokes_eval_kself, stokes_pressure_sl and stokes_eval_kl at
+            p = 64 on the same targets against the CPU (bar 1e-11).
+    9c.     SDC(8).adaptive_solve, tol 1e-10, to T = 1 on the rigid
+            rotation of 4 fields at p = 256, F(u) = -du/dphi through
+            shc2grid_grad(grid2shc(u)), initial coefficients N(0, 1)
+            damped by exp(-l/32): T reached and the error against each
+            (c_lm, s_lm) pair rotated by m T at most 10 tol of the
+            maximum (tests/test_ode.py:44-48); accepted steps, F calls,
+            wall time.
+            The float64 p2p must have launched (the oracles of 9b).
+
 Each phase sets the launch counts to 0 before it drives its path and
-reads them after; every kernel of the path must have launched (phase 8
-the float64 counts, `launches_f64`).  Then a line with phase 8's
+reads them after; every kernel of the path must have launched (phases 8
+and 9 the float64 counts, `launches_f64`).  Then a line with phase 8's
 figures, a line with the BIE legs' figures (phase 5's baseline and
-recycling, phases 5f, 5L, 5h, 5q), one JSON line with each kernel's numbers
-(launches summed over phases 4 to 7; p2p_ulist's float64 build under
-"f64"; the four float64 builds as "name[f64]" entries with their
-launches over phase 8), the card's name and power limit, the run's
-wall time, and the closing JSON line.  Any failed check raises, so the
-script exits non-zero and prints no closing line.
+recycling, phases 5f, 5L, 5h, 5q), a line with phase 9's figures, one
+JSON line with each kernel's numbers (launches summed over phases 4 to
+7 and 9; p2p_ulist's float64 build under "f64"; the four float64 builds as
+"name[f64]" entries with their launches over phase 8), the card's name
+and power limit, the run's wall time, and the closing JSON line.  Any
+failed check raises, so the script exits non-zero and prints no closing
+line.
 """
 
 import json
@@ -366,6 +402,24 @@ RUNG_BARS = {6: 5e-5, 8: 1e-6}
 RUNG7_P, RUNG7_RCOND, RUNG7_BAR = (10, 12), 1e-10, 3e-8
 F64_FMM_BAR = 5e-5
 F64_FACADE_ACC, F64_FACADE_BAR = 8, 1e-6
+# phase 9, the spectral layer in float64 (tests/test_sph_harm.py's bars):
+# the scalar round trip at p = 512 (:432-448), the card against the CPU
+# at p = 128, the FFT facade's round trips; the vector round trip at
+# p = 128, SL and DL against direct sums (:253-258) on each sphere,
+# KSelf, the pressure and KL against the CPU at p = 64; SDC(8) to T = 1
+# on the rigid rotation of 4 fields at p = 256 (tests/test_ode.py:44-48)
+SH_P, SH_BATCH, SH_BAR = 512, 8, 1e-8
+SH_CMP_P, CARD_CPU_BAR = 128, 1e-12
+FFT_DIMS, FFT_HOWMANY, FFT_BAR = (128, 128, 128), 4, 1e-12
+VEC_P, VEC_BAR = 128, 1e-9
+SPHERE_N, SPHERE_R, SL_BAR, DL_BAR = 1000, (0.55, 1.7), 2e-5, 1e-3
+# SL and DL also against 1e-8 of the maximum, and against the same oracle
+# through the plain p2p on the CPU at the first SPHERE_WITNESS_N targets:
+# float32 on either side rounds each term at about 6e-8, over that bar
+SPHERE_WITNESS_N, SPHERE_TIGHT_BAR = 300, 1e-8
+KL_P, KL_BAR = 64, 1e-11
+SDC_ORDER, SDC_TOL, SDC_T, SDC_DT0 = 8, 1e-10, 1.0, 1e-3
+SDC_P, SDC_FIELDS, SDC_DAMP = 256, 4, 32.0
 
 
 def log(msg):
@@ -2684,6 +2738,247 @@ def phase_f64(torch, smi):
     return rows, frows, main, total, summary
 
 
+def _rel(a, b):
+    """max |a - b| / max |b| of two tensors or arrays, on the host in
+    float64."""
+    import numpy as np
+    a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+            for x in (a, b))
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _host_s(torch, fn):
+    """(result, seconds) of fn() ending in a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def sphere_grid(torch, sh):
+    """The points (nt np_, 3) of a SphericalHarmonics grid on the unit
+    sphere and their quadrature weights (nt np_,), on its device."""
+    import numpy as np
+    th = torch.as_tensor(sh.theta, device=sh.device)
+    ph = 2 * np.pi * torch.arange(sh.np_, dtype=torch.float64,
+                                  device=sh.device) / sh.np_
+    st, ct = torch.sin(th)[:, None], torch.cos(th)[:, None]
+    xs = torch.stack([st * torch.cos(ph), st * torch.sin(ph),
+                      ct.expand(sh.nt, sh.np_)], dim=-1).reshape(-1, 3)
+    qw = (sh._w[:, None] * (2 * np.pi / sh.np_)).expand(sh.nt, sh.np_)
+    return xs, qw.reshape(-1)
+
+
+def stokes_quadrature(torch, S, p, trg, device):
+    """The Stokes single layer (Stokes3D_FxU) and double layer
+    (Stokes3D_DxU, the normals the sphere's points) of the density
+    vecshc2grid(S) at targets trg (N, 3), as direct sums over a
+    (2p+2) x (4p+4) Gauss-Legendre x uniform grid of the unit sphere
+    through direct_eval_blocked in float64 (p2p on a card): the oracle
+    of tests/test_sph_harm.py's _StokesOracle (:168-228), whose formulas
+    these kernels are."""
+    from sctl_tpu_torch.linalg import SphericalHarmonics
+    from sctl_tpu_torch.ops import (Stokes3D_DxU, Stokes3D_FxU,
+                                    direct_eval_blocked)
+    sh = SphericalHarmonics(p, 2 * p + 2, 4 * p + 4, device=device)
+    xs, qw = sphere_grid(torch, sh)
+    f = sh.vecshc2grid(S).reshape(3, -1).T * qw[:, None]
+    trg = torch.as_tensor(trg, dtype=torch.float64, device=device)
+    return (direct_eval_blocked(Stokes3D_FxU, trg, xs, f),
+            direct_eval_blocked(Stokes3D_DxU, trg, xs, f, ns=xs))
+
+
+def rotated_shc(shc, p, angle):
+    """Packed coefficients of u(theta, phi - angle): each (c_lm, s_lm)
+    pair rotated by m angle."""
+    import numpy as np
+    from sctl_tpu_torch.linalg.sph_harm import _packed_index
+    _, m, s = _packed_index(p)
+    ci = np.where((s == 0) & (m > 0))[0]       # c_lm; s_lm follows it
+    c, sn = shc[..., ci], shc[..., ci + 1]
+    ca, sa = np.cos(m[ci] * angle), np.sin(m[ci] * angle)
+    out = shc.copy()
+    out[..., ci] = c * ca - sn * sa
+    out[..., ci + 1] = c * sa + sn * ca
+    return out
+
+
+def phase_spectral(torch, smi):
+    """9: the spectral layer in float64 on the card (9a scalar
+    transforms and the FFT facade, 9b vector transforms and the Stokes
+    potentials on the sphere, 9c SDC), each against its bar; the
+    Stokes oracles through the float64 p2p."""
+    import numpy as np
+    from sctl_tpu_torch.linalg import (FFT, SDC, FFTType,
+                                       SphericalHarmonics, sh_dim,
+                                       stokes_eval_dl, stokes_eval_kl,
+                                       stokes_eval_kself, stokes_eval_sl,
+                                       stokes_pressure_sl)
+    from sctl_tpu_torch.linalg import sph_harm
+    from sctl_tpu_torch.linalg.sph_harm import _packed_index
+    from sctl_tpu_torch.ops.p2p import p2p
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    out, fails = {}, []
+
+    def check(name, val, *bars):
+        out[name] = val
+        bar = min(bars)
+        log(f"spectral {name}: {val:.3e} (bars "
+            f"{', '.join(f'{b:.0e}' for b in bars)})")
+        if not val <= bar:
+            fails.append(f"{name} {val:.3e} > {bar:.0e}")
+
+    p2p.launches = p2p.launches_f64 = 0
+    dev = "cuda"
+    # 9a: the scalar transforms at p = 512
+    _, build_s = _host_s(torch, lambda: sph_harm._legendre_tables(
+        SH_P, SH_P + 2))
+    sh, move_s = _host_s(torch, lambda: SphericalHarmonics(SH_P,
+                                                           device=dev))
+    shc = torch.as_tensor(rng.normal(size=(SH_BATCH, sh_dim(SH_P))),
+                          device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    grid = sh.shc2grid(shc)
+    back = sh.grid2shc(grid)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["sh512"] = dict(
+        table_build_s=build_s, table_to_device_s=move_s, peak_gib=peak,
+        shc2grid_ms=cuda_ms(torch, lambda: sh.shc2grid(shc), 5),
+        grid2shc_ms=cuda_ms(torch, lambda: sh.grid2shc(grid), 5))
+    log(f"spectral 9a p={SH_P}: Legendre table ({SH_P + 1}, {SH_P + 1}, "
+        f"{SH_P + 2}) built on the host in {build_s:.2f} s, moved to "
+        f"the device in {move_s:.2f} s; {SH_BATCH} vectors: "
+        f"{json.dumps(out['sh512'])}; on '{smi}'")
+    check(f"sh{SH_P}_roundtrip_abs", float((back - shc).abs().max()), SH_BAR)
+    del sh, grid, back
+    sph_harm._legendre_tables.cache_clear()
+    torch.cuda.empty_cache()
+    shc = rng.normal(size=(SH_BATCH, sh_dim(SH_CMP_P)))
+    shd = SphericalHarmonics(SH_CMP_P, device=dev)
+    shh = SphericalHarmonics(SH_CMP_P, device="cpu")
+    g = shh.shc2grid(shc)
+    check(f"sh{SH_CMP_P}_shc2grid_vs_cpu", _rel(shd.shc2grid(shc), g),
+          CARD_CPU_BAR)
+    check(f"sh{SH_CMP_P}_grid2shc_vs_cpu",
+          _rel(shd.grid2shc(g), shh.grid2shc(g)), CARD_CPU_BAR)
+    del shd, shh, g
+    for fwd, bwd in ((FFTType.C2C, FFTType.C2C_INV),
+                     (FFTType.R2C, FFTType.C2R)):
+        name = f"fft_{fwd.value}"
+        pf, pb = (FFT(device=dev).setup(k, FFT_HOWMANY, FFT_DIMS)
+                  for k in (fwd, bwd))
+        hf, hb = (FFT(device="cpu").setup(k, FFT_HOWMANY, FFT_DIMS)
+                  for k in (fwd, bwd))
+        x = torch.as_tensor(rng.normal(size=pf.in_size()), device=dev)
+        y, yh = pf.execute(x), hf.execute(x.cpu())
+        check(f"{name}_vs_cpu", _rel(y, yh), FFT_BAR)
+        xb = pb.execute(y)
+        check(f"{name}_roundtrip_vs_cpu", _rel(xb, hb.execute(yh)),
+              FFT_BAR)
+        check(f"{name}_roundtrip", _rel(xb, x), FFT_BAR)
+        out[name + "_ms"] = [cuda_ms(torch, lambda: pf.execute(x), 5),
+                             cuda_ms(torch, lambda: pb.execute(y), 5)]
+        del x, y, yh, xb
+    log(f"spectral 9a FFT dims {FFT_DIMS} x {FFT_HOWMANY}: forward and "
+        f"inverse ms C2C {out['fft_c2c_ms']}, R2C/C2R "
+        f"{out['fft_r2c_ms']}; on '{smi}'")
+    # 9b: the vector transforms and the Stokes potentials at p = 128
+    sh = SphericalHarmonics(VEC_P, device=dev)
+    S = rng.normal(size=(3, sh_dim(VEC_P)))
+    S[1, 0] = S[2, 0] = 0.0                    # W_00 = X_00 = 0
+    S_d = torch.as_tensor(S, device=dev)
+    F = sh.vecshc2grid(S_d)
+    check(f"vec{VEC_P}_roundtrip_abs",
+          float((sh.grid2vecshc(F) - S_d).abs().max()), VEC_BAR)
+    out["vec_ms"] = [cuda_ms(torch, lambda: sh.vecshc2grid(S_d), 3),
+                     cuda_ms(torch, lambda: sh.grid2vecshc(F), 3)]
+    del sh, F, S_d
+    d = rng.normal(size=(SPHERE_N, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    nor = rng.normal(size=(SPHERE_N, 3))
+    nor /= np.linalg.norm(nor, axis=1, keepdims=True)
+    Sk = rng.normal(size=(3, sh_dim(KL_P)))
+    Sk[1, 0] = Sk[2, 0] = 0.0
+    for R in SPHERE_R:
+        trg, interior, tag = R * d, R < 1, f"r{R}"
+        (sl, dl), sd_s = _host_s(torch, lambda: (
+            stokes_eval_sl(S, VEC_P, trg, interior, device=dev),
+            stokes_eval_dl(S, VEC_P, trg, interior, device=dev)))
+        (sl_q, dl_q), q_s = _host_s(torch, lambda: stokes_quadrature(
+            torch, S, VEC_P, trg, dev))
+        check(f"sl_{tag}", _rel(sl, sl_q), SL_BAR, SPHERE_TIGHT_BAR)
+        check(f"dl_{tag}", _rel(dl, dl_q), DL_BAR, SPHERE_TIGHT_BAR)
+        # the second witness: the plain p2p on the CPU
+        w = SPHERE_WITNESS_N
+        (sl_h, dl_h), h_s = _host_s(torch, lambda: stokes_quadrature(
+            torch, S, VEC_P, trg[:w], "cpu"))
+        for name, got, q, h in (("sl", sl, sl_q, sl_h),
+                                ("dl", dl, dl_q, dl_h)):
+            check(f"{name}_{tag}_vs_plain_oracle", _rel(got[:w], h),
+                  SPHERE_TIGHT_BAR)
+            check(f"oracle_{name}_{tag}_vs_plain", _rel(q[:w], h), ORACLE_BAR)
+        out[f"sl_dl_{tag}_s"] = [sd_s, q_s, h_s]
+        for fn in (stokes_eval_kself, stokes_pressure_sl):
+            got, s_ = _host_s(torch, lambda: fn(Sk, KL_P, trg, interior,
+                                                 device=dev))
+            check(f"{fn.__name__}_{tag}_vs_cpu",
+                  _rel(got, fn(Sk, KL_P, trg, interior, device="cpu")),
+                  KL_BAR)
+            out[f"{fn.__name__}_{tag}_s"] = s_
+        kl, s_ = _host_s(torch, lambda: stokes_eval_kl(
+            Sk, KL_P, trg, nor, interior, device=dev))
+        check(f"stokes_eval_kl_{tag}_vs_cpu", _rel(kl, stokes_eval_kl(
+            Sk, KL_P, trg, nor, interior, device="cpu")), KL_BAR)
+        out[f"stokes_eval_kl_{tag}_s"] = s_
+    log(f"spectral 9b: p={VEC_P} vector transforms ms "
+        f"{out['vec_ms']}; SL and DL at {SPHERE_N} targets against the "
+        f"float64 p2p on a {2 * VEC_P + 2} x {4 * VEC_P + 4} grid, "
+        f"seconds spectral / oracle / plain oracle at {SPHERE_WITNESS_N}: "
+        + ", ".join(f"r={R} {out[f'sl_dl_r{R}_s']}" for R in SPHERE_R)
+        + f"; on '{smi}'")
+    # 9c: SDC on the rigid rotation of SDC_FIELDS fields at p = 256
+    sh = SphericalHarmonics(SDC_P, device=dev)
+    lv = _packed_index(SDC_P)[0]
+    c0 = rng.normal(size=(SDC_FIELDS, sh_dim(SDC_P))) \
+        * np.exp(-lv / SDC_DAMP)
+    u0 = sh.shc2grid(c0)
+    calls, steps = [0], []
+
+    def rhs(u):
+        calls[0] += 1
+        return -sh.shc2grid_grad(sh.grid2shc(u))[2]
+
+    sdc = SDC(SDC_ORDER, device=dev)
+    (u, t_end, err_acc), wall = _host_s(torch, lambda: sdc.adaptive_solve(
+        SDC_DT0, SDC_T, u0, rhs, SDC_TOL,
+        monitor=lambda t, dt, u: steps.append(dt)))
+    out["sdc"] = dict(t=t_end, accepted_steps=len(steps),
+                      f_calls=calls[0], wall_s=wall,
+                      dt_min=min(steps), dt_max=max(steps),
+                      accumulated_error=err_acc)
+    log(f"spectral 9c SDC({SDC_ORDER}) tol {SDC_TOL:.0e} to T={SDC_T}, "
+        f"{SDC_FIELDS} fields at p={SDC_P}: {json.dumps(out['sdc'])}; "
+        f"on '{smi}'")
+    if abs(t_end - SDC_T) > 1e-12:
+        fails.append(f"SDC stopped at t={t_end}")
+    check("sdc_err", _rel(u, sh.shc2grid(rotated_shc(c0, SDC_P, t_end))),
+          10 * SDC_TOL)
+    del sh, u, u0
+    torch.cuda.empty_cache()
+    # every p2p launch of this phase is float64 (the Stokes oracles)
+    launches = {"p2p": p2p.launches_f64}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spectral: float64 launches {launches}, {out['seconds']:.1f} s; "
+        f"on '{smi}'")
+    if fails or launches["p2p"] == 0:
+        raise SystemExit(f"chip_smoke: the spectral phase failed: {fails}"
+                         f", launches {launches}")
+    return launches, out
+
+
 def main():
     import torch
     smi = phase_device(torch)
@@ -2771,6 +3066,11 @@ def main():
     main_rows["p2p_ulist"]["f64"].update(
         phase8_launches=l8["p2p_ulist"],
         phase8e=f64_summary["8e"].pop("p2p_ulist"))
+    torch.cuda.empty_cache()
+    l9, spectral = phase_spectral(torch, smi)
+    # phase 9's float64 p2p launches (the Stokes oracles) join the
+    # main path's count
+    main_rows["p2p"]["launches"] += l9["p2p"]
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -2819,6 +3119,7 @@ def main():
                                    "bie_laplace": bie_laplace,
                                    "bie_host": bie_host,
                                    "legacy": legacy}))
+    log("spectral: " + json.dumps(spectral))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -12,10 +12,16 @@ layer (`linalg`: the host and device GMRES, Krylov recycling, flexible
 and longdouble GMRES), `ParticleFMM.eval_tensor`, the BIE solve in
 float64 on the card, the KIFMM in float64 on the card, and the rest of
 the single-device BIE layer (the host near path, the near cache, the
-legacy quadrature).  Every TPU kernel on these paths is hand-written
-CUDA under `csrc/`.
+legacy quadrature), and the spectral layer (`linalg`: spherical
+harmonic transforms and the Stokes potentials on the sphere, the SDC
+integrator, the FFT facade, Chebyshev bases, quadrature rules and
+Lagrange interpolation; `quadmath`, double-double arithmetic;
+`mathutils`; `tree.vtu`, the VTK writer).  Every TPU kernel on these
+paths is hand-written CUDA under `csrc/`; the spectral layer's products
+and FFTs are torch's batched GEMMs and `torch.fft`.
 """
 
+from . import mathutils, quadmath
 from .config import set_precision
 
 set_precision()

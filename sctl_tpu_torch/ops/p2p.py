@@ -133,10 +133,13 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
            None if ns is None else ns.data_ptr(), f.data_ptr(),
            part.data_ptr(), FORMULA[kernel.name], T, S, nsplit, chunk)
     p2p.launches += 1
+    p2p.launches_f64 += dt == torch.float64
     return part[0] if nsplit == 1 else part.sum(0)
 
 
 p2p.launches = 0
+# the launches of the float64 build among them
+p2p.launches_f64 = 0
 
 
 def slab_index(rast_to_mort, n: int, cap: int, SL: int, cnt=None):

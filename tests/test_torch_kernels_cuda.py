@@ -27,7 +27,11 @@ builds of the four kernels the float64 KIFMM runs (`surface_pair`,
 versions in float64 at 1e-12 of the maximum, for every formula at
 ragged widths with boxes of no point and at their caps, repeated bit
 for bit, their layouts, mixed types refused; and the float64 KIFMM and
-ParticleFMM on the card against the CPU.
+ParticleFMM on the card against the CPU.  The spectral layer (spherical
+harmonic transforms at p = 32, the FFT facade, the Stokes potentials on
+the sphere, SDC) on the card against the CPU in float64 at 1e-12 of
+the maximum (KL 1e-11), and the Stokes potentials at p = 16 against
+direct sums through the float64 p2p.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -1394,3 +1398,141 @@ def test_laplace_bie_apply_card_matches_cpu(cuda_device):
     assert np.abs(u - u_cpu).max() < 1e-10 * np.abs(u_cpu).max()
     u32 = card32.compute_potential(sigma)
     assert np.abs(u32 - u_cpu).max() < 1e-5 * np.abs(u_cpu).max()
+
+
+# The spectral layer on the card (chip_smoke.py phase 9 at small
+# degrees): torch's batched float64 GEMMs and cuFFT against the same
+# code on the CPU, 1e-12 of the maximum (KL 1e-11); the Stokes
+# potentials against the float64 p2p's direct sums.
+
+def _spec_rel(a, b):
+    a, b = a.cpu().double(), b.cpu().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_spectral_scalar_transforms_card_vs_cpu(cuda_device):
+    from sctl_tpu_torch.linalg import SphericalHarmonics, sh_dim
+    p = 32
+    d = SphericalHarmonics(p, device=cuda_device)
+    h = SphericalHarmonics(p, device="cpu")
+    rng = np.random.default_rng(32)
+    shc = torch.as_tensor(rng.normal(size=(3, sh_dim(p))))
+    g = h.shc2grid(shc)
+    assert _spec_rel(d.shc2grid(shc), g) < 1e-12
+    assert _spec_rel(d.grid2shc(g), h.grid2shc(g)) < 1e-12
+    for a, b in zip(d.shc2grid_grad(shc), h.shc2grid_grad(shc)):
+        assert _spec_rel(a, b) < 1e-12
+    assert _spec_rel(d.shc2grid_transpose(g), h.shc2grid_transpose(g)) \
+        < 1e-12
+    assert _spec_rel(d.shc2pole(shc), h.shc2pole(shc)) < 1e-12
+    assert float((d.grid2shc(d.shc2grid(shc)).cpu() - shc).abs().max()) \
+        < 1e-11
+
+
+def test_spectral_vector_transforms_card_vs_cpu(cuda_device):
+    from sctl_tpu_torch.linalg import SphericalHarmonics, sh_dim
+    p = 32
+    d = SphericalHarmonics(p, device=cuda_device)
+    h = SphericalHarmonics(p, device="cpu")
+    rng = np.random.default_rng(33)
+    S = rng.normal(size=(2, 3, sh_dim(p)))
+    S[:, 1, 0] = S[:, 2, 0] = 0.0
+    S = torch.as_tensor(S)
+    F = h.vecshc2grid(S)
+    assert _spec_rel(d.vecshc2grid(S), F) < 1e-12
+    assert _spec_rel(d.grid2vecshc(F), h.grid2vecshc(F)) < 1e-12
+    th, ph = rng.random(20) * np.pi, rng.random(20) * 2 * np.pi
+    assert _spec_rel(d.vecshc_eval(S, th, ph), h.vecshc_eval(S, th, ph)) \
+        < 1e-12
+
+
+def test_spectral_fft_card_vs_cpu(cuda_device):
+    from sctl_tpu_torch.linalg import FFT, FFTType
+    x = torch.as_tensor(np.random.default_rng(34).normal(size=2 * 16 ** 3
+                                                         * 2))
+    for kind in FFTType:
+        d = FFT(device=cuda_device).setup(kind, 2, (16, 16, 16))
+        h = FFT(device="cpu").setup(kind, 2, (16, 16, 16))
+        xi = x[:d.in_size()]
+        assert _spec_rel(d.execute(xi), h.execute(xi)) < 1e-12
+
+
+def test_spectral_stokes_card_vs_cpu(cuda_device):
+    from sctl_tpu_torch.linalg import (sh_dim, stokes_eval_kl,
+                                       stokes_eval_kself, stokes_eval_sl,
+                                       stokes_pressure_sl)
+    p = 8
+    rng = np.random.default_rng(35)
+    S = rng.normal(size=(3, sh_dim(p)))
+    S[1, 0] = S[2, 0] = 0.0
+    u = rng.normal(size=(50, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    for R in (0.55, 1.7):
+        for fn in (stokes_eval_sl, stokes_eval_kself, stokes_pressure_sl):
+            assert _spec_rel(fn(S, p, R * u, R < 1, device=cuda_device),
+                             fn(S, p, R * u, R < 1, device="cpu")) < 1e-12
+        assert _spec_rel(
+            stokes_eval_kl(S, p, R * u, u[::-1], R < 1, device=cuda_device),
+            stokes_eval_kl(S, p, R * u, u[::-1], R < 1, device="cpu")) \
+            < 1e-11
+
+
+def test_spectral_stokes_oracle_through_p2p_f64(cuda_device):
+    """9b's oracle at p = 16: SL and DL against direct sums over a
+    (2p+2) x (4p+4) grid through the float64 p2p (bars 2e-5 and 1e-3,
+    tests/test_sph_harm.py:253-258, and chip_smoke.py's 1e-8 beside
+    them), the card's sums against the plain p2p's on the CPU (1e-12)."""
+    import chip_smoke
+    from sctl_tpu_torch.linalg import sh_dim, stokes_eval_dl, stokes_eval_sl
+    from sctl_tpu_torch.ops.p2p import p2p
+    p = 16
+    rng = np.random.default_rng(36)
+    S = rng.normal(size=(3, sh_dim(p)))
+    S[1, 0] = S[2, 0] = 0.0
+    u = rng.normal(size=(200, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    for R in (0.55, 1.7):
+        n = p2p.launches_f64
+        sl, dl = chip_smoke.stokes_quadrature(torch, S, p, R * u,
+                                              cuda_device)
+        assert p2p.launches_f64 == n + 2
+        sl_h, dl_h = chip_smoke.stokes_quadrature(torch, S, p, R * u, "cpu")
+        assert _spec_rel(sl, sl_h) < chip_smoke.ORACLE_BAR
+        assert _spec_rel(dl, dl_h) < chip_smoke.ORACLE_BAR
+        err_sl = _spec_rel(stokes_eval_sl(S, p, R * u, R < 1,
+                                          device=cuda_device), sl)
+        err_dl = _spec_rel(stokes_eval_dl(S, p, R * u, R < 1,
+                                          device=cuda_device), dl)
+        assert err_sl < 2e-5 and err_dl < 1e-3
+        assert max(err_sl, err_dl) < chip_smoke.SPHERE_TIGHT_BAR
+
+
+def test_spectral_sdc_card_vs_cpu(cuda_device):
+    """SDC(8) on the rigid rotation of 2 fields at p = 16 (9c's
+    problem), 4 fixed steps and the adaptive solve to T = 0.2: the card
+    against the CPU."""
+    from sctl_tpu_torch.linalg import SDC, SphericalHarmonics, sh_dim
+    from sctl_tpu_torch.linalg.sph_harm import _packed_index
+    p = 16
+    c0 = np.random.default_rng(37).normal(size=(2, sh_dim(p))) \
+        * np.exp(-_packed_index(p)[0] / 2.0)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        sh = SphericalHarmonics(p, device=dev)
+        sdc = SDC(8, device=dev)
+
+        def rhs(u):
+            return -sh.shc2grid_grad(sh.grid2shc(u))[2]
+
+        u = sh.shc2grid(c0)
+        for _ in range(4):
+            u, info = sdc(0.02, u, rhs)
+        steps = []
+        ua, t, _ = sdc.adaptive_solve(0.01, 0.2, sh.shc2grid(c0), rhs,
+                                      1e-10, monitor=lambda *a:
+                                      steps.append(a[0]))
+        out.append((u, ua, t, len(steps)))
+    (u, ua, t, n), (uh, uah, th, nh) = out
+    assert _spec_rel(u, uh) < 1e-12
+    assert n == nh and abs(t - th) < 1e-12 and abs(t - 0.2) < 1e-12
+    assert _spec_rel(ua, uah) < 1e-12
