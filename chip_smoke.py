@@ -114,6 +114,19 @@ Phases, each printed on flushed lines with the seconds since start:
             residual recomputed at most 1.5e-6, the error at the 16
             interior ring points against the exact potential at most
             1e-4.
+5L-f64      the Laplace double layer in float64 on the card on phase
+            5f's torus_patches(nu=16, nv=8, q=6), 4,608 unknowns,
+            tolerance 1e-6, the far field through the adaptive FMM
+            (cutoff 15,000 far nodes, phase 5L's tables; its U list the
+            float64 build of p2p_ulist's Laplace3D-DxU formula), boundary
+            data of 5L's unit charge through the float64 p2p, the host
+            gmres to a 1e-10 relative residual.  Setup seconds by stage
+            with the host per-pair fallback count, apply seconds (median
+            of 5), iterations, the residual as returned (at most 1e-10)
+            and recomputed (at most 2e-10), the interior error as 5L (at
+            most 1e-4), the float64 U-list kernel's launches (one an
+            apply) and its time on one apply's inputs against its bound
+            and its plain version in float64 (bar 1e-12).
 5h. bie host  the host near path on the card: torus_patches(nu=12,
             nv=6, q=6), Laplace3D-DxU, tolerance 1e-6, float32: the
             device engine and the host path (use_device_near=False) on
@@ -281,13 +294,44 @@ Phases, each printed on flushed lines with the seconds since start:
             wall time.
             The float64 p2p must have launched (the oracles of 9b).
 
+10. library the rest of the single-device library, every figure with the
+            card's name and power limit.
+    10a.    the native host runtime (sctl_tpu_torch/native) built with
+            g++ on the card's host (a failed build fails the phase); the
+            UniformTree of phase 4's 1e7 points at depth 6 (its box sort
+            the native radix sort) and the same sort through numpy's
+            stable argsort: identical permutations, both times; PtTree(3)
+            .update_refinement of 1e6 points from default_rng(10) (80% on
+            a sphere of radius 0.3, 20% uniform), max_pts 64, balance21:
+            seconds, leaves, levels, check_2to1 true.
+    10b.    the profiler at level 0 around five evaluations of KIFMM(
+            Laplace3D_FxU, p=6, depth 5, float32) on 1e6 uniform points:
+            the median of the KIFMM::Eval blocks (sync) within 10% of
+            the median of CUDA events around eval_tensor, the FLOP
+            counter 5 x _flop_model(), the report printed; then the
+            eval's stage times (CUDA events) and one profiled
+            evaluation (device time by kernel, busy share).
+    10c.    KIFMMLd's flagship rung (BASELINE.md rung 8,
+            tests/test_accuracy_ladder.py:98-112): p = 12, depth 2,
+            rcond 1e-11, 1,200 points from default_rng(12), on the
+            card's host in a process of its own started after the build
+            (its tables built cold unless the data directory or an
+            earlier build has them), against the card's float64 p2p:
+            bar 1.5e-9; its setup and eval seconds.
+    10d.    Matrix.pinv of a (400, 300) float64 matrix on the card
+            against the CPU's (1e-12); a KrylovPrecond collected by the
+            host gmres on card tensors, saved and restored by
+            utils.checkpoint bit for bit on the card.
+            surface_pair, l2t_surface and the float64 p2p must have
+            launched.
+
 Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched (phases 8
 and 9 the float64 counts, `launches_f64`).  Then a line with phase 8's
 figures, a line with the BIE legs' figures (phase 5's baseline and
-recycling, phases 5f, 5L, 5h, 5q), a line with phase 9's figures, one
-JSON line with each kernel's numbers (launches summed over phases 4 to
-7 and 9; p2p_ulist's float64 build under "f64"; the four float64 builds as
+recycling, phases 5f, 5L, 5L-f64, 5h, 5q), a line with phase 9's
+figures, a line with phase 10's, one JSON line with each kernel's
+numbers (launches summed over phases 4 to 7, 9 and 10; p2p_ulist's float64 build under "f64"; the four float64 builds as
 "name[f64]" entries with their launches over phase 8), the card's name
 and power limit, the run's wall time, and the closing JSON line.  Any
 failed check raises, so the script exits non-zero and prints no closing
@@ -571,6 +615,7 @@ def profile_eval(torch, kf, fp, fo, eval_s):
     for e in events[:14]:
         log(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d} calls  "
             f"{e.key[:90]}")
+    return busy_ms
 
 
 def phase_setup(torch):
@@ -1405,7 +1450,7 @@ def phase_bie_laplace(torch, counters, smi):
                    ulist_bound_ms=b_ms, ulist_pairs=work["pairs"],
                    ulist_err64=err64, ulist_plain_err64=plain64,
                    ulist_per_apply=per_apply)
-    return launches, summary
+    return launches, summary, af._ops
 
 
 def phase_bie_host(torch, counters, smi):
@@ -2979,10 +3024,414 @@ def phase_spectral(torch, smi):
     return launches, out
 
 
+# phase 10, the library layer: 10a the native runtime's build, the
+# uniform tree of phase 4's points through the native and the numpy
+# sort, an adaptive 2:1-balanced PtTree; 10b the profiler around a
+# 1e6-point float32 KIFMM eval (depth 5), its block within 10% of CUDA
+# events; 10c KIFMMLd's flagship rung (BASELINE.md rung 8,
+# tests/test_accuracy_ladder.py:98-112) on the host in a process of its
+# own, from the start of the run, against the card's float64 p2p; 10d
+# Matrix.pinv on the card against the CPU, a KrylovPrecond checkpoint of
+# card tensors restored bit for bit
+TREE10_N, TREE10_MAX_PTS = 1_000_000, 64
+PROF_N, PROF_DEPTH, PROF_REPS, PROF_BAR = 1_000_000, 5, 5, 0.10
+LD_P, LD_DEPTH, LD_N, LD_SEED, LD_RCOND, LD_BAR = 12, 2, 1200, 12, 1e-11, \
+    1.5e-9
+PINV_SHAPE, PINV_BAR = (400, 300), 1e-12
+KRYLOV_N = 2000
+
+
+def ld_rung_child(out_path):
+    """10c's host side, run in a process of its own: KIFMMLd at LD_P on
+    LD_N points from default_rng(LD_SEED), sources = targets ->
+    out_path (.npz: the potentials, setup and eval seconds, where the
+    tables came from)."""
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMMLd
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    rng = np.random.default_rng(LD_SEED)
+    x = rng.random((LD_N, 3))
+    f = rng.normal(size=(LD_N, 1))
+    t = time.perf_counter()
+    kf = KIFMMLd(Laplace3D_FxU, p=LD_P, depth=LD_DEPTH,
+                 rcond=LD_RCOND).setup(x, x)
+    setup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    u = kf.eval(f)
+    np.savez(out_path, u=u, setup_s=setup_s,
+             eval_s=time.perf_counter() - t,
+             tables=json.dumps({str(k): v for k, v in
+                                kf.table_source.items()}))
+
+
+def start_ld_rung(tmpdir):
+    """Start 10c's host side in a child process now -> (process, its
+    output path, its start time).  The process is killed at exit if it
+    still runs."""
+    import atexit
+    import os
+    out = os.path.join(tmpdir, "ld_rung.npz")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke as c; "
+         "c.ld_rung_child(sys.argv[1])", out], cwd=here)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def _report_blocks(report):
+    """(name, seconds) of each row of Profile.print_report(fields=("t",
+    "f"))."""
+    return [(ln[:40].strip(), float(ln[40:54]))
+            for ln in report.splitlines()[2:]]
+
+
+def phase_library(torch, counters, smi, ld):
+    """10: the library layer (see the constants above)."""
+    import io
+    import tempfile
+    import numpy as np
+    from sctl_tpu_torch import Matrix, config, native
+    from sctl_tpu_torch.fmm import KIFMM
+    from sctl_tpu_torch.linalg import KrylovPrecond, gmres
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.ops.p2p import p2p
+    from sctl_tpu_torch.profile import Profile
+    from sctl_tpu_torch.tree import PtTree, UniformTree
+    from sctl_tpu_torch.utils import checkpoint
+    t_phase = time.perf_counter()
+    reset(counters)
+    p2p.launches_f64 = 0
+    out = {}
+
+    # ---- 10a: the native runtime and the trees ----
+    t = time.perf_counter()
+    so = native.build(force=True)
+    out["native_build_s"] = time.perf_counter() - t
+    if not native.available():
+        raise SystemExit("chip_smoke: the native runtime did not load")
+    xs = np.random.default_rng(0).random((N_POINTS, 3))
+    t = time.perf_counter()
+    tree = UniformTree(xs, DEPTH)
+    out["uniform_tree_s"] = time.perf_counter() - t
+    keys, bits = tree.box_of_point, 3 * DEPTH
+    t = time.perf_counter()
+    _, perm_n = native.argsort_small(keys, bits)
+    out["sort_native_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _, perm_p = native.argsort_small_plain(keys, bits)
+    out["sort_numpy_s"] = time.perf_counter() - t
+    same = bool(np.array_equal(perm_n, perm_p)
+                and np.array_equal(tree.perm, perm_p))
+    log(f"library native: built {so.name} in {out['native_build_s']:.2f} "
+        f"s; UniformTree of phase 4's {N_POINTS} points at depth {DEPTH} "
+        f"{out['uniform_tree_s']:.3f} s; its box sort native "
+        f"{out['sort_native_s']:.3f} s, numpy {out['sort_numpy_s']:.3f} s, "
+        f"permutations identical {same}")
+    del xs, keys, perm_n, perm_p, tree
+    rng = np.random.default_rng(10)
+    n_sph = int(0.8 * TREE10_N)
+    v = rng.normal(size=(n_sph, 3))
+    x10 = np.concatenate([0.5 + 0.3 * v / np.linalg.norm(v, axis=1)[:, None],
+                          rng.random((TREE10_N - n_sph, 3))])
+    t = time.perf_counter()
+    pt = PtTree(3).update_refinement(x10, TREE10_MAX_PTS, balance21=True)
+    out["pttree_s"] = time.perf_counter() - t
+    ok21 = pt.check_2to1()
+    out.update(pttree_leaves=pt.n_leaves(), pttree_2to1=ok21,
+               pttree_levels=[int(pt.leaf_levels.min()),
+                              int(pt.leaf_levels.max())])
+    log(f"library PtTree: {TREE10_N} points (80% on a sphere), max_pts "
+        f"{TREE10_MAX_PTS}, balance21: {out['pttree_s']:.3f} s, "
+        f"{pt.n_leaves()} leaves at levels {out['pttree_levels']}, "
+        f"check_2to1 {ok21}")
+    del pt, x10, v
+
+    # ---- 10b: the profiler around a KIFMM eval ----
+    x = rng.random((PROF_N, 3))
+    f = torch.as_tensor(rng.normal(size=(PROF_N, 1)), dtype=torch.float32,
+                        device="cuda")
+    t = time.perf_counter()
+    kf = KIFMM(Laplace3D_FxU, p=P, depth=PROF_DEPTH, device="cuda",
+               dtype=torch.float32).setup(x, x)
+    torch.cuda.synchronize()
+    out["kifmm_setup_s"] = time.perf_counter() - t
+    kf.eval_tensor(f)                                      # warm
+    level0 = config.profile_level
+    config.profile_level = 0
+    Profile.reset()
+    ev_ms = []
+    try:
+        for rep in range(PROF_REPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            u = kf.eval_tensor(f * (1.0 + 1e-6 * rep))
+            e1.record()
+            torch.cuda.synchronize()
+            ev_ms.append(e0.elapsed_time(e1))
+        report = Profile.print_report(fields=("t", "f", "f/s"),
+                                      out=io.StringIO())
+        flop = Profile.get_counter("FLOP")
+    finally:
+        config.profile_level = level0
+    for ln in report.splitlines():
+        log(f"library profile report: {ln}")
+    rows = _report_blocks(report)
+    blk_ms = [1e3 * s for name, s in rows if name == "KIFMM::Eval"]
+    model = kf._flop_model()
+    med_blk, med_ev = float(np.median(blk_ms)), float(np.median(ev_ms))
+    ratio = med_blk / med_ev
+    out.update(profile_block_ms=blk_ms, profile_events_ms=ev_ms,
+               profile_ratio=ratio, flop_counter=flop, flop_model=model,
+               kifmm_routes=dict(surface=kf.surface_route,
+                                 near=kf.near_route,
+                                 m2l=kf._ops.m2l_route))
+    log(f"library profile: KIFMM(p={P}, depth {PROF_DEPTH}, float32) on "
+        f"{PROF_N} points, setup {out['kifmm_setup_s']:.2f} s; the "
+        f"KIFMM::Eval block (sync) median {med_blk:.3f} ms of "
+        f"{['%.3f' % b for b in blk_ms]}, CUDA events over eval_tensor "
+        f"median {med_ev:.3f} ms of {['%.3f' % e for e in ev_ms]}, ratio "
+        f"{ratio:.4f} (bar 1 +- {PROF_BAR:g}); FLOP counter {flop:.6e}, "
+        f"{PROF_REPS} x _flop_model {PROF_REPS * model:.6e}; on '{smi}'")
+    if not (len(blk_ms) == PROF_REPS and abs(ratio - 1) <= PROF_BAR
+            and flop == PROF_REPS * model and len(rows) == PROF_REPS):
+        raise SystemExit(f"chip_smoke: the profiler: blocks {rows}, ratio "
+                         f"{ratio:.4f}, FLOP {flop} against "
+                         f"{PROF_REPS * model}")
+    # where the 1e6-point eval's time goes: its stages and the card's
+    # busy share
+    fp, fo = kf.pad_density(f)
+    out["stage_ms"] = _stage_ms(torch, lambda marks: kf._eval_impl(
+        fp, fo, marks))
+    log("library profile: stage ms " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["stage_ms"].items()))
+    out["busy_ms"] = profile_eval(torch, kf, fp, fo, med_ev / 1e3)
+    del kf, f, u, x, fp, fo
+    torch.cuda.empty_cache()
+
+    # ---- 10d: Matrix.pinv and a KrylovPrecond checkpoint ----
+    g = torch.Generator(device="cuda").manual_seed(11)
+    A = torch.randn(PINV_SHAPE, generator=g, dtype=torch.float64,
+                    device="cuda")
+    t = time.perf_counter()
+    pc = Matrix(A).pinv().data
+    torch.cuda.synchronize()
+    out["pinv_card_s"] = time.perf_counter() - t
+    ph = Matrix(A.cpu()).pinv().data
+    out["pinv_err"] = float((pc.cpu() - ph).abs().max() / ph.abs().max())
+    M = (torch.eye(KRYLOV_N, dtype=torch.float64, device="cuda")
+         + torch.randn((KRYLOV_N, KRYLOV_N), generator=g,
+                       dtype=torch.float64, device="cuda") / KRYLOV_N)
+    kp = KrylovPrecond()
+    b = torch.randn(KRYLOV_N, generator=g, dtype=torch.float64,
+                    device="cuda")
+    _, it_kp = gmres(lambda s: M @ s, b, tol=1e-10, krylov_precond=kp)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_krylov_precond(tmp + "/kp", kp)
+        kp2 = checkpoint.restore_krylov_precond(tmp + "/kp")
+        state = {"b": b, "pairs": [list(p) for p in kp._pairs]}
+        checkpoint.save(tmp + "/state", state)
+        back = checkpoint.restore(tmp + "/state", like=state)
+    same_kp = (kp2.size() == kp.size() and len(kp2._pairs) == len(kp._pairs)
+               and all(torch.equal(a, c) and c.is_cuda
+                       for p, q in zip(kp._pairs, kp2._pairs)
+                       for a, c in zip(p, q))
+               and torch.equal(back["b"], b) and back["b"].is_cuda)
+    out.update(krylov_rank=kp.rank(), krylov_iters=it_kp,
+               krylov_restored=same_kp)
+    log(f"library containers: Matrix.pinv {PINV_SHAPE} float64 on the card "
+        f"{out['pinv_card_s']:.3f} s, against the CPU's "
+        f"{out['pinv_err']:.3e} (bar {PINV_BAR:g}); KrylovPrecond of rank "
+        f"{kp.rank()} ({it_kp} iterations) saved and restored on the card "
+        f"bit for bit {same_kp}")
+    del A, pc, ph, M, kp, kp2, back, state
+
+    # ---- 10c: KIFMMLd's rung against the card's float64 p2p ----
+    proc, path, t_start = ld
+    t = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t
+    if rc:
+        raise SystemExit(f"chip_smoke: the KIFMMLd rung's process failed "
+                         f"with code {rc}")
+    z = np.load(path)
+    rng = np.random.default_rng(LD_SEED)
+    xl = rng.random((LD_N, 3))
+    fl = rng.normal(size=(LD_N, 1))
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    ud = direct_eval_blocked(Laplace3D_FxU, c64(xl), c64(xl),
+                             c64(fl)).cpu().numpy()
+    ld_err = float(np.abs(z["u"] - ud).max() / np.abs(ud).max())
+    out.update(ld_p=LD_P, ld_depth=LD_DEPTH, ld_setup_s=float(z["setup_s"]),
+               ld_eval_s=float(z["eval_s"]), ld_tables=str(z["tables"]),
+               ld_waited_s=waited, ld_err=ld_err)
+    log(f"library KIFMMLd: p={LD_P}, depth {LD_DEPTH}, {LD_N} points, "
+        f"rcond {LD_RCOND:g}, in a host process from {t_start - T0:.1f} s: "
+        f"setup {out['ld_setup_s']:.2f} s (tables {out['ld_tables']}), "
+        f"eval {out['ld_eval_s']:.2f} s; waited {waited:.2f} s; rel err "
+        f"against the card's float64 p2p {ld_err:.3e} (bar {LD_BAR:g})")
+    launches = read(counters)
+    launches["p2p_f64"] = p2p.launches_f64
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"library: phase 10 {out['phase_s']:.1f} s; launches {launches}; "
+        f"on '{smi}'")
+    fails = []
+    if not same:
+        fails.append("native and numpy tree sorts differ")
+    if not ok21:
+        fails.append("PtTree not 2:1 balanced")
+    if not out["pinv_err"] <= PINV_BAR:
+        fails.append(f"pinv {out['pinv_err']:.3e}")
+    if not same_kp:
+        fails.append("KrylovPrecond checkpoint")
+    if not ld_err < LD_BAR:
+        fails.append(f"KIFMMLd rung {ld_err:.3e}")
+    if not (launches["p2p_f64"] > 0 and launches["surface_pair"] > 0
+            and launches["l2t_surface"] > 0):
+        fails.append(f"launches {launches}")
+    if fails:
+        raise SystemExit("chip_smoke: phase 10 failed: " + "; ".join(fails))
+    return launches, out
+
+
+def phase_bie_laplace_f64(torch, counters, smi, ops5L):
+    """5L-f64: the Laplace double layer in float64 on the card on phase
+    5f's 16 x 8 torus (4,608 unknowns, one a node), tolerance 1e-6, the far field through the adaptive FMM
+    (cutoff 15,000 far nodes; its U list the float64 p2p_ulist's
+    Laplace3D-DxU formula), A(s) = D s - s/2, boundary data of a unit
+    charge at phase 5's Stokeslet position through the float64 p2p,
+    solved by the host gmres to a 1e-10 relative residual.  The far
+    field's tables are phase 5L's where they are of the same (kernel, p,
+    rcond)."""
+    import contextlib
+    import io
+    import numpy as np
+    from sctl_tpu_torch.bie import BoundaryIntegralOp, torus_patches
+    from sctl_tpu_torch.kernel_cases import rel_max_err, ulist_main_work
+    from sctl_tpu_torch.linalg import gmres
+    from sctl_tpu_torch.ops import (Laplace3D_DxU, Laplace3D_FxU,
+                                    direct_eval_blocked)
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    f64 = torch.float64
+    reset(counters)
+    p2p_ulist.launches_f64 = 0
+    t = time.perf_counter()
+    lst = torus_patches(nu=F64_NU, nv=F64_NV, q=6, R=2.0, r=0.5)
+    op = BoundaryIntegralOp(Laplace3D_DxU, device="cuda", dtype=f64)
+    op.set_accuracy(BIE_TOL)
+    op.add_elem_list(lst)
+    op.far_fmm_cutoff = F64_CUTOFF
+    shared = (ops5L.ker_trans.name == "Laplace3D-FxU"
+              and ops5L.p == op.far_fmm_p and ops5L.rcond == 1e-9)
+    op.far_fmm_operators = ops5L if shared else None
+    op.setup()
+    setup_s = time.perf_counter() - t
+    af = op._far_fmm
+    if af is None or af.dtype != f64:
+        raise SystemExit("chip_smoke: the float64 Laplace BIE far field did "
+                         "not take the adaptive FMM in float64")
+    log(f"bie laplace f64 setup: {setup_s:.2f} s ("
+        + ("phase 5L's operator tables" if shared else
+           "phase 5L's tables are of another (kernel, p, rcond): built")
+        + "); by stage s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in op.setup_times.items())
+        + f"; unknowns {op.dim(0)}, far nodes {len(op.Xf)}, leaves "
+        f"{af.n_leaf}, levels {af.L}, near pairs {len(op.near_pairs)}, "
+        f"host per-pair fallback pairs {op._near_fallback_count}; near "
+        f"engine s " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in op._near_prof.items()) + f"; on '{smi}'")
+
+    X, _, _ = lst.get_node_coord()
+    src, qs = np.array([BIE_SRC2]), np.ones((1, 1))
+    c64 = lambda a: torch.as_tensor(a, dtype=f64, device="cuda")
+    b = direct_eval_blocked(Laplace3D_FxU, c64(X), c64(src),
+                            c64(qs)).reshape(-1)
+
+    def A(sig):
+        return op.compute_potential_tensor(sig).reshape(-1) - 0.5 * sig
+
+    sig0 = torch.randn(b.shape, dtype=f64, device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(3))
+    A(sig0)                                                 # warm
+    apply_s, apply_all = _median_time(
+        torch, lambda rep: A(sig0 * (1.0 + 1e-6 * (rep + 1))), 5)
+    n64 = p2p_ulist.launches_f64
+    A(sig0)
+    per_apply = p2p_ulist.launches_f64 - n64
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        x, iters = gmres(A, b, tol=F64_TOL, max_iter=F64_MAX_ITER,
+                         verbose=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    last = buf.getvalue().strip().splitlines()[-1]
+    resid_est = float(last.split()[-1]) / float(torch.linalg.vector_norm(b))
+    resid = rel_resid(torch, A, x, b)
+    launches = read(counters)
+    launches_f64 = p2p_ulist.launches_f64
+    interior = interior_error(torch, lst, op, x, src, qs, Laplace3D_DxU,
+                              Laplace3D_FxU)
+    log(f"bie laplace f64: apply s {['%.4f' % a for a in apply_all]}, "
+        f"median {apply_s:.4f} s; solve {solve_s:.3f} s, {iters} iterations "
+        f"(host gmres to {F64_TOL:g}), residual {resid_est:.3e} as returned, "
+        f"{resid:.3e} recomputed (bar {F64_RESID_BAR:g}); interior rel err "
+        f"vs the exact potential {interior:.3e} (bar {BIE_INTERIOR_BAR:g}); "
+        f"p2p_ulist float64 launches {launches_f64} ({per_apply} an "
+        f"apply); on '{smi}'")
+
+    # the float64 U-list kernel (Laplace3D-DxU) on one apply's inputs
+    fp = af.pad_density(torch.randn((len(op.Xf), 1), dtype=f64,
+                                    device="cuda"))
+    args = af.ulist_args(fp)
+    ul_ms = cuda_ms(torch, lambda: p2p_ulist(af.ker_s2t, *args), 10)
+    plain_ms = cuda_ms(torch, lambda: p2p_ulist_plain(af.ker_s2t, *args), 3)
+    out_k = p2p_ulist(af.ker_s2t, *args)
+    err = rel_max_err(out_k, p2p_ulist_plain(af.ker_s2t, *args))
+    work = ulist_main_work(af)
+    b_ms, b_by = bound(work)
+    log(f"bie laplace f64 U list: p2p_ulist[{af.ker_s2t.name}] float64 "
+        f"{ul_ms:.4f} ms per apply, plain {plain_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), pairs {work['pairs']}; against its plain "
+        f"version in float64 {err:.3e} (bar {ORACLE_BAR:g}); on '{smi}'")
+    del fp, args, out_k
+    if not (np.isfinite(resid) and resid <= F64_RESID_BAR
+            and np.isfinite(resid_est) and resid_est <= F64_TOL
+            and np.isfinite(interior) and interior <= BIE_INTERIOR_BAR
+            and iters < F64_MAX_ITER):
+        raise SystemExit(f"chip_smoke: float64 Laplace BIE solve failed: "
+                         f"residual {resid:.3e} ({resid_est:.3e} returned), "
+                         f"interior {interior:.3e}, iterations {iters}")
+    if not (per_apply >= 1 and launches_f64 >= iters + 1
+            and err < ORACLE_BAR):
+        raise SystemExit(f"chip_smoke: float64 Laplace BIE U list: "
+                         f"{per_apply} launches an apply, {launches_f64} in "
+                         f"the phase, error {err:.3e}")
+    summary = dict(setup_s=setup_s, setup_by_stage=op.setup_times,
+                   near_engine=op._near_prof, shared_tables=shared,
+                   fallback_pairs=op._near_fallback_count, apply_s=apply_s,
+                   solve_s=solve_s, iterations=iters,
+                   resid_returned=resid_est, resid=resid, interior=interior,
+                   unknowns=op.dim(0), ulist_f64_ms=ul_ms,
+                   ulist_f64_plain_ms=plain_ms, ulist_bound_ms=b_ms,
+                   ulist_pairs=work["pairs"], ulist_err=err,
+                   ulist_f64_launches=launches_f64,
+                   ulist_f64_per_apply=per_apply)
+    return launches, summary
+
+
 def main():
+    import tempfile
     import torch
     smi = phase_device(torch)
     phase_build()
+    tmp = tempfile.TemporaryDirectory()
+    ld = start_ld_rung(tmp.name)
     from sctl_tpu_torch.ops.m2l import m2l_grid, m2l_grid_blocked
     from sctl_tpu_torch.ops.p2p import (p2p, p2p_stencil, p2p_stencil9,
                                         p2p_ulist)
@@ -3027,7 +3476,14 @@ def main():
     rows["p2p_ulist"]["f64"].update(ulist_f64)
     main_rows["p2p_ulist"] = dict(rows["p2p_ulist"], launches=0)
     torch.cuda.empty_cache()
-    l5L, bie_laplace = phase_bie_laplace(torch, all_counters, smi)
+    l5L, bie_laplace, ops5L = phase_bie_laplace(torch, all_counters, smi)
+    torch.cuda.empty_cache()
+    l5Lf, bie_laplace_f64 = phase_bie_laplace_f64(torch, all_counters, smi,
+                                                  ops5L)
+    del ops5L
+    rows["p2p_ulist"]["f64"]["laplace_5L_f64"] = {
+        k[len("ulist_"):]: v for k, v in bie_laplace_f64.items()
+        if k.startswith("ulist_")}
     torch.cuda.empty_cache()
     l5h, bie_host = phase_bie_host(torch, all_counters, smi)
     l5q, legacy = phase_legacy(torch, all_counters, smi)
@@ -3052,8 +3508,8 @@ def main():
     main_rows["p2p_stencil"]["stokes_6c"] = st6c
     for name in ROUTES:
         main_rows[name]["launches"] += sum(
-            lc.get(name, 0) for lc in (l4b, l5, l5f, l5L, l5h, l5q, l6a,
-                                       l6b, l6c, l7))
+            lc.get(name, 0) for lc in (l4b, l5, l5f, l5L, l5Lf, l5h, l5q,
+                                       l6a, l6b, l6c, l7))
     log("kernels: launches over phases 4 to 7: " + ", ".join(
         f"{k} {v['launches']}" for k, v in main_rows.items()))
     if not all(v["launches"] > 0 for v in main_rows.values()):
@@ -3071,6 +3527,11 @@ def main():
     # phase 9's float64 p2p launches (the Stokes oracles) join the
     # main path's count
     main_rows["p2p"]["launches"] += l9["p2p"]
+    torch.cuda.empty_cache()
+    l10, library = phase_library(torch, all_counters, smi, ld)
+    tmp.cleanup()
+    for name in ROUTES:
+        main_rows[name]["launches"] += l10.get(name, 0)
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -3117,9 +3578,11 @@ def main():
     log("bie legs: " + json.dumps({"bie": bie_baseline,
                                    "bie_f64": bie_f64,
                                    "bie_laplace": bie_laplace,
+                                   "bie_laplace_f64": bie_laplace_f64,
                                    "bie_host": bie_host,
                                    "legacy": legacy}))
     log("spectral: " + json.dumps(spectral))
+    log("library: " + json.dumps(library))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import profile
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
 from ..ops.kernels import KernelSpec
@@ -520,7 +521,12 @@ class BoundaryIntegralOp:
         return U
 
     def compute_potential(self, sigma) -> np.ndarray:
-        """numpy sigma -> numpy (Nt, k1) potential."""
+        """numpy sigma -> numpy (Nt, k1) potential, timed in the profile
+        block "BIO::ComputePotential" (with sync), as at
+        sctl_tpu/bie/boundary_integral.py:698."""
+        self.setup()
         s = torch.as_tensor(np.asarray(sigma), dtype=self.dtype,
                             device=self.device)
-        return self.compute_potential_tensor(s).cpu().numpy()
+        with profile.Profile.scoped("BIO::ComputePotential", sync=True):
+            u = self.compute_potential_tensor(s)
+        return u.cpu().numpy()

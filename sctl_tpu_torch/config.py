@@ -1,8 +1,13 @@
 """Runtime settings of the PyTorch port.
 
 Counterpart of `sctl_tpu/config.py:42-87`, cut to what the port reads:
-the default device, the float32 precision rule and the data directory.
-There are no kernel toggles: a CUDA tensor goes through the hand-written
+the default device, the float32 precision rule, the data directory and
+the three diagnostics settings, `debug` (SCTL_MEMDEBUG, the guards of
+`utils.debug`), `profile_level` (SCTL_PROFILE, the depth of the
+`profile` blocks that record) and `verbose` (SCTL_VERBOSE).  They are
+module attributes, read at each call: `config.profile_level = 1` turns
+the profiler's level-0 and level-1 blocks on.  There are no kernel
+toggles: a CUDA tensor goes through the hand-written
 kernel of its stage, a CPU tensor through that kernel's plain PyTorch
 version, and nothing selects between them but the tensor's device.
 """
@@ -15,6 +20,22 @@ import torch
 
 # Entry points run on the card unless the caller passes device="cpu".
 DEFAULT_DEVICE = "cuda"
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() not in ("0", "false", "off", "")
+
+
+# Shape, dtype and NaN guards of utils.debug (sctl_tpu/config.py:44-46).
+debug: bool = _env_bool("SCTL_MEMDEBUG", False)
+# Profile.tic / scoped blocks above this level record nothing; -1 (the
+# default) turns every block off (sctl_tpu/config.py:47-50).
+profile_level: int = int(os.environ.get("SCTL_PROFILE") or -1)
+# Print each profile block as it opens.
+verbose: bool = _env_bool("SCTL_VERBOSE", False)
 
 
 def data_path() -> str:

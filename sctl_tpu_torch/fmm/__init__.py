@@ -1,6 +1,7 @@
 from .kifmm import KIFMM, KIFMMOperators, operators_from_numpy
+from .kifmm_ld import KIFMMLd
 from .adaptive import AdaptiveFMM
 from .fmm import DIRECT_CUTOFF, ParticleFMM
 
-__all__ = ["KIFMM", "KIFMMOperators", "operators_from_numpy",
+__all__ = ["KIFMM", "KIFMMOperators", "KIFMMLd", "operators_from_numpy",
            "AdaptiveFMM", "DIRECT_CUTOFF", "ParticleFMM"]

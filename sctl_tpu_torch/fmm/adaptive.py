@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profile
 from ..config import resolve_device
 from ..ops.kernels import KernelSpec
 from ..ops.p2p import p2p_ulist
@@ -264,7 +265,7 @@ class AdaptiveFMM:
         x_src = np.asarray(x_src, np.float64)
         x_trg = np.asarray(x_trg, np.float64)
         _, off, sc = _normalize(np.concatenate([x_src, x_trg]))
-        self.tree = tree = PtTree(x_src, off, sc, self.max_pts)
+        self.tree = tree = PtTree.refined(x_src, off, sc, self.max_pts)
         self.nodes = nodes = _NodeLevels(tree.leaf_keys, tree.leaf_levels)
         V, U_pairs, (w_lvl, w_leaf, w_node), leaf_row_of_node = \
             _build_lists(nodes, tree.leaf_keys, tree.leaf_levels)
@@ -428,8 +429,13 @@ class AdaptiveFMM:
 
     def eval_tensor(self, f: torch.Tensor) -> torch.Tensor:
         """Device-resident evaluation (the counterpart of `eval_jnp`):
-        f (n_src, k0) tensor -> (n_trg, k1) tensor, input orders."""
-        return self.unsort(self._eval_impl(self.pad_density(f)))
+        f (n_src, k0) tensor -> (n_trg, k1) tensor, input orders; timed
+        in the profile block "AdaptiveFMM::Eval" (with sync), as at
+        sctl_tpu/fmm/adaptive.py:553."""
+        fp = self.pad_density(f)
+        with profile.Profile.scoped("AdaptiveFMM::Eval", sync=True):
+            u_pad = self._eval_impl(fp)
+        return self.unsort(u_pad)
 
     # -- evaluation -----------------------------------------------------------
     def _eval_impl(self, fp: torch.Tensor, marks: Optional[list] = None):

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profile
 from ..config import data_path, resolve_device
 from ..ops._launch_checks import CHUNK_PAIRS
 from ..ops.kernels import (KERNELS, KernelSpec, Laplace3D_FxdU,
@@ -826,10 +827,58 @@ class KIFMM:
 
     def eval_tensor(self, f: torch.Tensor) -> torch.Tensor:
         """Device-resident evaluation: f (n_src, k0) tensor in input
-        order -> (n_trg, k1) tensor in input target order."""
+        order -> (n_trg, k1) tensor in input target order.  Timed in the
+        profile block "KIFMM::Eval" (with sync), its FLOPs credited
+        after it from `_flop_model`, as at sctl_tpu/fmm/kifmm.py:933-935."""
         fp, fo = self.pad_density(f)
-        u_pad, u_ovf = self._eval_impl(fp, fo)
+        with profile.Profile.scoped("KIFMM::Eval", sync=True):
+            u_pad, u_ovf = self._eval_impl(fp, fo)
+        profile.add_flops(self._flop_model())
         return self.unsort(u_pad, u_ovf)
+
+    def _flop_model(self) -> float:
+        """FLOPs of one evaluation: the JAX package's formula
+        (sctl_tpu/fmm/kifmm.py:1025-1060) on this tree, its Pallas P2P
+        flags read as the route this KIFMM took: the slab stencil is its
+        packed-slab kernel (3 SL source slots a target box), the halo
+        stencil its shifted-window kernel (cap_s rounded up to 64
+        slots, 128 on an odd side).  The box capacities are the port's
+        (the JAX package rounds cap_s to 64 off the packed-slab route).
+        The formula counts every padded slot; the
+        port's stencils and surface kernels run each box's real slots
+        only (by the per-box counts), so the count is the JAX package's
+        work, the one its report's f/s is measured against, not the
+        pairs the card ran."""
+        ops = self._ops
+        B = float(self.src_tree.n_boxes)
+        ns = ops.n_surf * ops.k0t
+        kf = self.ker_s2t.flops
+        if self.near_route == "stencil9":
+            fl = B * self.cap_t * 3.0 * self.SL * kf
+        else:
+            align = 64 if (1 << self.depth) % 2 == 0 else 128
+            fl = 27.0 * B * self.cap_t * (-(-self.cap_s // align) * align) \
+                * kf
+        n_sov, n_tov = len(self.sov_boxes), len(self.tov_boxes)
+        if self.n_ovf_s:
+            fl += 27.0 * n_sov * self.cap_t * self.sov_cap * kf
+        if self.n_ovf_t:
+            fl += 27.0 * n_tov * self.tov_cap * self.cap_s * kf
+            if self.n_ovf_s:
+                fl += 27.0 * n_tov * self.tov_cap * self.sov_cap * kf
+        # S2M checks + uc2e GEMM, L2T
+        fl += B * ops.n_surf * self.cap_s * self.ker_s2m.flops
+        fl += B * self.cap_t * ops.n_surf * self.ker_l2t.flops
+        fl += 2.0 * B * ns * ns
+        r, r2 = ops.m2l_u.shape[1], ops.m2l_v.shape[1]
+        for lvl in range(2, self.depth + 1):
+            bl = 8.0 ** lvl
+            fl += bl * 2.0 * ns * (r + r2)     # U/V projections
+            fl += 189.0 * bl * 2.0 * r * r2    # V-list translations
+        for lvl in range(3, self.depth + 1):
+            # concatenated M2M + L2L GEMMs at the parent level
+            fl += 8.0 ** (lvl - 1) * 2.0 * (8 * ns) * ns * 2
+        return fl
 
     def pad_density(self, f: torch.Tensor):
         """Input-order densities -> (fp (B, cap_s, k0), fo (Bo, cap2,

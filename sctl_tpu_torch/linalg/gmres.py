@@ -34,6 +34,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profile
+
 
 class KrylovPrecond:
     """P <- P (I + U Qt) Krylov-subspace preconditioner
@@ -489,9 +491,8 @@ def gmres_ld(A: Callable, b, tol: float = 1e-16,
 
 class GMRES:
     """Class facade of the reference API (GMRES<Real>(comm, verbose);
-    operator()), forwarding to `gmres`.  The JAX package's facade times
-    each call in a `profile.Profile.scoped("GMRES")` block; the port has
-    no profile module yet, so this facade records nothing."""
+    operator()), forwarding to `gmres`; each call is timed in the
+    profile block "GMRES" (with sync), as at sctl_tpu/linalg/gmres.py:705."""
 
     def __init__(self, comm=None, verbose: bool = False):
         self.verbose = verbose
@@ -500,6 +501,8 @@ class GMRES:
                  max_iter: Optional[int] = None,
                  use_abs_tol: bool = False, x0=None,
                  krylov_precond: Optional[KrylovPrecond] = None):
-        return gmres(A, b, tol=tol, max_iter=max_iter,
-                     use_abs_tol=use_abs_tol, x0=x0,
-                     krylov_precond=krylov_precond, verbose=self.verbose)
+        with profile.Profile.scoped("GMRES", sync=True):
+            return gmres(A, b, tol=tol, max_iter=max_iter,
+                         use_abs_tol=use_abs_tol, x0=x0,
+                         krylov_precond=krylov_precond,
+                         verbose=self.verbose)

@@ -8,8 +8,9 @@ that its code does not make, sctl_tpu/ops/direct.py:13-14): tensors on
 a card go through the hand-written kernel `p2p` (csrc/p2p_direct.cu,
 float32 or float64), and a failed build or launch raises; tensors on
 the CPU go through the kernel's plain version, the pairwise form in
-(block_t x block_s) tiles.  The JAX package's flop counter
-(`profile.add_flops`) has no counterpart yet.
+(block_t x block_s) tiles.  Each sum credits T S kernel.flops to the
+profiler's FLOP counter (sctl_tpu/ops/direct.py:63, :111) once, in
+`p2p`, which both functions call.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import profile
 from ._build import launch, library
 from ._launch_checks import (CHUNK_PAIRS, check_index_args,
                              check_kernel_args, n_sms, on_cuda)
@@ -101,7 +102,8 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
     alone would leave resident blocks idle (`p2p_grid`), and the
     splits' partial sums are added here.  On the CPU the plain version
     runs in (block_t x block_s) tiles; the card's kernel has its own
-    tiles."""
+    tiles.  T S kernel.flops go to the profiler's FLOP counter
+    (sctl_tpu/ops/pallas_p2p.py:598)."""
     T, S, k0 = xt.shape[0], xs.shape[0], kernel.kdim0
     if (xt.shape != (T, 3) or xs.shape != (S, 3) or f.shape != (S, k0)
             or (kernel.needs_normal
@@ -111,6 +113,7 @@ def p2p(kernel: KernelSpec, xt, xs, ns, f, block_t: int = 1024,
                          f"{None if ns is None else tuple(ns.shape)}, "
                          f"kernel {kernel.name}")
     ns = ns if kernel.needs_normal else None
+    profile.add_flops(float(T) * S * kernel.flops)
     tensors = [t for t in (xt, xs, ns, f) if t is not None]
     if not on_cuda(*tensors):
         return p2p_plain(kernel, xt, xs, ns, f, block_t, block_s)

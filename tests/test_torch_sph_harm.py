@@ -352,7 +352,7 @@ def test_write_tree_vtk(tmp_path):
     from types import SimpleNamespace
     from sctl_tpu_torch.tree import PtTree
     X = np.random.default_rng(2).random((3000, 3))
-    tree = PtTree(X, np.zeros(3), 1.0, max_pts=60)
+    tree = PtTree.refined(X, np.zeros(3), 1.0, max_pts=60)
     vtu.write_tree_vtk(str(tmp_path / "pt"), tree)
     j_vtu.write_tree_vtk(str(tmp_path / "jt"), SimpleNamespace(
         dim=3, leaf_keys=tree.leaf_keys, leaf_levels=tree.leaf_levels,
