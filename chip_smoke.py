@@ -285,7 +285,7 @@ Phases, each printed on flushed lines with the seconds since start:
             (1e-8) and against the card's oracle (bar 1e-12);
             stokes_eval_kself, stokes_pressure_sl and stokes_eval_kl at
             p = 64 on the same targets against the CPU (bar 1e-11).
-    9c.     SDC(8).adaptive_solve, tol 1e-10, to T = 1 on the rigid
+    9c.     SDC(8).adaptive_solve, tol 1e-10, to T = 0.25 on the rigid
             rotation of 4 fields at p = 256, F(u) = -du/dphi through
             shc2grid_grad(grid2shc(u)), initial coefficients N(0, 1)
             damped by exp(-l/32): T reached and the error against each
@@ -325,13 +325,61 @@ Phases, each printed on flushed lines with the seconds since start:
             surface_pair, l2t_surface and the float64 p2p must have
             launched.
 
+11. dist    the distributed layer (sctl_tpu_torch.comm, tree.dist_tree,
+            fmm.kifmm_dist, the ring, eval_sharded, GMRES and SDC over a
+            comm), its ranks started by comm.run_ranks (spawned
+            processes, FileStore rendezvous), every figure with the
+            card's name and power limit.
+    11a.    one rank over NCCL: every Comm method and verb on CUDA
+            tensors, KIFMMDist (p=6, depth 3, 20,000 points) and
+            eval_direct_ring through the one-rank group, each equal to
+            the self-communicator's result bit for bit.
+    11b.    four gloo ranks sharing the card (NCCL refuses two ranks of
+            one communicator on one device; gloo's send and receive take
+            no CUDA tensor, so point-to-point stages through pinned host
+            buffers): every verb on deterministic CUDA inputs against
+            their closed-form blocks and against the same verbs on CPU
+            tensors; then KIFMMDist(Laplace3D_FxU, p=6, depth=6,
+            float32) on phase 4's 1e7 points, 16 planes a rank: setup,
+            one warm and three timed eval_tensor calls with fresh
+            densities (each ending in a synchronize and a barrier),
+            each rank's stage times by CUDA events (the halo and
+            coarse-gather exchanges stages of their own), peak device
+            memory, launches; surface_pair, l2t_surface and p2p_ulist on
+            rank 0's own slab against their plain versions (bar 1e-5)
+            and alone at the slab's shapes against their bounds; the
+            error at phase 4's 1000 sampled targets against its float64
+            p2p sums (bar 2e-4) and against phase 4's potential there
+            (bar 1e-4, tests/test_fmm_dist.py:56); and at the 5 targets
+            where the two potentials differ most over all 1e7, each
+            against the float64 p2p (KIFMMDist's bar 2e-4 of the sampled
+            maximum; phase 4's, printed, has no bar: its near field
+            differences global float32 coordinates).
+    11c.    eval_direct_ring over the four ranks on 1e5 Laplace points
+            from default_rng(13), float32, 1e10 pairs through p2p,
+            against the float64 p2p in one process (bar 5e-6).
+    11d.    DistPtTree of 10a's 1e6 points (max_pts 64, balance21): its
+            leaves identical to the host PtTree's; AdaptiveFMM(p=4,
+            max_pts 128, float64).eval_sharded on 2e5 points of that
+            distribution within 1e-10 of the maximum of the
+            single-device eval; the float64 p2p_ulist on rank 0's block
+            of the U list against its plain version (bar 1e-12).
+    11e.    gmres on the row-sharded N = 4,096 system of
+            tests/test_gmres.py:78's form: the iterations of one process
+            and its residual to 1e-12; SDC(8, comm) with one of four
+            9c-style fields a rank at p = 64 to T = 0.25: the steps and F
+            calls of one process holding all four.
+            A failed or hung rank fails the phase.
+
 Each phase sets the launch counts to 0 before it drives its path and
 reads them after; every kernel of the path must have launched (phases 8
 and 9 the float64 counts, `launches_f64`).  Then a line with phase 8's
 figures, a line with the BIE legs' figures (phase 5's baseline and
 recycling, phases 5f, 5L, 5L-f64, 5h, 5q), a line with phase 9's
-figures, a line with phase 10's, one JSON line with each kernel's
-numbers (launches summed over phases 4 to 7, 9 and 10; p2p_ulist's float64 build under "f64"; the four float64 builds as
+figures, a line with phase 10's, a line with phase 11's, one JSON line
+with each kernel's numbers (launches summed over phases 4 to 7 and 9 to
+11, the ranks' included; phase 11's figures under "phase11";
+p2p_ulist's float64 build under "f64"; the four float64 builds as
 "name[f64]" entries with their launches over phase 8), the card's name
 and power limit, the run's wall time, and the closing JSON line.  Any
 failed check raises, so the script exits non-zero and prints no closing
@@ -450,7 +498,7 @@ F64_FACADE_ACC, F64_FACADE_BAR = 8, 1e-6
 # the scalar round trip at p = 512 (:432-448), the card against the CPU
 # at p = 128, the FFT facade's round trips; the vector round trip at
 # p = 128, SL and DL against direct sums (:253-258) on each sphere,
-# KSelf, the pressure and KL against the CPU at p = 64; SDC(8) to T = 1
+# KSelf, the pressure and KL against the CPU at p = 64; SDC(8) to T = 0.25
 # on the rigid rotation of 4 fields at p = 256 (tests/test_ode.py:44-48)
 SH_P, SH_BATCH, SH_BAR = 512, 8, 1e-8
 SH_CMP_P, CARD_CPU_BAR = 128, 1e-12
@@ -462,7 +510,7 @@ SPHERE_N, SPHERE_R, SL_BAR, DL_BAR = 1000, (0.55, 1.7), 2e-5, 1e-3
 # float32 on either side rounds each term at about 6e-8, over that bar
 SPHERE_WITNESS_N, SPHERE_TIGHT_BAR = 300, 1e-8
 KL_P, KL_BAR = 64, 1e-11
-SDC_ORDER, SDC_TOL, SDC_T, SDC_DT0 = 8, 1e-10, 1.0, 1e-3
+SDC_ORDER, SDC_TOL, SDC_T, SDC_DT0 = 8, 1e-10, 0.25, 1e-3
 SDC_P, SDC_FIELDS, SDC_DAMP = 256, 4, 32.0
 
 
@@ -638,7 +686,10 @@ def phase_setup(torch):
     return kf, xs, f, rng
 
 
-def phase_main(torch, kf, xs, f, rng, counters):
+def phase_main(torch, kf, xs, f, rng, counters, kept=None):
+    """4: the KIFMM's evaluation (see the docstring); with `kept` a dict,
+    the sampled targets, their float64 direct sums and the potential go
+    into it (phase 11's references)."""
     import numpy as np
     from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
     dev = kf.device
@@ -685,6 +736,9 @@ def phase_main(torch, kf, xs, f, rng, counters):
                                 block_t=N_SAMPLE, block_s=1 << 17)
     u_s = u[torch.as_tensor(idx, device=dev)].double()
     err = float((u_s - u_ref).abs().max() / u_ref.abs().max())
+    if kept is not None:
+        kept.update(idx=idx, u_ref=u_ref.cpu().numpy(),
+                    u=u.cpu().numpy())
     log(f"main: rel err at {N_SAMPLE} sampled targets vs f64 direct sum "
         f"{err:.3e} (bar {FMM_BAR:g})")
     if not np.isfinite(err) or not err < FMM_BAR:
@@ -3130,10 +3184,7 @@ def phase_library(torch, counters, smi, ld):
         f"permutations identical {same}")
     del xs, keys, perm_n, perm_p, tree
     rng = np.random.default_rng(10)
-    n_sph = int(0.8 * TREE10_N)
-    v = rng.normal(size=(n_sph, 3))
-    x10 = np.concatenate([0.5 + 0.3 * v / np.linalg.norm(v, axis=1)[:, None],
-                          rng.random((TREE10_N - n_sph, 3))])
+    x10 = sphere_cloud(TREE10_N, rng)
     t = time.perf_counter()
     pt = PtTree(3).update_refinement(x10, TREE10_MAX_PTS, balance21=True)
     out["pttree_s"] = time.perf_counter() - t
@@ -3145,7 +3196,7 @@ def phase_library(torch, counters, smi, ld):
         f"{TREE10_MAX_PTS}, balance21: {out['pttree_s']:.3f} s, "
         f"{pt.n_leaves()} leaves at levels {out['pttree_levels']}, "
         f"check_2to1 {ok21}")
-    del pt, x10, v
+    del pt, x10
 
     # ---- 10b: the profiler around a KIFMM eval ----
     x = rng.random((PROF_N, 3))
@@ -3425,6 +3476,612 @@ def phase_bie_laplace_f64(torch, counters, smi, ops5L):
     return launches, summary
 
 
+# phase 11, the distributed layer: 11a one rank over NCCL against the
+# self-communicator, bit for bit; 11b-11e four gloo ranks sharing the
+# card (NCCL refuses two ranks of one communicator on one device: "Duplicate
+# GPU detected"), each on its own tensors on the card: 11b every verb,
+# then KIFMMDist at bench_fmm's width (phase 4's field and depth), 11c
+# the ring direct sum, 11d DistPtTree and AdaptiveFMM.eval_sharded, 11e
+# the row-sharded GMRES and SDC(comm=)
+DIST_RANKS, DIST_DEVICE = 4, "cuda"
+DIST_TIMEOUT = 300
+NCCL_N = 20_000
+RING_N, RING_SEED = 100_000, 13
+SHARDED_N, SHARDED_P, SHARDED_MAX_PTS, SHARDED_BAR = 200_000, 4, 128, 1e-10
+DIST_GMRES_N, DIST_GMRES_TOL, DIST_RESID_BAR = 4096, 1e-10, 1e-12
+DIST_SDC_P, DIST_SDC_T = 64, 0.25
+DIST_CHECK_BOXES = 1024
+
+
+def sphere_cloud(n, rng):
+    """10a's point cloud: 80% on a sphere of radius 0.3 about (0.5, 0.5,
+    0.5), 20% uniform, drawn from the generator rng (10a's is
+    default_rng(10))."""
+    import numpy as np
+    n_sph = int(0.8 * n)
+    v = rng.normal(size=(n_sph, 3))
+    return np.concatenate([0.5 + 0.3 * v / np.linalg.norm(v, axis=1)[:, None],
+                           rng.random((n - n_sph, 3))])
+
+
+def _dist_counters():
+    from sctl_tpu_torch.ops.p2p import p2p, p2p_ulist
+    from sctl_tpu_torch.ops.sl import l2t_surface, surface_pair
+    return {"surface_pair": surface_pair, "l2t_surface": l2t_surface,
+            "p2p_ulist": p2p_ulist, "p2p": p2p}
+
+
+def verb_outputs(torch, comm, dev):
+    """Every Comm method and verb on deterministic inputs on `dev` ->
+    {name: tensor or tuple}: rank r's x is arange(4) + r."""
+    from sctl_tpu_torch.comm import verbs as V
+    r, p = comm.rank(), comm.size()
+    x = torch.arange(4, dtype=torch.float32, device=dev) + r
+    out = {"sum": comm.allreduce(x), "max": comm.allreduce(x, "max"),
+           "min": comm.allreduce(x, "min"),
+           "scan": comm.scan(x, exclusive=True),
+           "bcast": comm.bcast(x, p - 1),
+           "allgather": comm.allgather(x, tiled=True),
+           "alltoall": comm.alltoall(
+               torch.arange(2 * p, dtype=torch.float32, device=dev) + 10 * r),
+           "shift": comm.send_recv_shift(x, 1),
+           "pairs": comm.send_recv(x, [(0, p - 1)], fill=-1.0)}
+    comm.barrier()
+    g = torch.Generator().manual_seed(100 + r)
+    n = 8 + 2 * r
+    keys = torch.rand(16, generator=g, dtype=torch.float64).to(dev)
+    data = torch.rand(16, generator=g, dtype=torch.float64).to(dev)
+    dest = torch.randint(0, p, (16,), generator=g).to(dev)
+    total = sum(8 + 2 * q for q in range(p))
+    tgt = torch.tensor([total // p + (q < total % p) for q in range(p)],
+                       device=dev)
+    out["route"] = V.route(comm, data, n, dest, 16 * p)
+    out["route_ring"] = V.route(comm, data, n, dest, 16 * p, impl="ring")
+    out["alltoallv"] = V.alltoallv(comm, data,
+                                   torch.bincount(dest[:n], minlength=p)
+                                   if p > 1 else torch.tensor([n]), 16 * p)
+    out["sort"] = V.global_sort(comm, keys, n, payload=data,
+                                capacity=16 * p)
+    out["partition_n"] = V.partition_n(comm, data, n, tgt, 16 * p)
+    out["partition_w"] = V.partition_w(comm, data, n, data + 0.5, 16 * p)
+    idx = V.sort_scatter_index(comm, keys, n, capacity=16 * p)
+    fwd, fc = V.scatter_forward(comm, data, n, idx, capacity=16 * p)
+    rev, _ = V.scatter_reverse(comm, fwd, fc, idx, n, capacity=16 * p)
+    out["scatter"] = (idx, fwd, fc, rev)
+    return out
+
+
+def _flat(torch, v):
+    return [t.detach().cpu() for t in (v if isinstance(v, tuple) else (v,))]
+
+
+def _unequal(torch, a, b):
+    """Names of the outputs of two verb_outputs that differ bit for
+    bit."""
+    bad = []
+    for k in a:
+        for x, y in zip(_flat(torch, a[k]), _flat(torch, b[k])):
+            if x.shape != y.shape or not torch.equal(x, y):
+                bad.append(k)
+                break
+    return bad
+
+
+def _rank_11a(comm, cfg):
+    """11a on a one-rank NCCL group: each verb, KIFMMDist and the ring
+    through the group against the self-communicator, bit for bit."""
+    import numpy as np
+    import torch
+    from sctl_tpu_torch.comm import Comm
+    from sctl_tpu_torch.fmm import ParticleFMM
+    from sctl_tpu_torch.fmm.kifmm_dist import KIFMMDist
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    dev = torch.device(DIST_DEVICE)
+    counters = _dist_counters()
+    reset(counters)
+    one = Comm.self_()
+    out = {"backend": comm.backend, "size": comm.size()}
+    out["verbs_unequal"] = _unequal(torch, verb_outputs(torch, comm, dev),
+                                    verb_outputs(torch, one, dev))
+    rng = np.random.default_rng(5)
+    x = rng.random((NCCL_N, 3))
+    f = rng.normal(size=(NCCL_N, 1))
+    u = [KIFMMDist(Laplace3D_FxU, c, p=P, depth=3, device=dev).setup(x, x)
+         .eval(f) for c in (comm, one)]
+    out["kifmm_equal"] = bool(np.array_equal(u[0], u[1]))
+    xt, ft = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (x, f))
+    ur = [ParticleFMM(c, device=dev).eval_direct_ring(Laplace3D_FxU, xt, xt,
+                                                      ft) for c in (comm, one)]
+    out["ring_equal"] = bool(torch.equal(ur[0], ur[1]))
+    out["launches"] = read(counters)
+    return out
+
+
+def _timed(torch, comm, fn):
+    """(result, seconds) of fn() ending in a synchronize and a barrier,
+    started after one."""
+    torch.cuda.synchronize()
+    comm.barrier()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    comm.barrier()
+    return res, time.perf_counter() - t
+
+
+def _slab_kernel_rows(torch, fmm, fp, fp_h):
+    """11b's kernels on this rank's own slab (fp its densities, fp_h
+    with the halo planes): each against its plain version on the slab's
+    DIST_CHECK_BOXES fullest boxes (bar KERNEL_BAR), and alone at the
+    slab's full shapes against its bound."""
+    from sctl_tpu_torch.kernel_cases import (l2t_surface_work,
+                                             p2p_ulist_work, rel_max_err,
+                                             surface_pair_work)
+    from sctl_tpu_torch.ops import Laplace3D_FxU as K
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    from sctl_tpu_torch.ops.sl import (l2t_surface, l2t_surface_plain,
+                                       surface_pair, surface_pair_plain)
+    ns, B, cs, ct = fmm._ops.n_surf, fmm.B, fmm.cap_s, fmm.cap_t
+    g = DIST_CHECK_BOXES
+    surf = fmm.surf_out_L
+    f_l = fp.reshape(1, -1)
+    sel = torch.argsort(fmm.cnt_s_box + fmm.cnt_t_box, descending=True)[:g]
+    pick = lambda a, cap: a.reshape(a.shape[0], B, cap)[:, sel] \
+        .reshape(a.shape[0], -1).contiguous()
+    head = lambda a, n: pick(a, n // g)
+    q_cm = torch.randn((1, ns, B), device=fp.device)
+    fp_h = fp_h.reshape(-1, 1)
+    ul = lambda b: (K, fmm.near_xt[b].contiguous(), fmm.near_xs, None, fp_h,
+                    fmm.near_rng[b].contiguous(),
+                    fmm.cnt_t_box[b].contiguous(), fmm.near_fidx)
+    calls = {
+        "surface_pair": (
+            lambda: surface_pair(K, surf, head(fmm.xs_sl, g * cs),
+                                 head(f_l, g * cs), cs, None,
+                                 fmm.cnt_s_box[sel]),
+            lambda: surface_pair_plain(K, surf, head(fmm.xs_sl, g * cs),
+                                       head(f_l, g * cs), cs, None,
+                                       fmm.cnt_s_box[sel]),
+            lambda: surface_pair(K, surf, fmm.xs_sl, f_l, cs, None,
+                                 fmm.cnt_s_box),
+            surface_pair_work(K, ns, B, int(fmm.cnt_s_box.sum()))),
+        "l2t_surface": (
+            lambda: l2t_surface(K, surf, head(fmm.xt_sl, g * ct),
+                                q_cm[:, :, sel].contiguous(), ct,
+                                fmm.cnt_t_box[sel]),
+            lambda: l2t_surface_plain(K, surf, head(fmm.xt_sl, g * ct),
+                                      q_cm[:, :, sel].contiguous(), ct,
+                                      fmm.cnt_t_box[sel]),
+            lambda: l2t_surface(K, surf, fmm.xt_sl, q_cm, ct, fmm.cnt_t_box),
+            l2t_surface_work(K, ns, B, ct, int(fmm.cnt_t_box.sum()))),
+        "p2p_ulist": (
+            lambda: p2p_ulist(*ul(sel)), lambda: p2p_ulist_plain(*ul(sel)),
+            lambda: p2p_ulist(*ul(slice(None))),
+            p2p_ulist_work(K, fmm.n_near_pairs, int(fmm.cnt_t_box.sum()),
+                           int(fmm.near_fidx.shape[0]))),
+    }
+    rows = {}
+    for name, (run, plain, full, work) in calls.items():
+        err = rel_max_err(run(), plain())
+        ms = cuda_ms(torch, full, 5)
+        b_ms, b_by = bound(work)
+        rows[name] = dict(max_rel_err=err, ms=ms, bound_ms=b_ms,
+                          bound_by=b_by, pairs=work["pairs"],
+                          case=f"the {g} fullest of the slab's {B} boxes")
+    return rows
+
+
+def _rank_dist(comm, cfg):
+    """11b-11e on each of the four gloo ranks (see the constants)."""
+    import numpy as np
+    import torch
+    from sctl_tpu_torch.fmm import AdaptiveFMM, ParticleFMM
+    from sctl_tpu_torch.fmm.kifmm_dist import KIFMMDist
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.linalg import SDC, SphericalHarmonics, gmres, sh_dim
+    from sctl_tpu_torch.linalg.sph_harm import _packed_index
+    from sctl_tpu_torch.ops import Laplace3D_FxU
+    from sctl_tpu_torch.ops.p2p import p2p, p2p_plain, p2p_ulist, \
+        p2p_ulist_plain
+    from sctl_tpu_torch.tree.dist_tree import DistPtTree
+    dev = torch.device(DIST_DEVICE)
+    r, p = comm.rank(), comm.size()
+    counters = _dist_counters()
+    out = {}
+    t_rank = time.perf_counter()
+
+    # ---- 11b: the verbs on CUDA tensors, then on CPU tensors ----
+    got, cpu = verb_outputs(torch, comm, dev), verb_outputs(
+        torch, comm, torch.device("cpu"))
+    a4 = torch.arange(4, dtype=torch.float32)
+    want = {"sum": p * a4 + p * (p - 1) / 2, "max": a4 + p - 1, "min": a4,
+            "scan": r * a4 + r * (r - 1) / 2, "bcast": a4 + p - 1,
+            "allgather": torch.cat([a4 + q for q in range(p)]),
+            "alltoall": torch.tensor([v for q in range(p)
+                                      for v in (2 * r + 10 * q,
+                                                2 * r + 1 + 10 * q)],
+                                     dtype=torch.float32),
+            "shift": a4 + (r - 1) % p,
+            "pairs": a4 if r == p - 1 else torch.full((4,), -1.0)}
+    out["verbs_wrong"] = [k for k, v in want.items()
+                          if not torch.equal(got[k].cpu(), v)]
+    out["verbs_cuda_vs_cpu"] = _unequal(torch, got, cpu)
+    del got, cpu
+
+    # ---- 11b: KIFMMDist at bench_fmm's width ----
+    rng = np.random.default_rng(0)
+    xs = rng.random((N_POINTS, 3))
+    f = rng.normal(size=(N_POINTS, 1))
+    fmm, out["setup_s"] = _timed(torch, comm, lambda: KIFMMDist(
+        Laplace3D_FxU, comm, p=P, depth=DEPTH, device=dev,
+        dtype=torch.float32).setup(xs, xs))
+    out.update(planes=fmm.planes, cap_s=fmm.cap_s, cap_t=fmm.cap_t,
+               l_shard_min=fmm.l_shard_min,
+               surface_route=fmm.surface_route,
+               near_pairs=fmm.n_near_pairs,
+               near_sources=int(fmm.near_fidx.shape[0]))
+    f_loc = torch.as_tensor(f[fmm.src_index], dtype=torch.float32,
+                            device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    _timed(torch, comm, lambda: fmm.eval_tensor(f_loc))          # warm
+    times = [_timed(torch, comm, lambda k=k: fmm.eval_tensor(
+        f_loc * (1.0 + 1e-6 * (k + 1))))[1] for k in range(3)]
+    out["launches_b"] = read(counters)
+    out["eval_s"] = times
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    comm.barrier()
+    start.record()
+    fmm.eval_tensor(f_loc, marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = stages.get(name, 0.0) + prev.elapsed_time(ev)
+        prev = ev
+    out["stage_ms"] = stages
+    fp = fmm.pad_density(f_loc)
+    fp_h = fmm._halo_x(fp.reshape(fmm.planes, -1, fmm.cap_s, 1), 1)
+    comm.barrier()
+    if r == 0:
+        out["kernels"] = _slab_kernel_rows(torch, fmm, fp, fp_h)
+    comm.barrier()
+    u = fmm.eval(f)
+    out["u"] = u.astype(np.float32) if r == 0 else None
+    del fmm, f_loc, u, xs, f, fp, fp_h
+    torch.cuda.empty_cache()
+
+    # ---- 11c: the ring direct sum, RING_N points ----
+    rng = np.random.default_rng(RING_SEED)
+    X = rng.random((RING_N, 3))
+    F = rng.normal(size=(RING_N, 1))
+    m = RING_N // p
+    blk = lambda a: torch.as_tensor(a[r * m:(r + 1) * m],
+                                    dtype=torch.float32, device=dev)
+    xr, fr = blk(X), blk(F)
+    reset(counters)
+    ring = ParticleFMM(comm, device=dev)
+    out["ring_u"], out["ring_s"] = _timed(torch, comm, lambda: ring
+                                          .eval_direct_ring(Laplace3D_FxU,
+                                                            xr, xr, fr))
+    out["launches_c"] = read(counters)
+    if r == 0:
+        sub = slice(0, 1024)
+        out["ring_p2p_err"] = rel_max_err(
+            p2p(Laplace3D_FxU, xr[sub], xr, None, fr),
+            p2p_plain(Laplace3D_FxU, xr[sub], xr, None, fr))
+
+    # ---- 11d: DistPtTree of 10a's cloud, AdaptiveFMM.eval_sharded ----
+    x10 = sphere_cloud(TREE10_N, np.random.default_rng(10))
+    C = TREE10_N // p
+    tree = DistPtTree(comm, leaf_cap=1 << 18, pt_cap=2 * C, max_level=15)
+    (lk, ll, nl, _, oc), out["tree_s"] = _timed(torch, comm, lambda: tree
+                                                .build_fn(TREE10_MAX_PTS,
+                                                          balance21=True)(
+        torch.as_tensor(x10[r * C:(r + 1) * C], device=dev), C))
+    out.update(tree_points=oc, tree_leaves=nl)
+    out["tree"] = ((lk[:nl].cpu().numpy(), ll[:nl].cpu().numpy())
+                   if r == 0 else None)
+    del x10, lk, ll
+    xa = sphere_cloud(SHARDED_N, np.random.default_rng(14))
+    fa = np.random.default_rng(15).normal(size=(SHARDED_N, 1))
+    af, out["adaptive_setup_s"] = _timed(torch, comm, lambda: AdaptiveFMM(
+        Laplace3D_FxU, p=SHARDED_P, max_pts=SHARDED_MAX_PTS, device=dev,
+        dtype=torch.float64).setup(xa, xa))
+    reset(counters)
+    u_sh, out["sharded_s"] = _timed(torch, comm,
+                                    lambda: af.eval_sharded(fa, comm))
+    out["launches_d"] = read(counters)
+    if r == 0:
+        u1, out["single_s"] = _host_s(torch, lambda: af.eval(fa))
+        out["sharded_err"] = float(np.abs(u_sh - u1).max()
+                                   / np.abs(u1).max())
+        b = slice(0, 256)
+        fp = af.pad_density(torch.as_tensor(fa, device=dev))
+        out["ulist_block_err"] = rel_max_err(
+            p2p_ulist(af.ker_s2t, *af.ulist_args(fp, b)),
+            p2p_ulist_plain(af.ker_s2t, *af.ulist_args(fp, b)))
+    comm.barrier()
+    del af
+
+    # ---- 11e: the row-sharded GMRES, SDC over the ranks ----
+    rng = np.random.default_rng(3)
+    N = DIST_GMRES_N
+    A = rng.random((N, N)) / N + np.eye(N)
+    b = rng.random(N)
+    rows = slice(r * N // p, (r + 1) * N // p)
+    A_r = torch.as_tensor(A[rows], device=dev)
+    b_r = torch.as_tensor(b[rows], device=dev)
+    del A
+    op = lambda v: A_r @ comm.allgather(v, tiled=True)
+    (x, it), out["gmres_s"] = _timed(torch, comm, lambda: gmres(
+        op, b_r, tol=DIST_GMRES_TOL, comm=comm))
+    res = op(x) - b_r
+    out["gmres_iters"] = it
+    out["gmres_resid"] = float(torch.sqrt(comm.allreduce(
+        (res * res).sum())) / np.linalg.norm(b))
+    sh = SphericalHarmonics(DIST_SDC_P, device=dev)
+    lv = _packed_index(DIST_SDC_P)[0]
+    c0 = np.random.default_rng(16).normal(
+        size=(DIST_RANKS, sh_dim(DIST_SDC_P))) * np.exp(-lv / SDC_DAMP)
+    calls, steps = [0], []
+
+    def rhs(u):
+        calls[0] += 1
+        return -sh.shc2grid_grad(sh.grid2shc(u))[2]
+
+    (u, t_end, _), out["sdc_s"] = _timed(torch, comm, lambda: SDC(
+        SDC_ORDER, comm=comm, device=dev).adaptive_solve(
+        SDC_DT0, DIST_SDC_T, sh.shc2grid(c0[r:r + 1]), rhs, SDC_TOL,
+        monitor=lambda t, dt, uu: steps.append(dt)))
+    out.update(sdc_steps=len(steps), sdc_f_calls=calls[0], sdc_t=t_end,
+               sdc_u=u.cpu().numpy())
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def phase_dist(torch, counters, smi, kept):
+    """11: the distributed layer (see the constants above).  kept:
+    phase 4's sampled targets, their float64 direct sums and its
+    potential."""
+    import numpy as np
+    from sctl_tpu_torch.comm import run_ranks, start_ranks
+    from sctl_tpu_torch.linalg import SDC, SphericalHarmonics, gmres, sh_dim
+    from sctl_tpu_torch.linalg.sph_harm import _packed_index
+    from sctl_tpu_torch.ops import Laplace3D_FxU, direct_eval_blocked
+    from sctl_tpu_torch.tree import PtTree
+    t_phase = time.perf_counter()
+    dev = torch.device(DIST_DEVICE)
+    out, fails = {}, []
+
+    # ---- 11a ----
+    t = time.perf_counter()
+    a = run_ranks(_rank_11a, 1, None, backend="nccl", device=dev,
+                  timeout=DIST_TIMEOUT)[0]
+    out["11a"] = dict(a, wall_s=time.perf_counter() - t)
+    log(f"dist 11a: one {a['backend']} rank against the self-communicator: "
+        f"verbs unequal {a['verbs_unequal']}, KIFMMDist equal "
+        f"{a['kifmm_equal']}, ring equal {a['ring_equal']}, launches "
+        f"{a['launches']}, {out['11a']['wall_s']:.1f} s with the rank's "
+        f"start")
+    if a["verbs_unequal"] or not (a["kifmm_equal"] and a["ring_equal"]):
+        fails.append("11a: the NCCL rank differs from the self-communicator")
+
+    # ---- 11b-11e on four gloo ranks ----
+    t = time.perf_counter()
+    group = start_ranks(_rank_dist, DIST_RANKS, None, backend="gloo",
+                        device=dev, timeout=DIST_TIMEOUT)
+    res = group.join()
+    wall = time.perf_counter() - t
+    r0 = res[0]
+    b = {"setup_s": [x["setup_s"] for x in res],
+         "eval_s": [x["eval_s"] for x in res],
+         "peak_gib": [x["peak_gib"] for x in res],
+         "stage_ms": [x["stage_ms"] for x in res],
+         "launches": [x["launches_b"] for x in res],
+         **{k: r0[k] for k in ("planes", "cap_s", "cap_t", "l_shard_min",
+                               "surface_route", "near_pairs",
+                               "near_sources")}}
+    b["eval_median_s"] = sorted(max(x["eval_s"][k] for x in res)
+                                for k in range(3))[1]
+    u = r0["u"]
+    idx, u_ref = kept["idx"], kept["u_ref"]
+    b["err"] = float(np.abs(u[idx, 0] - u_ref[:, 0]).max()
+                     / np.abs(u_ref).max())
+    b["err_vs_phase4"] = float(np.abs(u - kept["u"]).max()
+                               / np.abs(kept["u"]).max())
+    # over all 1e7 targets the largest differences are phase 4's own
+    # errors (its near field differences global float32 coordinates);
+    # the bar holds at the sampled targets, and KIFMMDist at the worst
+    # ones is held to the oracle below
+    b["err_vs_phase4_sampled"] = float(
+        np.abs(u[idx] - kept["u"][idx]).max() / np.abs(kept["u"][idx]).max())
+    b["kernels"] = r0["kernels"]
+    top = np.argsort(np.abs(u - kept["u"])[:, 0])[-5:]
+    rng = np.random.default_rng(0)
+    x64 = torch.as_tensor(rng.random((N_POINTS, 3)), device=dev)
+    f64 = torch.as_tensor(rng.normal(size=(N_POINTS, 1)), device=dev)
+    ref_top = direct_eval_blocked(Laplace3D_FxU, x64[top], x64, f64,
+                                  block_t=len(top), block_s=1 << 17)
+    ref_top = ref_top.cpu().numpy()[:, 0]
+    scale = np.abs(u_ref).max()
+    b["worst_targets"] = dict(
+        index=top.tolist(), dist_err=(np.abs(u[top, 0] - ref_top)
+                                      / scale).tolist(),
+        phase4_err=(np.abs(kept["u"][top, 0] - ref_top) / scale).tolist())
+    del x64, f64
+    out["11b"] = b
+    log(f"dist 11b: verbs wrong {[x['verbs_wrong'] for x in res]}, CUDA "
+        f"against CPU tensors unequal "
+        f"{[x['verbs_cuda_vs_cpu'] for x in res]}")
+    log(f"dist 11b: KIFMMDist(Laplace3D_FxU, p={P}, depth={DEPTH}, float32) "
+        f"on {N_POINTS} points over {DIST_RANKS} gloo ranks on one card: "
+        f"{b['planes']} planes a rank, cap_s {b['cap_s']}, cap_t "
+        f"{b['cap_t']}, sharded levels >= {b['l_shard_min']}, surface route "
+        f"{b['surface_route']}; setup s {['%.2f' % s for s in b['setup_s']]};"
+        f" eval s by rank {[['%.4f' % s for s in x] for x in b['eval_s']]}, "
+        f"the four ranks' median {b['eval_median_s']:.4f} s (phase 4's one "
+        f"process: 0.1077 s; not a speed-up: four processes share one card)"
+        f"; peak GiB {['%.2f' % g for g in b['peak_gib']]}")
+    for q, st in enumerate(b["stage_ms"]):
+        log(f"dist 11b: rank {q} stage ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()) + "; sideband: none "
+            "(every box's real points by its count)")
+    for name, row in b["kernels"].items():
+        log(f"dist 11b: {name} on rank 0's slab ({row['case']}) against its "
+            f"plain version {row['max_rel_err']:.3e} (bar {KERNEL_BAR:g}); "
+            f"alone at the slab's shapes {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['pairs']} "
+            f"pairs; launches by rank "
+            f"{[x['launches_b'][name] for x in res]}")
+        if not row["max_rel_err"] < KERNEL_BAR:
+            fails.append(f"11b: {name} against its plain version")
+    log(f"dist 11b: at the 5 targets where it and phase 4 differ most, "
+        f"errors against the float64 p2p (of its max at the sampled "
+        f"targets): KIFMMDist {b['worst_targets']['dist_err']}, phase 4 "
+        f"{b['worst_targets']['phase4_err']}")
+    log(f"dist 11b: error at {N_SAMPLE} sampled targets against the float64 "
+        f"p2p {b['err']:.3e} (bar {FMM_BAR:g}); against phase 4's "
+        f"single-device result {b['err_vs_phase4']:.3e} over every target, "
+        f"{b['err_vs_phase4_sampled']:.3e} at the sampled ones (bar 1e-4); "
+        f"on '{smi}'")
+    if any(x["verbs_wrong"] or x["verbs_cuda_vs_cpu"] for x in res):
+        fails.append("11b: a verb gave the wrong blocks")
+    if not (b["err"] < FMM_BAR and b["err_vs_phase4_sampled"] < 1e-4
+            and max(b["worst_targets"]["dist_err"]) < FMM_BAR):
+        fails.append("11b: KIFMMDist's error")
+    for x in res:
+        if not all(x["launches_b"][k] > 0 for k in
+                   ("surface_pair", "l2t_surface", "p2p_ulist")):
+            fails.append(f"11b: a kernel did not launch: {x['launches_b']}")
+
+    # 11c: against the float64 p2p on the card, one process
+    # the float64 p2p reads the float32 run's inputs (as phase 6a's)
+    rng = np.random.default_rng(RING_SEED)
+    c64 = lambda a: torch.as_tensor(np.float32(a), device=dev).double()
+    X, F = c64(rng.random((RING_N, 3))), c64(rng.normal(size=(RING_N, 1)))
+    ref, ref_s = _host_s(torch, lambda: direct_eval_blocked(
+        Laplace3D_FxU, X, X, F, block_t=RING_N, block_s=RING_N))
+    ur = np.concatenate([x["ring_u"] for x in res])
+    c = dict(err=_rel(ur, ref), ring_s=[x["ring_s"] for x in res],
+             oracle_s=ref_s, p2p_case_err=r0["ring_p2p_err"],
+             launches=[x["launches_c"]["p2p"] for x in res])
+    out["11c"] = c
+    log(f"dist 11c: eval_direct_ring of {RING_N} Laplace points, float32, "
+        f"over {DIST_RANKS} ranks ({RING_N ** 2:.1e} pairs through p2p): "
+        f"{['%.4f' % s for s in c['ring_s']]} s; against the float64 p2p "
+        f"in one process {c['err']:.3e} (bar {DIRECT_BAR:g}); p2p on rank "
+        f"0's shard against its plain version {c['p2p_case_err']:.3e}; p2p "
+        f"launches by rank {c['launches']}; on '{smi}'")
+    if not (c["err"] < DIRECT_BAR and c["p2p_case_err"] < KERNEL_BAR
+            and all(n > 0 for n in c["launches"])):
+        fails.append("11c: the ring direct sum")
+    del X, F, ref
+
+    # 11d: against the host PtTree of the same cloud
+    x10 = sphere_cloud(TREE10_N, np.random.default_rng(10))
+    host, host_s = _host_s(torch, lambda: PtTree(3).update_refinement(
+        x10, TREE10_MAX_PTS, balance21=True))
+    lk, ll = r0["tree"]
+    same = bool(np.array_equal(lk.astype(np.uint64), host.leaf_keys)
+                and np.array_equal(ll, host.leaf_levels))
+    d = dict(tree_s=[x["tree_s"] for x in res], host_tree_s=host_s,
+             leaves=int(r0["tree_leaves"]), host_leaves=host.n_leaves(),
+             points=[int(x["tree_points"]) for x in res], same=same,
+             adaptive_setup_s=[x["adaptive_setup_s"] for x in res],
+             sharded_s=[x["sharded_s"] for x in res],
+             single_s=r0["single_s"], sharded_err=r0["sharded_err"],
+             ulist_block_err=r0["ulist_block_err"],
+             launches=[x["launches_d"]["p2p_ulist"] for x in res])
+    out["11d"] = d
+    log(f"dist 11d: DistPtTree of {TREE10_N} points (80% on a sphere) over "
+        f"{DIST_RANKS} ranks, max_pts {TREE10_MAX_PTS}, balance21: "
+        f"{['%.3f' % s for s in d['tree_s']]} s, {d['leaves']} leaves, "
+        f"points a rank {d['points']}; identical to the host PtTree's "
+        f"({d['host_leaves']} leaves, {host_s:.3f} s): {same}")
+    log(f"dist 11d: AdaptiveFMM(p={SHARDED_P}, float64).eval_sharded on "
+        f"{SHARDED_N} points: setup s "
+        f"{['%.2f' % s for s in d['adaptive_setup_s']]}, sharded eval s {['%.4f' % s for s in d['sharded_s']]}, one "
+        f"process {d['single_s']:.4f} s; against the single-device eval "
+        f"{d['sharded_err']:.3e} of the maximum (bar {SHARDED_BAR:g}); the "
+        f"float64 p2p_ulist on rank 0's block against its plain version "
+        f"{d['ulist_block_err']:.3e} (bar {ORACLE_BAR:g}); launches by rank "
+        f"{d['launches']}")
+    if not (same and d["sharded_err"] < SHARDED_BAR
+            and d["ulist_block_err"] < ORACLE_BAR
+            and all(n > 0 for n in d["launches"])):
+        fails.append("11d: the tree or the sharded adaptive FMM")
+    del x10, host
+
+    # 11e: against one process
+    rng = np.random.default_rng(3)
+    N = DIST_GMRES_N
+    A = torch.as_tensor(rng.random((N, N)) / N + np.eye(N), device=dev)
+    bv = torch.as_tensor(rng.random(N), device=dev)
+    (x1, it1), g_s = _host_s(torch, lambda: gmres(lambda v: A @ v, bv,
+                                                   tol=DIST_GMRES_TOL))
+    res1 = float(torch.linalg.vector_norm(A @ x1 - bv)
+                 / torch.linalg.vector_norm(bv))
+    del A
+    sh = SphericalHarmonics(DIST_SDC_P, device=dev)
+    lv = _packed_index(DIST_SDC_P)[0]
+    c0 = np.random.default_rng(16).normal(
+        size=(DIST_RANKS, sh_dim(DIST_SDC_P))) * np.exp(-lv / SDC_DAMP)
+    calls, steps = [0], []
+
+    def rhs(uu):
+        calls[0] += 1
+        return -sh.shc2grid_grad(sh.grid2shc(uu))[2]
+
+    (us, _, _), sdc_s = _host_s(torch, lambda: SDC(
+        SDC_ORDER, device=dev).adaptive_solve(
+        SDC_DT0, DIST_SDC_T, sh.shc2grid(c0), rhs, SDC_TOL,
+        monitor=lambda t, dt, uu: steps.append(dt)))
+    us = us.cpu().numpy()
+    e = dict(gmres_iters=[int(x["gmres_iters"]) for x in res],
+             gmres_iters_one=it1, gmres_resid=r0["gmres_resid"],
+             gmres_resid_one=res1, gmres_s=[x["gmres_s"] for x in res],
+             gmres_one_s=g_s, sdc_steps=[x["sdc_steps"] for x in res],
+             sdc_steps_one=len(steps),
+             sdc_f_calls=[x["sdc_f_calls"] for x in res],
+             sdc_f_calls_one=calls[0], sdc_s=[x["sdc_s"] for x in res],
+             sdc_one_s=sdc_s, sdc_diff=max(_rel(res[q]["sdc_u"],
+                                                 us[q:q + 1])
+                                            for q in range(DIST_RANKS)))
+    out["11e"] = e
+    log(f"dist 11e: GMRES on the row-sharded N={N} system: iterations "
+        f"{e['gmres_iters']} (one process {it1}), residual "
+        f"{e['gmres_resid']:.6e} (one process {res1:.6e}), s "
+        f"{['%.3f' % s for s in e['gmres_s']]} (one {g_s:.3f}); SDC("
+        f"{SDC_ORDER}) over the ranks, one field each at p={DIST_SDC_P}, to "
+        f"T={DIST_SDC_T}: steps {e['sdc_steps']}, F calls "
+        f"{e['sdc_f_calls']} (one process {len(steps)}, {calls[0]}), s "
+        f"{['%.2f' % s for s in e['sdc_s']]} (one {sdc_s:.2f}), fields "
+        f"within {e['sdc_diff']:.3e}")
+    if not (set(e["gmres_iters"]) == {it1}
+            and abs(e["gmres_resid"] - res1) < DIST_RESID_BAR
+            and set(e["sdc_steps"]) == {len(steps)}
+            and set(e["sdc_f_calls"]) == {calls[0]}):
+        fails.append("11e: GMRES or SDC over the ranks")
+
+    launches = {k: sum(x[f"launches_{s}"].get(k, 0) for x in res
+                       for s in "bcd") + a["launches"].get(k, 0)
+                for k in _dist_counters()}
+    out.update(wall_s=wall, rank_s=[x["rank_s"] for x in res],
+               phase_s=time.perf_counter() - t_phase, launches=launches)
+    log(f"dist: the four ranks' group {wall:.1f} s (ranks "
+        f"{['%.1f' % s for s in out['rank_s']]} s after their start); "
+        f"phase 11 {out['phase_s']:.1f} s; launches {launches}; on '{smi}'")
+    if fails:
+        raise SystemExit(f"chip_smoke: the distributed phase failed: "
+                         f"{fails}")
+    return launches, out
+
+
+
 def main():
     import tempfile
     import torch
@@ -3462,7 +4119,8 @@ def main():
                     plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                     **{x: v[x] for x in ("max_rel_err_f64",) if x in v})
             for k, v in frows.items() if k.startswith(name + "[")}
-    main_rows = phase_main(torch, kf, xs, f, rng, counters)
+    kept = {}
+    main_rows = phase_main(torch, kf, xs, f, rng, counters, kept)
     del kf, xs, f
     torch.cuda.empty_cache()
     l4b = phase_particle(torch, all_counters)
@@ -3530,8 +4188,19 @@ def main():
     torch.cuda.empty_cache()
     l10, library = phase_library(torch, all_counters, smi, ld)
     tmp.cleanup()
+    torch.cuda.empty_cache()
+    l11, dist = phase_dist(torch, all_counters, smi, kept)
+    del kept
     for name in ROUTES:
-        main_rows[name]["launches"] += l10.get(name, 0)
+        main_rows[name]["launches"] += l10.get(name, 0) + l11.get(name, 0)
+    for name, row in dist["11b"]["kernels"].items():
+        main_rows[name]["phase11"] = dict(
+            row, launches=sum(x[name] for x in dist["11b"]["launches"]))
+    main_rows["p2p"]["phase11"] = dict(
+        ring_launches=dist["11c"]["launches"],
+        case_max_rel_err=dist["11c"]["p2p_case_err"])
+    main_rows["p2p_ulist"]["phase11"]["sharded_launches"] = \
+        dist["11d"]["launches"]
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -3558,7 +4227,7 @@ def main():
                             "bound_tensor_core_ms",
                             "main_path_bound_cuda_core_ms",
                             "main_path_bound_tensor_core_ms", "levels",
-                            "phase7", "rounding_spread",
+                            "phase7", "phase11", "rounding_spread",
                             "rounding_spread_6c", "f64")}))
     # each float64 build: its case at the run's widths, its main path
     # (8d, the halo stencil 8e), its launches over phase 8
@@ -3583,6 +4252,10 @@ def main():
                                    "legacy": legacy}))
     log("spectral: " + json.dumps(spectral))
     log("library: " + json.dumps(library))
+    log("dist: " + json.dumps({k: v for k, v in dist.items()
+                               if k != "11b"}
+                              | {"11b": {k: v for k, v in dist["11b"].items()
+                                         if k != "kernels"}}))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     log(f"chip_smoke: done in {time.perf_counter() - T0:.1f} s")

@@ -23,9 +23,13 @@ report, wired through the FMMs, the BIE operator, GMRES and `p2p`),
 files), `utils` (`par`, `debug`, `checkpoint`), `native` (the C++ host
 runtime: Morton keys and radix sorts), the full `tree.morton` and
 `tree.tree` API in 2-D and 3-D, and `fmm.KIFMMLd` (the longdouble host
-KIFMM).  Every TPU kernel on these paths is hand-written CUDA under
-`csrc/`; the spectral layer's products and FFTs are torch's batched
-GEMMs and `torch.fft`.
+KIFMM); and the distributed FMM layer: `comm` (`Comm` over a
+`torch.distributed` group, the data-movement verbs, `run_ranks`),
+`tree.DistPtTree`, `fmm.KIFMMDist` (slab-sharded), the ring direct sum
+`ParticleFMM.eval_direct_ring`, `AdaptiveFMM.eval_sharded`, and GMRES
+and SDC over a comm.  Every TPU kernel on these paths is hand-written
+CUDA under `csrc/`; the spectral layer's products and FFTs are torch's
+batched GEMMs and `torch.fft`.
 """
 
 from . import config, mathutils, quadmath

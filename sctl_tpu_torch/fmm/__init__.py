@@ -1,7 +1,9 @@
 from .kifmm import KIFMM, KIFMMOperators, operators_from_numpy
+from .kifmm_dist import KIFMMDist
 from .kifmm_ld import KIFMMLd
 from .adaptive import AdaptiveFMM
 from .fmm import DIRECT_CUTOFF, ParticleFMM
 
-__all__ = ["KIFMM", "KIFMMOperators", "KIFMMLd", "operators_from_numpy",
-           "AdaptiveFMM", "DIRECT_CUTOFF", "ParticleFMM"]
+__all__ = ["KIFMM", "KIFMMOperators", "KIFMMDist", "KIFMMLd",
+           "operators_from_numpy", "AdaptiveFMM", "DIRECT_CUTOFF",
+           "ParticleFMM"]

@@ -1,5 +1,4 @@
-"""Adaptive-tree KIFMM on one device (counterpart of
-sctl_tpu/fmm/adaptive.py:272-959, without the sharded branch).
+"""Adaptive-tree KIFMM (counterpart of sctl_tpu/fmm/adaptive.py:272-959).
 
 For strongly nonuniform point sets such as the BIE far field (points on
 a 2-D surface in 3-D), where a uniform tree's dense grids blow up:
@@ -20,6 +19,17 @@ a 2-D surface in 3-D), where a uniform tree's dense grids blow up:
             `p2p_ulist` (ops/p2p.py), one launch over each target leaf's
             source leaves' real points, compacted at setup (the JAX
             package gathers padded slabs per call, :823-868).
+
+Work-sharded evaluation (`eval_sharded(f, comm)`, adaptive.py:596-920):
+every rank holds the whole setup (the points replicated); the leaf and
+node stages (S2M, X, L2T, W, U: the O(N) work) are split over the ranks
+by index blocks, and the upward equivalents, the X contributions and
+the outputs are all-reduced; the node translations (M2M, V, L2L) run
+the same on every rank.  Each rank's block of the U list goes through
+`p2p_ulist` (the JAX package's sharded path takes its plain U list,
+adaptive.py:823).  `setup(skeleton=)` adopts the leaves of a tree built
+elsewhere, e.g. a `DistPtTree` skeleton over the same normalization
+(adaptive.py:303-336).
 
 Every stage but U is plain torch, as the JAX package runs it outside
 Pallas.  Tensors on the card go through the CUDA kernel, tensors on the
@@ -45,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import profile
+from ..comm.comm import Comm
 from ..config import resolve_device
 from ..ops.kernels import KernelSpec
 from ..ops.p2p import p2p_ulist
@@ -257,7 +268,12 @@ class AdaptiveFMM:
                               self.device, _FAR_DTYPE)
 
     # -- setup ------------------------------------------------------------
-    def setup(self, x_src, x_trg, n_src=None):
+    def setup(self, x_src, x_trg, n_src=None, skeleton=None):
+        """skeleton: optional (leaf_keys, leaf_levels) of a 2:1-balanced
+        linear octree over this setup's normalization (the shared
+        bounding box of sources and targets), e.g. from
+        DistPtTree.build_fn(bbox=(offset, scale)): adopted as it is, with
+        no refinement (sctl_tpu/fmm/adaptive.py:303-336)."""
         if (self.ker_s2t.needs_normal or self.ker_s2m.needs_normal) \
                 and n_src is None:
             raise ValueError(
@@ -265,7 +281,12 @@ class AdaptiveFMM:
         x_src = np.asarray(x_src, np.float64)
         x_trg = np.asarray(x_trg, np.float64)
         _, off, sc = _normalize(np.concatenate([x_src, x_trg]))
-        self.tree = tree = PtTree.refined(x_src, off, sc, self.max_pts)
+        self.offset, self.scale = off, sc
+        if skeleton is not None:
+            tree = PtTree.with_leaves(x_src, off, sc, *skeleton)
+        else:
+            tree = PtTree.refined(x_src, off, sc, self.max_pts)
+        self.tree = tree
         self.nodes = nodes = _NodeLevels(tree.leaf_keys, tree.leaf_levels)
         V, U_pairs, (w_lvl, w_leaf, w_node), leaf_row_of_node = \
             _build_lists(nodes, tree.leaf_keys, tree.leaf_levels)
@@ -438,11 +459,29 @@ class AdaptiveFMM:
         return self.unsort(u_pad)
 
     # -- evaluation -----------------------------------------------------------
-    def _eval_impl(self, fp: torch.Tensor, marks: Optional[list] = None):
+    def eval_sharded(self, f, comm: Comm) -> np.ndarray:
+        """Work-sharded evaluation over the ranks of `comm` (every rank
+        set up alike, f the same on every rank): the leaf and node
+        stages split by index blocks, the partial moments and outputs
+        all-reduced (sctl_tpu/fmm/adaptive.py:893-920).  f (n_src, k0)
+        numpy -> (n_trg, k1) numpy, input orders, on every rank."""
+        f = torch.as_tensor(np.asarray(f), device=self.device,
+                            dtype=self.dtype)
+        fp = self.pad_density(f)
+        with profile.Profile.scoped("AdaptiveFMM::EvalSharded", sync=True):
+            u_pad = self._eval_impl(fp, shard=comm)
+        return self.unsort(u_pad).cpu().numpy()
+
+    def _eval_impl(self, fp: torch.Tensor, marks: Optional[list] = None,
+                   shard: Optional[Comm] = None):
         """Leaf-slot densities -> (n_leaf, cap_t, k1) potentials.  With
         `marks` a list, a CUDA event is recorded after each stage: S2M,
-        M2M, V, X, L2L, L2T, W, U."""
+        M2M, V, X, L2L, L2T, W, U.  With `shard` a comm, this rank runs
+        its index block of each leaf and node stage (`_block`) and the
+        partial results are all-reduced over the comm."""
         nodes, L, ns = self.nodes, self.L, self.ns
+        blk = (lambda m: slice(0, m)) if shard is None else (
+            lambda m: _block(m, shard.size(), shard.rank()))
         dt, dev = _FAR_DTYPE, self.device
         fp_io, fp = fp, fp.to(dt)
         xs_loc, ns_pad, xt_loc = self.xs_loc, self.ns_pad, self.xt_loc
@@ -452,13 +491,17 @@ class AdaptiveFMM:
         # ---- S2M ----
         q_up = [torch.zeros((max(nodes.n[lv], 1), ns), dtype=dt,
                             device=dev) for lv in range(L + 1)]
-        for lv, rows in self.leaf_rows.items():
+        for lv, rows_all in self.leaf_rows.items():
+            b = blk(len(rows_all))
+            rows = rows_all[b]
             xck = self.surf_out[lv].expand(len(rows), -1, -1)
             u = _apply_groups(ks2m, xck, xs_loc[rows], fp[rows],
                               ns_pad[rows] if ks2m.needs_normal else None)
             u = u.reshape(len(rows), -1) * ks2m.scale_factor
-            q_up[lv].index_add_(0, self.leaf_nodes[lv],
+            q_up[lv].index_add_(0, self.leaf_nodes[lv][b],
                                 u @ self.uc2e[lv].T)
+        if shard is not None:
+            q_up = _allreduce_list(shard, q_up)
         _mark(marks, "S2M")
 
         # ---- M2M ----
@@ -486,14 +529,21 @@ class AdaptiveFMM:
             q_dn[lv] += (acc[:-1] @ self.cb_t) * self.m2l_s[lv]
         _mark(marks, "V")
 
-        # ---- X list: leaf points -> node down-check -> dc2e ----
-        for lv, (xn, xl, off) in self.xpairs.items():
+        # ---- X list: leaf points -> node down-check -> dc2e (sharded:
+        # summed apart, so that the all-reduce leaves V's part single) ----
+        q_x = q_dn if shard is None else [torch.zeros_like(q) for q in q_dn]
+        for lv, (xn_all, xl_all, off_all) in self.xpairs.items():
+            b = blk(len(xn_all))
+            xn, xl, off = xn_all[b], xl_all[b], off_all[b]
             xck = self.surf_in[lv].expand(len(xn), -1, -1)
             u = _apply_groups(ks2m, xck, xs_loc[xl] + off[:, None, :],
                               fp[xl],
                               ns_pad[xl] if ks2m.needs_normal else None)
             u = u.reshape(len(xn), -1) * ks2m.scale_factor
-            q_dn[lv].index_add_(0, xn, u @ self.dc2e[lv].T)
+            q_x[lv].index_add_(0, xn, u @ self.dc2e[lv].T)
+        if shard is not None and self.xpairs:
+            for q, qx in zip(q_dn, _allreduce_list(shard, q_x)):
+                q += qx
         _mark(marks, "X")
 
         # ---- L2L ----
@@ -507,15 +557,20 @@ class AdaptiveFMM:
         k0l = kl.kdim0
         u_out = torch.zeros((n_leaf, self.cap_t, kl.kdim1), dtype=dt,
                             device=dev)
-        for lv, rows in self.leaf_rows.items():
+        for lv, rows_all in self.leaf_rows.items():
+            b = blk(len(rows_all))
+            rows = rows_all[b]
             xeq = self.surf_out[lv].expand(len(rows), -1, -1)
-            qd = q_dn[lv][self.leaf_nodes[lv]].reshape(len(rows), -1, k0l)
+            qd = q_dn[lv][self.leaf_nodes[lv][b]].reshape(len(rows), -1,
+                                                          k0l)
             u_out.index_add_(0, rows, _apply_groups(kl, xt_loc[rows], xeq,
                                                     qd) * kl.scale_factor)
         _mark(marks, "L2T")
 
         # ---- W list: finer-node multipoles -> leaf targets ----
-        for lv, (tl, sn, off) in self.wpairs.items():
+        for lv, (tl_all, sn_all, off_all) in self.wpairs.items():
+            b = blk(len(tl_all))
+            tl, sn, off = tl_all[b], sn_all[b], off_all[b]
             xe = self.surf_in[lv][None] + off[:, None, :]
             q = q_up[lv][sn].reshape(len(sn), -1, k0l)
             u_out.index_add_(0, tl, _apply_groups(kl, xt_loc[tl], xe, q)
@@ -523,22 +578,42 @@ class AdaptiveFMM:
         _mark(marks, "W")
 
         # ---- U list: the CUDA kernel over the compacted lists ----
-        u_near = self._ulist(fp_io)
-        u_out += u_near.to(dt) * self.ker_s2t.scale_factor
+        b = blk(n_leaf)
+        u_near = self._ulist(fp_io, b)
+        u_out[b] += u_near.to(dt) * self.ker_s2t.scale_factor
+        if shard is not None:
+            u_out = shard.allreduce(u_out)
         _mark(marks, "U")
         return u_out.to(self.dtype)
 
-    def ulist_args(self, fp: torch.Tensor):
+    def ulist_args(self, fp: torch.Tensor, leaves: slice = slice(None)):
         """Leaf-slot densities -> the U-list kernel's arguments for the
-        whole list (one launch): the kernel reads the densities through
-        `ul_fidx`, so nothing is gathered here."""
-        return (self.ul_xt, self.ul_xs, self.ul_ns,
-                fp.reshape(-1, fp.shape[-1]), self.ul_rng, self.ul_tcnt,
-                self.ul_fidx)
+        target leaves `leaves` (default the whole list; one launch): the
+        kernel reads the densities through `ul_fidx`, so nothing is
+        gathered here."""
+        return (self.ul_xt[leaves], self.ul_xs, self.ul_ns,
+                fp.reshape(-1, fp.shape[-1]), self.ul_rng[leaves],
+                self.ul_tcnt[leaves], self.ul_fidx)
 
-    def _ulist(self, fp: torch.Tensor) -> torch.Tensor:
-        """U-list near field -> (n_leaf, cap_t, k1), unscaled."""
-        return p2p_ulist(self.ker_s2t, *self.ulist_args(fp))
+    def _ulist(self, fp: torch.Tensor,
+               leaves: slice = slice(None)) -> torch.Tensor:
+        """U-list near field of the target leaves `leaves` -> (leaves,
+        cap_t, k1), unscaled."""
+        return p2p_ulist(self.ker_s2t, *self.ulist_args(fp, leaves))
+
+
+def _block(m: int, size: int, rank: int) -> slice:
+    """Rank `rank`'s block of range(m): ceil(m / size) indices a rank
+    (sctl_tpu/fmm/adaptive.py:607-612)."""
+    cap = max(1, -(-m // size))
+    return slice(min(m, rank * cap), min(m, (rank + 1) * cap))
+
+
+def _allreduce_list(comm: Comm, tensors: list) -> list:
+    """The tensors of a list summed over the ranks, in one all-reduce."""
+    flat = comm.allreduce(torch.cat([t.reshape(-1) for t in tensors]))
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [v.reshape(t.shape) for v, t in zip(parts, tensors)]
 
 
 def _v_budget(device: torch.device) -> int:

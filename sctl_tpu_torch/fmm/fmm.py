@@ -9,6 +9,12 @@ cutoff, and always for Stokes3D-FxT and Stokes3D-FxUP), through
 `eval_tensor`, the same routes on device tensors (the solver-loop
 path); `eval_direct` is the direct-sum oracle.  On the card the direct
 sum runs the hand-written `p2p` kernel (ops/direct.py).
+
+`eval_direct_ring` is the distributed direct sum (sctl_tpu/fmm/fmm.py:
+186-230; reference: the EvalDirect ring, fmm-wrapper.txx:537-558): over
+the facade's comm, each rank holds a shard of the targets and an
+equal-sized shard of the sources, and p rounds pass the source shards
+around the ring, each round's local sum through `p2p`.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..comm.comm import Comm
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
+from ..ops.p2p import p2p
 from ..ops.kernels import (KernelSpec, Laplace3D_FxdU, Laplace3D_FxU,
                            Stokes3D_FSxU)
 from ..ops.uker import check_supported
@@ -53,7 +61,8 @@ class _Group:
 
 
 class ParticleFMM:
-    """fmm = ParticleFMM(accuracy=6, device="cuda", dtype=torch.float32)
+    """fmm = ParticleFMM(comm=None, accuracy=6, device="cuda",
+                      dtype=torch.float32)
     fmm.set_kernel_s2t("src", "trg", Stokes3D_DxU)
     fmm.set_src_coord("src", X, normal=N); fmm.set_src_density("src", F)
     fmm.set_trg_coord("trg", Xt)
@@ -72,8 +81,9 @@ class ParticleFMM:
     kernel.
     """
 
-    def __init__(self, accuracy: int = 6, device=None,
+    def __init__(self, comm: Comm = None, accuracy: int = 6, device=None,
                  dtype: torch.dtype = torch.float32):
+        self.comm = comm or Comm.self_()
         self.accuracy = accuracy
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -188,3 +198,32 @@ class ParticleFMM:
                 dtype=self.dtype, ker_l2t=_TREE_L2T[ker.name]).setup(
                 g.coord, xt, n_src=g.normal)
         return self._kifmm_cache[key]
+
+    # -- distributed direct sum: the ring (fmm-wrapper.txx:537-558) ----------
+    def eval_direct_ring(self, kernel: KernelSpec, xt, xs, f, ns=None):
+        """Ring direct sum over the facade's comm: xt (T, 3), xs (S, 3), f
+        (S, k0) and ns (S, 3) (the double layers only) are this rank's
+        shards, tensors on one device, S the same on every rank; returns
+        this rank's (T, k1) potentials of all ranks' sources, scale
+        included.  p rounds: each adds the local sum of the sources in
+        hand through `p2p`, then passes them on with `send_recv_shift`
+        (coordinates, normals and densities in one buffer).  On the
+        self-communicator: `direct_eval_blocked`."""
+        comm = self.comm
+        f = f.reshape(xs.shape[0], kernel.kdim0)
+        nrm = kernel.needs_normal
+        if comm.is_self:
+            return direct_eval_blocked(kernel, xt, xs, f,
+                                       ns=ns if nrm else None)
+        buf = torch.cat([xs, ns if nrm else xs[:, :0], f], dim=1)
+        u = None
+        for rnd in range(comm.size()):
+            xs_c, f_c = buf[:, :3], buf[:, buf.shape[1] - kernel.kdim0:]
+            ns_c = buf[:, 3:6] if nrm else None
+            us = p2p(kernel, xt, xs_c.contiguous(),
+                     None if ns_c is None else ns_c.contiguous(),
+                     f_c.contiguous())
+            u = us if u is None else u + us
+            if rnd < comm.size() - 1:
+                buf = comm.send_recv_shift(buf, 1)
+        return u * kernel.scale_factor

@@ -1015,35 +1015,13 @@ class KIFMM:
     def _m2l_parity_sweep(self, q_grid, h, r, r2):
         """Per child parity c, the 189 valid offsets as contiguous
         shifts of the parity-major grid (sctl_tpu/fmm/kifmm.py:
-        1245-1286) at ranks (r, r2).  The shifted windows of a chunk of
-        offsets sit side by side, so each chunk is one matrix product
-        (h^3, g r2) @ (g r2, r) -> (n^3, nd) in raster order."""
-        ops = self._ops
+        1245-1286) at ranks (r, r2), the grid zero-padded
+        (`parity_sweep`) -> (n^3, nd) in raster order."""
         nd = q_grid.shape[-1]
         qr = q_grid.reshape(h, 2, h, 2, h, 2, nd).permute(
-            1, 3, 5, 0, 2, 4, 6) @ ops.m2l_v[:, :r2]     # (2,2,2,h,h,h,r2)
-        qrp = F.pad(qr, (0, 0, 2, 2, 2, 2, 2, 2))
-        budget = (PARITY_CHUNK_ELEMS_CUDA if q_grid.device.type == "cuda"
-                  else CHUNK_PAIRS)
-        g = max(1, min(189, budget // (h ** 3 * r2)))
-        outs = []
-        for c in range(8):
-            acc = None
-            vidx = ops.par_vidx[c]
-            for o0 in range(0, 189, g):
-                win = torch.stack([
-                    qrp[ep[0], ep[1], ep[2], 2 + eb[0]:2 + eb[0] + h,
-                        2 + eb[1]:2 + eb[1] + h, 2 + eb[2]:2 + eb[2] + h]
-                    for eb, ep in zip(ops.par_ebs[c][o0:o0 + g],
-                                      ops.par_eps[c][o0:o0 + g])], dim=3)
-                mats = ops.m2l_a[vidx[o0:o0 + g], :r, :r2]  # (g, r, r2)
-                y = win.reshape(h ** 3, -1) @ mats.transpose(1, 2) \
-                    .reshape(-1, r)
-                acc = y if acc is None else acc + y
-            outs.append(acc @ ops.m2l_u[:, :r].T)
-        out = torch.stack(outs).reshape(2, 2, 2, h, h, h, nd)
-        return out.permute(3, 0, 4, 1, 5, 2, 6).reshape(
-            2 * h, 2 * h, 2 * h, nd)
+            1, 3, 5, 0, 2, 4, 6) @ self._ops.m2l_v[:, :r2]  # (2,2,2,h,h,h,r2)
+        return parity_sweep(self._ops, F.pad(qr, (0, 0, 2, 2, 2, 2, 2, 2)),
+                            h, h, r, r2)
 
     def _downward_tail(self, q_dn, fp, fp_ovf, marks=None):
         """L2T, near-field P2P and the overflow sidebands."""
@@ -1139,3 +1117,36 @@ class KIFMM:
                               self.ns_halo, self.cnt_s_rast,
                               self.cnt_t_rast)
         return u_r.reshape(n ** 3, self.cap_t, -1)[self.gidx[self.depth]]
+
+
+def parity_sweep(ops: KIFMMOperators, qrp, hx: int, h: int, r: int,
+                 r2: int):
+    """The per-parity M2L sweep on a padded parity-major grid: qrp (2, 2,
+    2, hx + 4, h + 4, h + 4, r2), the V-projected equivalents of a grid
+    of 2 hx x 2 h x 2 h boxes with two parent planes of margin on every
+    side (zeros outside the domain, a neighbour's planes on a slab's x
+    faces) -> (2 hx, 2 h, 2 h, nd) downward equivalents in raster order.
+    Per child parity c, the 189 valid offsets are contiguous shifts; the
+    shifted windows of a chunk of offsets sit side by side, so each chunk
+    is one matrix product (hx h^2, g r2) @ (g r2, r)."""
+    nd = ops.m2l_u.shape[0]
+    budget = (PARITY_CHUNK_ELEMS_CUDA if qrp.device.type == "cuda"
+              else CHUNK_PAIRS)
+    g = max(1, min(189, budget // (hx * h * h * r2)))
+    outs = []
+    for c in range(8):
+        acc = None
+        vidx = ops.par_vidx[c]
+        for o0 in range(0, 189, g):
+            win = torch.stack([
+                qrp[ep[0], ep[1], ep[2], 2 + eb[0]:2 + eb[0] + hx,
+                    2 + eb[1]:2 + eb[1] + h, 2 + eb[2]:2 + eb[2] + h]
+                for eb, ep in zip(ops.par_ebs[c][o0:o0 + g],
+                                  ops.par_eps[c][o0:o0 + g])], dim=3)
+            mats = ops.m2l_a[vidx[o0:o0 + g], :r, :r2]      # (g, r, r2)
+            y = win.reshape(hx * h * h, -1) @ mats.transpose(1, 2) \
+                .reshape(-1, r)
+            acc = y if acc is None else acc + y
+        outs.append(acc @ ops.m2l_u[:, :r].T)
+    out = torch.stack(outs).reshape(2, 2, 2, hx, h, h, nd)
+    return out.permute(3, 0, 4, 1, 5, 2, 6).reshape(2 * hx, 2 * h, 2 * h, nd)

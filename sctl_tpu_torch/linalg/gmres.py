@@ -19,6 +19,16 @@
   gmres_ld       numpy longdouble throughout (:629-691).
   GMRES          the class facade (:694-709).
 
+Distributed (`comm=`, a `comm.Comm` over the ranks): the vectors are
+row-sharded, each rank holding its rows of b, x and the basis, and the
+operator maps a rank's rows to its rows.  Every inner product and norm
+is all-reduced over the comm (the reference's comm.Allreduce in
+inner_prod, lin-solve.txx:68-78; what GSPMD inserts for the JAX package,
+tests/test_gmres.py:78-95); the Hessenberg matrix and the rotations are
+then the same on every rank.  Without a comm, or with the
+self-communicator, nothing changes: the same operations in the same
+order.
+
 `gmres_device` and `fgmres_device` are Python loops: the residual
 estimate, one scalar, is read back after each Arnoldi step for the
 convergence test (the JAX package keeps even that on the device inside
@@ -58,36 +68,61 @@ class KrylovPrecond:
             self._n = n
         self._pairs.insert(0, (Qt, U))
 
-    def apply(self, y):
-        """y <- y (I + U Qt) for each stored pair, newest first."""
+    def apply(self, y, comm=None):
+        """y <- y (I + U Qt) for each stored pair, newest first; with a
+        comm the rows are sharded and y @ Qt is all-reduced."""
         for Qt, U in self._pairs:
-            y = y + (y @ Qt) @ U
+            y = y + _reduced(comm, y @ Qt) @ U
         return y
 
 
-def _arnoldi_cgs2(Q, w):
+def _distributed(comm) -> bool:
+    return comm is not None and not comm.is_self
+
+
+def _reduced(comm, t):
+    """t summed over the ranks of a distributed comm."""
+    return comm.allreduce(t) if _distributed(comm) else t
+
+
+def _global_len(b, comm=None) -> int:
+    """The length of a vector whose rows the ranks of comm share."""
+    if not _distributed(comm):
+        return int(b.shape[0])
+    return int(comm.allreduce(torch.tensor(b.shape[0], device=b.device)))
+
+
+def _norm(v, comm=None):
+    """The 2-norm of a vector whose rows the ranks of comm share."""
+    if not _distributed(comm):
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(comm.allreduce(torch.linalg.vector_norm(v) ** 2))
+
+
+def _arnoldi_cgs2(Q, w, comm=None):
     """Orthogonalize w against the rows of Q (zero rows are inert) ->
     (h, q_new, h_norm): the projections, the normalized remainder and
     its norm."""
-    h1 = Q @ w
+    h1 = _reduced(comm, Q @ w)
     w = w - h1 @ Q
-    h2 = Q @ w                     # re-orthogonalization pass
+    h2 = _reduced(comm, Q @ w)     # re-orthogonalization pass
     w = w - h2 @ Q
-    nrm = torch.linalg.vector_norm(w)
+    nrm = _norm(w, comm)
     return h1 + h2, w / torch.where(nrm > 0, nrm, 1.0), nrm
 
 
-def _host_start(A, b, x0, tol, use_abs_tol, max_iter):
-    """The host loops' start: (max_iter, x, r, r_norm, abs_tol)."""
-    N = b.shape[0]
-    max_iter = min(int(N), 500 if max_iter is None else int(max_iter))
+def _host_start(A, b, x0, tol, use_abs_tol, max_iter, comm=None):
+    """The host loops' start: (max_iter, x, r, r_norm, abs_tol); N is
+    the global length."""
+    N = _global_len(b, comm)
+    max_iter = min(N, 500 if max_iter is None else int(max_iter))
     if x0 is not None:
         r, x = b - A(x0), x0
     else:
         r, x = b, torch.zeros_like(b)
-    b_norm = float(torch.linalg.vector_norm(b))
+    b_norm = float(_norm(b, comm))
     abs_tol = tol * (1.0 if use_abs_tol else b_norm)
-    return max_iter, x, r, float(torch.linalg.vector_norm(r)), abs_tol
+    return max_iter, x, r, float(_norm(r, comm)), abs_tol
 
 
 def _host_step(hk_dev, k, H, cs, sn, beta) -> float:
@@ -109,7 +144,8 @@ def _host_step(hk_dev, k, H, cs, sn, beta) -> float:
     return abs(beta[k + 1])
 
 
-def _host_arnoldi(A_of, Q, max_iter, abs_tol, r_norm, verbose):
+def _host_arnoldi(A_of, Q, max_iter, abs_tol, r_norm, verbose,
+                  comm=None):
     """The host loops' Arnoldi iteration over the preallocated basis Q:
     w = A_of(q_k, k) -> (k, H, cs, sn, beta), numpy float64."""
     H = np.zeros((max_iter + 1, max_iter))
@@ -121,7 +157,7 @@ def _host_arnoldi(A_of, Q, max_iter, abs_tol, r_norm, verbose):
     while k < max_iter and error > abs_tol:
         if verbose:
             print(f"{k:3d} KSP Residual norm {error:.12e}")
-        h, q_new, h_norm = _arnoldi_cgs2(Q, A_of(Q[k], k))
+        h, q_new, h_norm = _arnoldi_cgs2(Q, A_of(Q[k], k), comm)
         Q[k + 1] = q_new
         error = _host_step(torch.cat([h[:k + 1], h_norm[None]]), k, H, cs,
                            sn, beta)
@@ -142,26 +178,30 @@ def _back_substitute(H, beta, k) -> np.ndarray:
 def gmres(A: Callable, b: torch.Tensor, tol: float = 1e-10,
           max_iter: Optional[int] = None, use_abs_tol: bool = False,
           x0=None, krylov_precond: Optional[KrylovPrecond] = None,
-          verbose: bool = False) -> Tuple[torch.Tensor, int]:
+          verbose: bool = False, comm=None) -> Tuple[torch.Tensor, int]:
     """Solve A x = b by full GMRES (no restart), stopping on |residual|
     <= tol |b| (or tol with use_abs_tol).  Returns (x, iterations).
 
     The basis is preallocated at (max_iter + 1, N) on b's device, so
     max_iter defaults to min(N, 500), not N.  With `krylov_precond` of
     b's size the solve is right-preconditioned by it, and this solve's
-    subspace is appended to it."""
+    subspace is appended to it.  comm: the ranks that share the rows
+    (see the module docstring); N is then the global length."""
     N, dtype = b.shape[0], b.dtype
     precond = krylov_precond
-    apply_P = (precond.apply if precond is not None and precond.size() == N
+    apply_P = ((lambda v: precond.apply(v, comm))
+               if precond is not None and precond.size() == N
                else (lambda v: v))
     max_iter, x, r, r_norm, abs_tol = _host_start(A, b, x0, tol,
-                                                  use_abs_tol, max_iter)
+                                                  use_abs_tol, max_iter,
+                                                  comm)
     if r_norm <= abs_tol or r_norm == 0.0:
         return x, 0
     Q = b.new_zeros((max_iter + 1, N))
     Q[0] = r / r_norm
     k, H, cs, sn, beta = _host_arnoldi(lambda q, _: A(apply_P(q)), Q,
-                                       max_iter, abs_tol, r_norm, verbose)
+                                       max_iter, abs_tol, r_norm, verbose,
+                                       comm)
     y = _back_substitute(H, beta, k)
     x = x + apply_P(torch.as_tensor(y, dtype=dtype, device=b.device)
                     @ Q[:k])
@@ -219,7 +259,7 @@ def _pair_device(Q, H, cs, sn, k: int, m: int):
     return Qt, U
 
 
-def _apply_pair_precond(y, precond):
+def _apply_pair_precond(y, precond, comm=None):
     """Right-preconditioner application for a (U, Qt) pair or a stack of
     pairs (sctl_tpu/linalg/gmres.py:254-276).
 
@@ -231,15 +271,16 @@ def _apply_pair_precond(y, precond):
         return y
     U_p, Qt_p = precond
     if U_p.dim() == 2:
-        return y + (y @ Qt_p) @ U_p
+        return y + _reduced(comm, y @ Qt_p) @ U_p
     for s in range(U_p.shape[0] - 1, -1, -1):
-        y = y + (y @ Qt_p[s]) @ U_p[s]
+        y = y + _reduced(comm, y @ Qt_p[s]) @ U_p[s]
     return y
 
 
 def gmres_device(A: Callable, b: torch.Tensor, tol: float = 1e-10,
                  max_iter: int = 100, x0=None, use_abs_tol: bool = False,
-                 restarts: int = 1, precond=None, recycle: bool = False):
+                 restarts: int = 1, precond=None, recycle: bool = False,
+                 comm=None):
     """Solve A x = b.  `max_iter` is the cycle length m; up to
     `restarts` cycles run, each restarting from the current iterate,
     until the residual estimate passes tol (relative to |b| unless
@@ -256,20 +297,21 @@ def gmres_device(A: Callable, b: torch.Tensor, tol: float = 1e-10,
     (restarts, m, N) and (restarts, N, m) buffers, and cycle c runs
     right-preconditioned by cycles 0..c-1 (newest first) on top of
     `precond`; returns (x, iters, residual_norm, (U_stack, Qt_stack)),
-    whose stack a later solve takes as `precond`."""
-    N = b.shape[0]
-    m = int(min(max_iter, N))
-    b_norm = float(torch.linalg.vector_norm(b))
+    whose stack a later solve takes as `precond`.
+
+    comm: the ranks that share the rows (see the module docstring)."""
+    m = int(min(max_iter, _global_len(b, comm)))
+    b_norm = float(_norm(b, comm))
     abs_tol = tol * (1.0 if use_abs_tol else b_norm)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     if recycle:
         return _gmres_device_recycle(A, b, x, abs_tol, m, restarts,
-                                     precond)
-    apply_P = lambda y: _apply_pair_precond(y, precond)
+                                     precond, comm)
+    apply_P = lambda y: _apply_pair_precond(y, precond, comm)
     total = 0
     err = torch.tensor(float("inf"), dtype=b.dtype, device=b.device)
     for _ in range(max(1, restarts)):
-        x, k, err, _ = _cycle(A, b, x, abs_tol, m, apply_P)
+        x, k, err, _ = _cycle(A, b, x, abs_tol, m, apply_P, comm)
         total += k
         if not float(err) > abs_tol:
             break
@@ -277,7 +319,7 @@ def gmres_device(A: Callable, b: torch.Tensor, tol: float = 1e-10,
 
 
 def _gmres_device_recycle(A, b, x, abs_tol: float, m: int, restarts: int,
-                          precond):
+                          precond, comm=None):
     """Restarted GMRES with per-cycle Krylov recycling
     (sctl_tpu/linalg/gmres.py:348-385): cycle c runs right-preconditioned
     by the pairs of cycles 0..c-1, newest first, then by `precond`."""
@@ -286,13 +328,14 @@ def _gmres_device_recycle(A, b, x, abs_tol: float, m: int, restarts: int,
     U_buf = b.new_zeros((R, m, N))
 
     def apply_P(y):
-        return _apply_pair_precond(_apply_pair_precond(y, (U_buf, Qt_buf)),
-                                   precond)
+        return _apply_pair_precond(
+            _apply_pair_precond(y, (U_buf, Qt_buf), comm), precond, comm)
 
     total = 0
     err = torch.tensor(float("inf"), dtype=b.dtype, device=b.device)
     for c in range(R):
-        x, k, err, (Q, H, cs, sn) = _cycle(A, b, x, abs_tol, m, apply_P)
+        x, k, err, (Q, H, cs, sn) = _cycle(A, b, x, abs_tol, m, apply_P,
+                                           comm)
         Qt_buf[c], U_buf[c] = _pair_device(Q, H, cs, sn, k, m)
         total += k
         if not float(err) > abs_tol:
@@ -318,7 +361,7 @@ def _givens_column(hk, k: int, cs, sn):
     return hk, ck, sk
 
 
-def _device_arnoldi(step, Q, r_norm, abs_tol: float, m: int):
+def _device_arnoldi(step, Q, r_norm, abs_tol: float, m: int, comm=None):
     """The device loops' Arnoldi iteration: w = step(k) for k = 0, 1, ...
     until m steps or the residual estimate passes abs_tol (one scalar
     read back a step) -> (k, err, H, cs, sn, beta), device tensors in
@@ -331,7 +374,7 @@ def _device_arnoldi(step, Q, r_norm, abs_tol: float, m: int):
     beta[0] = r_norm
     err, k = r_norm, 0
     while k < m and float(err) > abs_tol:        # the one readback
-        h, q_new, h_norm = _arnoldi_cgs2(Q, step(k))
+        h, q_new, h_norm = _arnoldi_cgs2(Q, step(k), comm)
         Q[k + 1] = q_new
         hk = h.clone()                           # rows > k of Q are 0
         hk[k + 1:] = 0
@@ -347,22 +390,22 @@ def _device_arnoldi(step, Q, r_norm, abs_tol: float, m: int):
     return k, err, H, cs, sn, beta
 
 
-def _first_basis(r, m: int):
+def _first_basis(r, m: int, comm=None):
     """(Q (m+1, N) with q_0 = r / |r| (zero if r is), |r|)."""
-    r_norm = torch.linalg.vector_norm(r)
+    r_norm = _norm(r, comm)
     Q = r.new_zeros((m + 1, r.shape[0]))
     if float(r_norm) > 0:
         Q[0] = r / r_norm
     return Q, r_norm
 
 
-def _cycle(A, b, x, abs_tol: float, m: int, apply_P):
+def _cycle(A, b, x, abs_tol: float, m: int, apply_P, comm=None):
     """One right-preconditioned GMRES(m) cycle from x
     (sctl_tpu/linalg/gmres.py:388-463): the basis of A(P(q_k)), then
     x + P(y @ Q) -> (x', k, err, (Q, H, cs, sn))."""
-    Q, r_norm = _first_basis(b - A(x), m)
+    Q, r_norm = _first_basis(b - A(x), m, comm)
     k, err, H, cs, sn, beta = _device_arnoldi(
-        lambda k: A(apply_P(Q[k])), Q, r_norm, abs_tol, m)
+        lambda k: A(apply_P(Q[k])), Q, r_norm, abs_tol, m, comm)
     if k:
         y = torch.linalg.solve_triangular(H[:k, :k], beta[:k, None],
                                           upper=True)[:, 0]
@@ -491,10 +534,13 @@ def gmres_ld(A: Callable, b, tol: float = 1e-16,
 
 class GMRES:
     """Class facade of the reference API (GMRES<Real>(comm, verbose);
-    operator()), forwarding to `gmres`; each call is timed in the
-    profile block "GMRES" (with sync), as at sctl_tpu/linalg/gmres.py:705."""
+    operator()), forwarding to `gmres` with its comm (the ranks that
+    share the rows; None or the self-communicator: one process); each
+    call is timed in the profile block "GMRES" (with sync), as at
+    sctl_tpu/linalg/gmres.py:705."""
 
     def __init__(self, comm=None, verbose: bool = False):
+        self.comm = comm
         self.verbose = verbose
 
     def __call__(self, A, b, tol: float = 1e-10,
@@ -505,4 +551,4 @@ class GMRES:
             return gmres(A, b, tol=tol, max_iter=max_iter,
                          use_abs_tol=use_abs_tol, x0=x0,
                          krylov_precond=krylov_precond,
-                         verbose=self.verbose)
+                         verbose=self.verbose, comm=self.comm)

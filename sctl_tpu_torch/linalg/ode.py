@@ -17,9 +17,11 @@ ode-solver.txx:74-306).
     dt <- min(T-t, max(0.5 dt, 0.9 dt ((tol_ dt)/err)^(1/order)))
     (Quaife-Biros step control, ode-solver.txx:264-299)
 
-The state u is a tensor on the solver's device.  Single device: the
-reference's comm (its Allreduce(MAX) of the norms) has no counterpart
-here yet.
+The state u is a tensor on the solver's device.  With a comm (a
+`comm.Comm` over ranks that each hold a part of the state), the
+max-norms of the step control are all-reduced with MAX (the reference's
+comm.Allreduce(MAX), ode-solver.txx:144-153), so every rank takes the
+same steps; None or the self-communicator: one process.
 """
 
 from __future__ import annotations
@@ -58,21 +60,22 @@ def _cc_quad_dd(order: int):
     return nds_dd, qm.DD(wts)
 
 
-def _max_abs(x) -> float:
-    return float(x.abs().max())
+def _max_abs(x, comm=None) -> float:
+    m = x.abs().max()
+    if comm is not None and not comm.is_self:
+        m = comm.allreduce(m, "max")
+    return float(m)
 
 
 class SDC:
-    """SDC(order, device=, dtype=): one-step integrator and adaptive
-    time stepping (reference API: SDC<Real>(Order, comm))."""
+    """SDC(order, comm=, device=, dtype=): one-step integrator and
+    adaptive time stepping (reference API: SDC<Real>(Order, comm))."""
 
     def __init__(self, order: int, comm=None, dtype=torch.float64,
                  device=None):
         if order < 2:
             raise ValueError(f"SDC: order {order} < 2")
-        if comm is not None:
-            raise NotImplementedError("SDC: comm= (the sharded norms) is "
-                                      "not ported; single device only")
+        self.comm = comm
         self.order = o = order
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -123,7 +126,7 @@ class SDC:
         while it < n_picard:
             Mv_new = torch.tensordot(self.M_time_step, torch.stack(Mf0),
                                      dims=([1], [0]))
-            change = _max_abs(Mv - Mv_new) * dt
+            change = _max_abs(Mv - Mv_new, self.comm) * dt
             Mv = Mv_new
             picard_err.append(change)
             if change < tol_picard or (
@@ -147,8 +150,8 @@ class SDC:
         err_picard = picard_err[min(it, n_picard - 1)] \
             if picard_err else 0.0
         err_mat = torch.tensordot(self.M_error, Mv, dims=([1], [0]))
-        err_interp = _max_abs(err_mat) * dt
-        norm_dudt = _max_abs(Mv) * dt
+        err_interp = _max_abs(err_mat, self.comm) * dt
+        norm_dudt = _max_abs(Mv, self.comm) * dt
         return u, StepInfo(err_interp, err_picard, norm_dudt, it)
 
     def adaptive_solve(self, dt: float, T: float, u0, F: Callable,

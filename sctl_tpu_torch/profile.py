@@ -250,9 +250,16 @@ class Profile:
 
 
 def _process_gather(v: float):
-    """A host scalar from every process: one process drives the card,
-    so [v] (the hook of the distributed slice)."""
-    return [v]
+    """A host scalar from every rank of the initialized default process
+    group (a collective: every rank prints the report), else [v]; the
+    report's t_min, t_max, t_avg, f_total and f/s_total reduce over it
+    (profile.txx:293-304)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return [v]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, float(v))
+    return out
 
 
 def _sync_devices():

@@ -121,16 +121,14 @@ class PtTree:
     Arrays: offset, scale (x01 = (x - offset) / scale), perm and
     X_sorted (the Morton sort), leaf_keys and leaf_levels (sorted
     leaves, first-descendant keys), leaf_dsp and leaf_cnt (each leaf's
-    range of sorted points).  `comm` is for the distributed tree: any
-    value but None raises until the port has one.
+    range of sorted points).  `comm` is kept for the caller, as the JAX
+    package keeps it (sctl_tpu/tree/tree.py:128-130): the distribution
+    itself is `tree.dist_tree.DistPtTree`'s, through the comm's verbs.
     """
 
     def __init__(self, dim: int = 3, comm=None):
-        if comm is not None:
-            raise NotImplementedError(
-                "PtTree(comm=...): the distributed tree is not ported yet")
         self.dim = dim
-        self.comm = comm
+        self.comm = comm       # distribution handled by the caller's verbs
         self.leaf_keys: Optional[np.ndarray] = None
         self.leaf_levels: Optional[np.ndarray] = None
         self._data: Dict[str, np.ndarray] = {}
@@ -162,16 +160,42 @@ class PtTree:
         return cls(dim)._build(X, offset, scale, max_pts, balance21,
                                periodic, max_level)
 
+    @classmethod
+    def with_leaves(cls, X, offset, scale, leaf_keys, leaf_levels,
+                    dim: int = 3) -> "PtTree":
+        """A tree over X normalized by (offset, scale) whose leaves are
+        given, e.g. a `DistPtTree` skeleton built over the same
+        normalization: the leaves are adopted as they are (sorted by
+        key), with no refinement (sctl_tpu/fmm/adaptive.py:332-336)."""
+        t = cls(dim)
+        skeys = t._sort(X, offset, scale)
+        lk = np.asarray(leaf_keys, np.uint64)
+        order = np.argsort(lk, kind="stable")
+        t.leaf_keys = lk[order]
+        t.leaf_levels = np.asarray(leaf_levels, np.int32)[order]
+        t._finish(skeys)
+        return t
+
+    def _sort(self, X, offset, scale) -> np.ndarray:
+        """Morton-sort X: perm, X_sorted; returns the sorted keys."""
+        X = np.asarray(X, np.float64)
+        self.offset, self.scale = offset, scale
+        keys = mt.morton_encode((X - offset) / scale, dim=self.dim)
+        self.perm = np.argsort(keys, kind="stable")
+        self.X_sorted = X[self.perm]
+        return keys[self.perm]
+
+    def _finish(self, skeys: np.ndarray) -> None:
+        """Each leaf's range of sorted points."""
+        self.leaf_dsp = np.searchsorted(skeys, self.leaf_keys)
+        self.leaf_cnt = np.diff(np.append(self.leaf_dsp, len(skeys)))
+        self._skeys = skeys
+
     def _build(self, X, offset, scale, max_pts, balance21, periodic,
                max_level):
         dim = self.dim
         D = mt.max_depth(dim)
-        X = np.asarray(X, np.float64)
-        self.offset, self.scale = offset, scale
-        keys = mt.morton_encode((X - offset) / scale, dim=dim)
-        self.perm = np.argsort(keys, kind="stable")
-        skeys = keys[self.perm]
-        self.X_sorted = X[self.perm]
+        skeys = self._sort(X, offset, scale)
 
         def count(box_keys, level):
             """points inside each box (given by its first-descendant key)"""
@@ -201,9 +225,7 @@ class PtTree:
         self.leaf_keys, self.leaf_levels = lk[order], ll[order]
         if balance21:
             self._balance21(periodic)
-        self.leaf_dsp = np.searchsorted(skeys, self.leaf_keys)
-        self.leaf_cnt = np.diff(np.append(self.leaf_dsp, len(skeys)))
-        self._skeys = skeys
+        self._finish(skeys)
         return self
 
     def _leaf_ends(self):

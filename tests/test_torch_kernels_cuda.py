@@ -1536,3 +1536,117 @@ def test_spectral_sdc_card_vs_cpu(cuda_device):
     assert _spec_rel(u, uh) < 1e-12
     assert n == nh and abs(t - th) < 1e-12 and abs(t - 0.2) < 1e-12
     assert _spec_rel(ua, uah) < 1e-12
+
+
+# ---- the distributed layer's kernel shapes (chip_smoke.py phase 11) ----
+
+class _RankView:
+    """A rank of a `size`-rank communicator, for setting up one rank's
+    slab of a KIFMMDist without its group (the setup reads only the
+    size and the rank)."""
+
+    is_self = False
+
+    def __init__(self, size, rank):
+        self._size, self._rank = size, rank
+
+    def size(self):
+        return self._size
+
+    def rank(self):
+        return self._rank
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("rank", [0, 2])
+def test_kifmm_dist_slab_kernels_match_plain(cuda_device, rank, dtype):
+    """surface_pair, l2t_surface and p2p_ulist on one rank's slab of a
+    4-rank depth-5 KIFMMDist (about 38 points a leaf, the slab's near
+    lists over its halo planes), against their plain versions: f32 at
+    1e-5 of the maximum, f64 at 1e-12."""
+    from sctl_tpu_torch.fmm.kifmm_dist import KIFMMDist
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import Laplace3D_FxU as K
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    from sctl_tpu_torch.ops.sl import (l2t_surface, l2t_surface_plain,
+                                       surface_pair, surface_pair_plain)
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    bar = 1e-5 if dtype == "f32" else 1e-12
+    x = np.random.default_rng(41).random((32 ** 3 * 38, 3))
+    fmm = KIFMMDist(K, _RankView(4, rank), p=6, depth=5, device=cuda_device,
+                    dtype=dt).setup(x, x)
+    assert fmm.surface_route and fmm.planes == 8
+    ns, B, cs, ct = fmm._ops.n_surf, fmm.B, fmm.cap_s, fmm.cap_t
+    g = torch.Generator(device=cuda_device).manual_seed(rank)
+    fp = torch.randn((B * cs, 1), generator=g, device=cuda_device, dtype=dt)
+    fp_h = torch.randn(((fmm.planes + 2) * 32 * 32 * cs, 1), generator=g,
+                       device=cuda_device, dtype=dt)
+    q_cm = torch.randn((1, ns, B), generator=g, device=cuda_device, dtype=dt)
+    s_args = (K, fmm.surf_out_L, fmm.xs_sl, fp.T.contiguous(), cs, None,
+              fmm.cnt_s_box)
+    assert rel_max_err(surface_pair(*s_args), surface_pair_plain(*s_args)) \
+        < bar
+    l_args = (K, fmm.surf_out_L, fmm.xt_sl, q_cm, ct, fmm.cnt_t_box)
+    assert rel_max_err(l2t_surface(*l_args), l2t_surface_plain(*l_args)) \
+        < bar
+    u_args = (K, fmm.near_xt, fmm.near_xs, None, fp_h, fmm.near_rng,
+              fmm.cnt_t_box, fmm.near_fidx)
+    assert rel_max_err(p2p_ulist(*u_args), p2p_ulist_plain(*u_args)) < bar
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_sharded_ulist_block_matches_plain(cuda_device, dtype):
+    """p2p_ulist on each rank's block of an adaptive FMM's U list (the
+    target leaves eval_sharded gives a rank of 4), against its plain
+    version."""
+    from sctl_tpu_torch.fmm import AdaptiveFMM
+    from sctl_tpu_torch.fmm.adaptive import _block
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import Laplace3D_FxU as K
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    import chip_smoke
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    x = chip_smoke.sphere_cloud(20_000, np.random.default_rng(42))
+    af = AdaptiveFMM(K, p=4, max_pts=128, device=cuda_device,
+                     dtype=dt).setup(x, x)
+    f = torch.as_tensor(np.random.default_rng(43).normal(size=(len(x), 1)),
+                        device=cuda_device)
+    fp = af.pad_density(f)
+    for r in range(4):
+        b = _block(af.n_leaf, 4, r)
+        args = af.ulist_args(fp, b)
+        assert rel_max_err(p2p_ulist(K, *args), p2p_ulist_plain(K, *args)) \
+            < (1e-5 if dtype == "f32" else 1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_p2p_ring_shard_matches_plain(cuda_device, dtype):
+    """p2p at a ring round's shape of phase 11c (a rank's 25,000
+    sources; 1,024 of its targets) against its plain version."""
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import Laplace3D_FxU as K
+    from sctl_tpu_torch.ops.p2p import p2p, p2p_plain
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    rng = np.random.default_rng(44)
+    xs = torch.as_tensor(rng.random((25_000, 3)), device=cuda_device,
+                         dtype=dt)
+    f = torch.as_tensor(rng.normal(size=(25_000, 1)), device=cuda_device,
+                        dtype=dt)
+    args = (K, xs[:1024], xs, None, f)
+    assert rel_max_err(p2p(*args), p2p_plain(*args)) < (
+        1e-5 if dtype == "f32" else 1e-12)
+
+
+def test_comm_nccl_one_rank_matches_self(cuda_device):
+    """A Comm over a one-rank NCCL group returns what the
+    self-communicator returns: every verb, KIFMMDist and the ring
+    direct sum, bit for bit (chip_smoke.py phase 11a's rank)."""
+    import chip_smoke
+    from sctl_tpu_torch.comm import run_ranks
+    out = run_ranks(chip_smoke._rank_11a, 1, None, backend="nccl",
+                    device=cuda_device, timeout=300)[0]
+    assert out["backend"] == "nccl" and out["size"] == 1
+    assert out["verbs_unequal"] == []
+    assert out["kifmm_equal"] and out["ring_equal"]
+    assert all(out["launches"][k] > 0 for k in
+               ("surface_pair", "l2t_surface", "p2p_ulist", "p2p"))

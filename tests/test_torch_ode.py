@@ -90,5 +90,12 @@ def test_state_on_the_solver_device():
     s = SDC(3, device="cpu")
     u, info = s(0.1, np.array([1.0, 0.0]), harmonic)
     assert u.device.type == "cpu" and s.M_time_step.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        SDC(3, comm=object(), device="cpu")
+    # a comm is taken, as the JAX package's SDC takes one; the
+    # self-communicator leaves the step as it was, bit for bit
+    from sctl_tpu.comm import Comm as J_Comm
+    from sctl_tpu_torch.comm import Comm
+    J_SDC(3, comm=J_Comm())
+    s1 = SDC(3, comm=Comm.self_(), device="cpu")
+    u1, info1 = s1(0.1, np.array([1.0, 0.0]), harmonic)
+    assert s1.comm.is_self and info1 == info
+    assert torch.equal(u1, u)

@@ -96,14 +96,20 @@ def test_pttree_matches_jax(dim, balance21, periodic):
 
 def test_pttree_depth_cap_and_comm():
     """max_level caps the refinement as in the JAX package; a comm is
-    refused until the distributed tree is ported."""
+    kept, as the JAX package's PtTree keeps it, and the tree it builds
+    is the one without."""
     x = _points(3, 3000, 4)
     t = PtTree().update_refinement(x, 4, max_level=3)
     tj = J_PtTree().update_refinement(x, 4, max_level=3)
     eq(t.leaf_keys, tj.leaf_keys)
     eq(t.leaf_levels, tj.leaf_levels)
-    with pytest.raises(NotImplementedError):
-        PtTree(3, comm=object())
+    from sctl_tpu.comm import Comm as J_Comm
+    from sctl_tpu_torch.comm import Comm
+    comm = Comm.self_()
+    tc = PtTree(3, comm=comm).update_refinement(x, 4, max_level=3)
+    assert tc.comm is comm and J_PtTree(3, comm=J_Comm()).comm is not None
+    eq(tc.leaf_keys, tj.leaf_keys)
+    eq(tc.leaf_levels, tj.leaf_levels)
 
 
 def test_adaptive_tree_through_refined_matches_jax():
