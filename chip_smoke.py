@@ -327,7 +327,7 @@ Phases, each printed on flushed lines with the seconds since start:
 
 11. dist    the distributed layer (sctl_tpu_torch.comm, tree.dist_tree,
             fmm.kifmm_dist, the ring, eval_sharded, GMRES and SDC over a
-            comm), its ranks started by comm.run_ranks (spawned
+            comm, fmm.adaptive_dist and bie.dist), its ranks started by comm.run_ranks (spawned
             processes, FileStore rendezvous), every figure with the
             card's name and power limit.
     11a.    one rank over NCCL: every Comm method and verb on CUDA
@@ -369,6 +369,29 @@ Phases, each printed on flushed lines with the seconds since start:
             and its residual to 1e-12; SDC(8, comm) with one of four
             9c-style fields a rank at p = 64 to T = 0.25: the steps and F
             calls of one process holding all four.
+    11f.    the distributed BIE on the same four ranks: phase 5's
+            bench_bie (Stokes3D_DxU, float32, tol 1e-6, 103,680
+            unknowns) with BoundaryIntegralOp(comm=) on phase 5's far
+            tables: the distributed near search's pairs equal to phase
+            5's, each rank's setup seconds by stage and its ghost leaves
+            (Crg > 0 on some rank), the sharded apply (one warm, the
+            median of three with fresh densities, each ending in a
+            synchronize and a barrier), each rank's stage ms by CUDA
+            events and peak device memory beside phase 5's, the gathered
+            apply against phase 5's apply of the same density (bar 30
+            tol, 3e-5, tests/test_near_device.py:111-126, with phase 5's
+            two-apply spread beside it), gmres_device(comm=) on phase 5's
+            system: iterations within 2 of phase 5's, the residual
+            recomputed through the single-process op (1.5e-6), the
+            interior error (1e-4), the distance from phase 5's solution;
+            p2p_ulist on rank 0's U-list block (own targets, ghost
+            sources) against its plain version (1e-5) and alone against
+            its bound; the direct regime (sphere_patches(1),
+            Laplace3D_DxU, each rank's far sums through p2p) against its
+            single-process apply (1e-5), and p2p on rank 0's far sum
+            (the replicated targets, its far nodes and densities)
+            against its plain version (1e-5) and alone against its
+            bound.  p2p_ulist and p2p must launch on every rank.
             A failed or hung rank fails the phase.
 
 Each phase sets the launch counts to 0 before it drives its path and
@@ -378,7 +401,8 @@ figures, a line with the BIE legs' figures (phase 5's baseline and
 recycling, phases 5f, 5L, 5L-f64, 5h, 5q), a line with phase 9's
 figures, a line with phase 10's, a line with phase 11's, one JSON line
 with each kernel's numbers (launches summed over phases 4 to 7 and 9 to
-11, the ranks' included; phase 11's figures under "phase11";
+11, the ranks' included; phase 11's figures under "phase11", 11f's
+under "phase11f";
 p2p_ulist's float64 build under "f64"; the four float64 builds as
 "name[f64]" entries with their launches over phase 8), the card's name
 and power limit, the run's wall time, and the closing JSON line.  Any
@@ -1011,7 +1035,11 @@ def _median_time(torch, fn, reps):
     return sorted(times)[len(times) // 2], times
 
 
-def phase_bie(torch, counters):
+def phase_bie(torch, counters, kept=None):
+    """5 (see the module docstring).  kept: where 11f's inputs go (the
+    near pairs, a density and its apply, the right-hand side, the
+    solution, the iterations, the two applies' spread, the peak device
+    memory)."""
     import numpy as np
     from sctl_tpu_torch.kernel_cases import (rel_max_err, ulist_cases,
                                              ulist_main_work)
@@ -1145,9 +1173,10 @@ def phase_bie(torch, counters):
                                               legs["recycled"]["resid"]])
 
     interior = interior_error(torch, lst, op, x, src, qs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"bie check: interior rel err vs exact Stokeslet {interior:.3e} "
         f"(bar {BIE_INTERIOR_BAR:g}); peak device memory of the phase "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{peak:.2f} GiB")
 
     # the U-list kernel alone on one apply's inputs, its launches in one
     # apply, and its output against its plain version in float64
@@ -1210,6 +1239,13 @@ def phase_bie(torch, counters):
                               bound_ms=v["bound_ms"])
                       for k, v in crows.items()})
     row["f64"] = dict(crows["Stokes3D-DxU[f64]"])
+    if kept is not None:
+        kept["bie"] = dict(
+            pairs=np.asarray(op.near_pairs, np.int64).reshape(-1, 2),
+            sig0=sig0.cpu().numpy(),
+            u0=op.compute_potential_tensor(sig0).cpu().numpy(),
+            b=b.cpu().numpy(), x=x.cpu().numpy(), iters=int(iters),
+            spread=spread, peak_gib=peak)
     return launches, row, baseline, af._ops
 
 
@@ -3477,20 +3513,29 @@ def phase_bie_laplace_f64(torch, counters, smi, ops5L):
 
 
 # phase 11, the distributed layer: 11a one rank over NCCL against the
-# self-communicator, bit for bit; 11b-11e four gloo ranks sharing the
+# self-communicator, bit for bit; 11b-11f four gloo ranks sharing the
 # card (NCCL refuses two ranks of one communicator on one device: "Duplicate
 # GPU detected"), each on its own tensors on the card: 11b every verb,
 # then KIFMMDist at bench_fmm's width (phase 4's field and depth), 11c
 # the ring direct sum, 11d DistPtTree and AdaptiveFMM.eval_sharded, 11e
-# the row-sharded GMRES and SDC(comm=)
+# the row-sharded GMRES and SDC(comm=), 11f the distributed BIE at
+# bench_bie's width
 DIST_RANKS, DIST_DEVICE = 4, "cuda"
-DIST_TIMEOUT = 300
+DIST_TIMEOUT = 480
 NCCL_N = 20_000
 RING_N, RING_SEED = 100_000, 13
 SHARDED_N, SHARDED_P, SHARDED_MAX_PTS, SHARDED_BAR = 200_000, 4, 128, 1e-10
 DIST_GMRES_N, DIST_GMRES_TOL, DIST_RESID_BAR = 4096, 1e-10, 1e-12
 DIST_SDC_P, DIST_SDC_T = 64, 0.25
 DIST_CHECK_BOXES = 1024
+# 11f: phase 5's problem over the four ranks: the sharded apply against
+# phase 5's within 30 tol (the bar of the reference's own comparison of
+# two engines, tests/test_near_device.py:111-126, as 5h), the iterations
+# within 2 of phase 5's; the direct-regime case (sphere_patches(1),
+# Laplace3D-DxU) against its single-process apply
+BIE_TORUS = dict(nu=48, nv=20, q=6, R=2.0, r=0.5)      # phase 5's surface
+BIE_DIST_APPLY_BAR, BIE_DIST_ITER_SLACK = 3e-5, 2
+BIE_DIST_DIRECT_TOL, BIE_DIST_DIRECT_BAR = 1e-6, 1e-5
 
 
 def sphere_cloud(n, rng):
@@ -3672,8 +3717,194 @@ def _slab_kernel_rows(torch, fmm, fp, fp_h):
     return rows
 
 
+def save_tables(ops, path):
+    """A KIFMMOperators' unit tables as .npy files under `path` (the
+    ranks of 11f map them, so that each does not build them cold)."""
+    import os
+    import numpy as np
+    for name in ops.TABLES:
+        np.save(os.path.join(path, name + ".npy"), getattr(ops, name))
+    np.save(os.path.join(path, "p_rcond.npy"), np.array([ops.p, ops.rcond]))
+
+
+def load_tables(path) -> dict:
+    import os
+    import numpy as np
+    from sctl_tpu_torch.fmm import KIFMMOperators
+    t = {name: np.load(os.path.join(path, name + ".npy"), mmap_mode="c")
+         for name in KIFMMOperators.TABLES}
+    p, rcond = np.load(os.path.join(path, "p_rcond.npy"))
+    t.update(p=int(p), rcond=float(rcond))
+    return t
+
+
+def _stage_events(torch, comm, fn):
+    """fn(marks) once, after a synchronize and a barrier -> {stage: ms}
+    from its CUDA events."""
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    comm.barrier()
+    start.record()
+    fn(marks)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = stages.get(name, 0.0) + prev.elapsed_time(ev)
+        prev = ev
+    return stages
+
+
+def _rank_11f(torch, comm, bie, counters):
+    """11f on each rank: phase 5's bench_bie over the ranks (see the
+    module docstring).  bie: phase 5's pairs, density and apply, right-
+    hand side, solution, iterations and the directory of its tables."""
+    import numpy as np
+    from sctl_tpu_torch.bie import (BoundaryIntegralOp, sphere_patches,
+                                    torus_patches)
+    from sctl_tpu_torch.fmm import operators_from_numpy
+    from sctl_tpu_torch.kernel_cases import (p2p_ulist_work, p2p_work,
+                                             rel_max_err)
+    from sctl_tpu_torch.linalg import gmres_device
+    from sctl_tpu_torch.ops import Laplace3D_DxU, Stokes3D_DxU, Stokes3D_FSxU
+    from sctl_tpu_torch.ops.p2p import (p2p, p2p_plain, p2p_ulist,
+                                        p2p_ulist_plain)
+    dev = torch.device(DIST_DEVICE)
+    r = comm.rank()
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t_phase = time.perf_counter()
+
+    # ---- setup: the distributed near search and the shared assembly,
+    # then the sharded apply's tables and AdaptiveFMMDist ----
+    def setup():
+        lst = torus_patches(**BIE_TORUS)
+        op = BoundaryIntegralOp(Stokes3D_DxU, comm=comm, device=dev,
+                                dtype=torch.float32)
+        op.set_accuracy(BIE_TOL)
+        op.add_elem_list(lst)
+        op.far_fmm_operators = operators_from_numpy(
+            load_tables(bie["tables"]), dev, torch.float64, Stokes3D_FSxU)
+        op.setup()
+        t = time.perf_counter()
+        sh = op.sharded_apply(comm)
+        torch.cuda.synchronize()
+        op.setup_times["sharded_apply"] = time.perf_counter() - t
+        return lst, op, sh
+
+    (lst, op, sh), out["setup_s"] = _timed(torch, comm, setup)
+    fm = sh._fmm
+    out.update(setup_stages=dict(op.setup_times), near_prof={
+        k: v for k, v in op._near_prof.items() if isinstance(v, float)},
+        pairs_equal=bool(np.array_equal(
+            np.asarray(op.near_pairs, np.int64).reshape(-1, 2), bie["pairs"])),
+        caps_grown=op._near_caps_grown, Crg=fm.Crg, Cb=fm.Cb,
+        n_leaf=fm.n_leaf, n_own=sh.n_own, n_near=sh.n_near,
+        ulist_pairs=fm.n_ulist_pairs, ulist_sources=int(fm.ul_xs.shape[1]),
+        setup_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # ---- the sharded apply: warm, three timed with fresh densities,
+    # the stages by CUDA events, the gathered apply against phase 5's ----
+    sig_loc = sh.pack(bie["sig0"])
+    _timed(torch, comm, lambda: sh.apply(sig_loc))
+    out["apply_s"] = [_timed(torch, comm, lambda k=k: sh.apply(
+        sig_loc * (1.0 + 1e-6 * (k + 1))))[1] for k in range(3)]
+    out["stage_ms"] = _stage_events(torch, comm,
+                                    lambda marks: sh.apply(sig_loc, marks))
+    u = sh.unpack(sh.apply(sig_loc))
+    out["apply_err"] = float(np.abs(u - bie["u0"]).max()
+                             / np.abs(bie["u0"]).max())
+
+    # ---- the row-sharded solve ----
+    b_loc = sh.pack(bie["b"])
+    A_sh = lambda s: sh.apply(s).reshape(-1) - 0.5 * s
+    (x_loc, it, _), out["solve_s"] = _timed(torch, comm, lambda: gmres_device(
+        A_sh, b_loc, tol=BIE_TOL, max_iter=BIE_MAX_ITER, comm=comm))
+    out["iters"] = int(it)
+    x = sh.unpack(x_loc).reshape(-1)
+
+    # ---- the direct regime: each rank's far nodes through p2p ----
+    op_d = BoundaryIntegralOp(Laplace3D_DxU, comm=comm, device=dev,
+                              dtype=torch.float32)
+    op_d.set_accuracy(BIE_DIST_DIRECT_TOL)
+    op_d.add_elem_list(sphere_patches(n_per_face=1, q=6))
+    sh_d = op_d.sharded_apply(comm)
+    sig_d = np.random.default_rng(17).normal(size=op_d.dim(0))
+    u_d = sh_d.unpack(sh_d.apply(sh_d.pack(sig_d)))
+    torch.cuda.synchronize()
+    out["launches"] = read(counters)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["direct_fmm"] = sh_d._fmm is not None
+
+    # ---- p2p_ulist on rank 0's block: own targets, ghost sources (the
+    # far route and the ghost exchange are collective) ----
+    ext = fm._ghost_exchange(sh.leaf_density(sig_loc))
+    if r == 0:
+        K = fm._afmm.ker_s2t
+        args = fm.ulist_args(ext)
+        out["ulist_err"] = rel_max_err(p2p_ulist(K, *args),
+                                       p2p_ulist_plain(K, *args))
+        out["ulist_ms"] = cuda_ms(torch, lambda: p2p_ulist(K, *args), 5)
+        out["ulist_plain_ms"] = cuda_ms(torch,
+                                        lambda: p2p_ulist_plain(K, *args), 1)
+        work = p2p_ulist_work(K, fm.n_ulist_pairs, int(fm.ul_tcnt.sum()),
+                              int(fm.ul_xs.shape[1]))
+        out["ulist_bound_ms"], out["ulist_bound_by"] = bound(work)
+        out["direct_err"] = _rel(u_d, op_d.compute_potential(sig_d))
+        # p2p at the direct regime's shapes: the replicated targets, rank
+        # 0's far nodes and normals, its far densities
+        K = op_d.kernel
+        pa = (sh_d.Xt_rep, sh_d.Xf_own, sh_d.Xnf_own, sh_d._far_density(
+            sh_d.pack(sig_d).reshape(-1, sh_d.k0)))
+        out["p2p_err"] = rel_max_err(p2p(K, *pa), p2p_plain(K, *pa))
+        out["p2p_ms"] = cuda_ms(torch, lambda: p2p(K, *pa), 5)
+        out["p2p_plain_ms"] = cuda_ms(torch, lambda: p2p_plain(K, *pa), 1)
+        out["p2p_shape"] = (pa[0].shape[0], pa[1].shape[0])
+        out["p2p_bound_ms"], out["p2p_bound_by"] = bound(p2p_work(
+            K, pa[3].dtype, *out["p2p_shape"]))
+        # the solution through the single-process op on this rank
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        bt = torch.as_tensor(bie["b"], device=dev)
+        out["resid"] = rel_resid(torch, lambda s: op.compute_potential_tensor(
+            s).reshape(-1) - 0.5 * s, xt, bt)
+        out["interior"] = interior_error(
+            torch, lst, op, xt, np.array([[6.0, 0.0, 0.0]]),
+            np.array([[1.0, -0.5, 0.8]]))
+        out["x_diff"] = float(np.linalg.norm(x - bie["x"])
+                              / np.linalg.norm(bie["x"]))
+    comm.barrier()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _rank_ulist_ghosts(comm, cfg):
+    """A rank's U-list block of a 4-rank AdaptiveFMMDist on the card
+    (its own target leaves, ghost sources among them) against the plain
+    version: (max rel error, ghost leaves).  cfg: "f32" or "f64"."""
+    import numpy as np
+    import torch
+    from sctl_tpu_torch.fmm import AdaptiveFMMDist
+    from sctl_tpu_torch.kernel_cases import rel_max_err
+    from sctl_tpu_torch.ops import Stokes3D_DxU as K
+    from sctl_tpu_torch.ops.p2p import p2p_ulist, p2p_ulist_plain
+    dt = torch.float32 if cfg == "f32" else torch.float64
+    x = sphere_cloud(20_000, np.random.default_rng(42))
+    nrm = np.random.default_rng(45).normal(size=x.shape)
+    fm = AdaptiveFMMDist(K, comm, p=4, max_pts=128, device="cuda",
+                         dtype=dt).setup(x, x, n_src=nrm)
+    f = np.random.default_rng(43).normal(size=(len(x), 3))
+    ext = fm._ghost_exchange(fm.pad_density(torch.as_tensor(
+        f[fm.src_index], device="cuda")))
+    args = fm.ulist_args(ext)
+    return rel_max_err(p2p_ulist(K, *args), p2p_ulist_plain(K, *args)), \
+        fm.Crg
+
+
 def _rank_dist(comm, cfg):
-    """11b-11e on each of the four gloo ranks (see the constants)."""
+    """11b-11f on each of the four gloo ranks (see the constants); cfg:
+    phase 5's figures that 11f reads (`_rank_11f`)."""
     import numpy as np
     import torch
     from sctl_tpu_torch.fmm import AdaptiveFMM, ParticleFMM
@@ -3839,14 +4070,120 @@ def _rank_dist(comm, cfg):
         monitor=lambda t, dt, uu: steps.append(dt)))
     out.update(sdc_steps=len(steps), sdc_f_calls=calls[0], sdc_t=t_end,
                sdc_u=u.cpu().numpy())
+    del A_r, b_r, op, sh, x, u
+    torch.cuda.empty_cache()
+
+    # ---- 11f: phase 5's BIE over the ranks ----
+    out["f"] = _rank_11f(torch, comm, cfg, counters)
     out["rank_s"] = time.perf_counter() - t_rank
     return out
+
+
+def _report_11f(rf, bie, smi, fails):
+    """11f's figures from the ranks' results rf against phase 5's (bie):
+    printed, checked (a failed bar appends to fails), returned."""
+    f0 = rf[0]
+    fx = dict(setup_s=[x["setup_s"] for x in rf],
+              setup_stages=[x["setup_stages"] for x in rf],
+              near_prof=[x["near_prof"] for x in rf],
+              apply_s=[x["apply_s"] for x in rf],
+              stage_ms=[x["stage_ms"] for x in rf],
+              peak_gib=[x["peak_gib"] for x in rf],
+              setup_peak_gib=[x["setup_peak_gib"] for x in rf],
+              phase5_peak_gib=bie["peak_gib"], phase5_spread=bie["spread"],
+              Crg=[x["Crg"] for x in rf], Cb=f0["Cb"],
+              n_leaf=f0["n_leaf"], n_own=[x["n_own"] for x in rf],
+              n_near=[x["n_near"] for x in rf],
+              ulist_pairs=[x["ulist_pairs"] for x in rf],
+              pairs_equal=[x["pairs_equal"] for x in rf],
+              caps_grown=f0["caps_grown"], apply_err=f0["apply_err"],
+              iters=[x["iters"] for x in rf], iters5=bie["iters"],
+              solve_s=[x["solve_s"] for x in rf],
+              resid=f0["resid"], interior=f0["interior"],
+              x_diff=f0["x_diff"], direct_err=f0["direct_err"],
+              direct_fmm=f0["direct_fmm"],
+              launches=[x["launches"] for x in rf],
+              phase_s=[x["phase_s"] for x in rf],
+              ulist=dict(max_rel_err=f0["ulist_err"], ms=f0["ulist_ms"],
+                         plain_ms=f0["ulist_plain_ms"],
+                         bound_ms=f0["ulist_bound_ms"],
+                         bound_by=f0["ulist_bound_by"],
+                         pairs=f0["ulist_pairs"],
+                         case="rank 0's U-list block: its own target leaves, "
+                              "own and ghost source leaves"),
+              p2p=dict(max_rel_err=f0["p2p_err"], ms=f0["p2p_ms"],
+                       plain_ms=f0["p2p_plain_ms"],
+                       bound_ms=f0["p2p_bound_ms"],
+                       bound_by=f0["p2p_bound_by"],
+                       case="the direct regime's far sum on rank 0: %d "
+                            "replicated targets, %d far nodes with normals "
+                            "(Laplace3D_DxU, float32)" % f0["p2p_shape"]))
+    fx["apply_median_s"] = sorted(max(x["apply_s"][k] for x in rf)
+                                  for k in range(3))[1]
+    log(f"dist 11f: bench_bie over {DIST_RANKS} gloo ranks on one card "
+        f"(Stokes3D_DxU, float32, tol {BIE_TOL:g}, {len(bie['b'])} unknowns,"
+        f" phase 5's far tables): setup s by rank "
+        f"{['%.2f' % s for s in fx['setup_s']]}; by stage " + "; ".join(
+            f"rank {q} " + ", ".join(f"{k} {v:.2f}" for k, v in st.items())
+            for q, st in enumerate(fx["setup_stages"])))
+    log(f"dist 11f: near search pairs equal to phase 5's {fx['pairs_equal']} "
+        f"({len(bie['pairs'])} pairs; capacity rounds grown "
+        f"{fx['caps_grown']}); leaves {fx['n_leaf']}, {fx['Cb']} a block; "
+        f"U-list ghost leaves Crg by rank {fx['Crg']}; nodes by rank "
+        f"{fx['n_own']}, near pairs by element owner {fx['n_near']}, U-list "
+        f"pairs by rank {fx['ulist_pairs']}")
+    log(f"dist 11f: sharded apply s by rank "
+        f"{[['%.4f' % s for s in x] for x in fx['apply_s']]}, the slowest "
+        f"rank's median {fx['apply_median_s']:.4f} s (phase 5's one process "
+        f"and its apply above; four processes share one card); peak GiB by "
+        f"rank {['%.2f' % g for g in fx['peak_gib']]} (after setup "
+        f"{['%.2f' % g for g in fx['setup_peak_gib']]}; phase 5's one "
+        f"process {bie['peak_gib']:.2f})")
+    for q, st in enumerate(fx["stage_ms"]):
+        log(f"dist 11f: rank {q} stage ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()))
+    log(f"dist 11f: the gathered apply against phase 5's {fx['apply_err']:.3e}"
+        f" of its maximum (bar {BIE_DIST_APPLY_BAR:g}; two applies of one "
+        f"density in phase 5 differ by {bie['spread']:.3e}); solve "
+        f"iterations {fx['iters']} (phase 5: {bie['iters']}), s "
+        f"{['%.3f' % s for s in fx['solve_s']]}; residual through the "
+        f"single-process op {fx['resid']:.3e} (bar {BIE_RESID_BAR:g}); "
+        f"interior {fx['interior']:.3e} (bar {BIE_INTERIOR_BAR:g}); the "
+        f"solution from phase 5's {fx['x_diff']:.3e} (2-norm, relative)")
+    u = fx["ulist"]
+    log(f"dist 11f: p2p_ulist on rank 0's block (own targets, ghost sources) "
+        f"against its plain version {u['max_rel_err']:.3e} (bar "
+        f"{KERNEL_BAR:g}); alone {u['ms']:.4f} ms, plain {u['plain_ms']:.4f} "
+        f"ms, bound {u['bound_ms']:.4f} ms ({u['bound_by']}), {u['pairs']} "
+        f"pairs; the direct regime (sphere_patches(1), Laplace3D_DxU, its "
+        f"far sums through p2p) against its single-process apply "
+        f"{fx['direct_err']:.3e} (bar {BIE_DIST_DIRECT_BAR:g})")
+    pp = fx["p2p"]
+    log(f"dist 11f: p2p on {pp['case']} against its plain version "
+        f"{pp['max_rel_err']:.3e} (bar {KERNEL_BAR:g}); alone {pp['ms']:.4f} "
+        f"ms, plain {pp['plain_ms']:.4f} ms, bound {pp['bound_ms']:.4f} ms "
+        f"({pp['bound_by']}); launches by "
+        f"rank {fx['launches']}; phase 11f s by rank "
+        f"{['%.1f' % s for s in fx['phase_s']]}; on '{smi}'")
+    if not (all(fx["pairs_equal"]) and max(fx["Crg"]) > 0
+            and fx["apply_err"] <= BIE_DIST_APPLY_BAR
+            and all(abs(i - bie["iters"]) <= BIE_DIST_ITER_SLACK
+                    for i in fx["iters"])
+            and fx["resid"] <= BIE_RESID_BAR
+            and fx["interior"] <= BIE_INTERIOR_BAR
+            and u["max_rel_err"] < KERNEL_BAR and not fx["direct_fmm"]
+            and pp["max_rel_err"] < KERNEL_BAR
+            and fx["direct_err"] < BIE_DIST_DIRECT_BAR
+            and all(x["p2p_ulist"] > 0 and x["p2p"] > 0
+                    for x in fx["launches"])):
+        fails.append("11f: the distributed BIE")
+    return fx
 
 
 def phase_dist(torch, counters, smi, kept):
     """11: the distributed layer (see the constants above).  kept:
     phase 4's sampled targets, their float64 direct sums and its
-    potential."""
+    potential; phase 5's figures for 11f ("bie")."""
     import numpy as np
     from sctl_tpu_torch.comm import run_ranks, start_ranks
     from sctl_tpu_torch.linalg import SDC, SphericalHarmonics, gmres, sh_dim
@@ -3872,7 +4209,7 @@ def phase_dist(torch, counters, smi, kept):
 
     # ---- 11b-11e on four gloo ranks ----
     t = time.perf_counter()
-    group = start_ranks(_rank_dist, DIST_RANKS, None, backend="gloo",
+    group = start_ranks(_rank_dist, DIST_RANKS, kept["bie"], backend="gloo",
                         device=dev, timeout=DIST_TIMEOUT)
     res = group.join()
     wall = time.perf_counter() - t
@@ -4067,8 +4404,12 @@ def phase_dist(torch, counters, smi, kept):
             and set(e["sdc_f_calls"]) == {calls[0]}):
         fails.append("11e: GMRES or SDC over the ranks")
 
+    # 11f: against phase 5's single process
+    out["11f"] = _report_11f([x["f"] for x in res], kept["bie"], smi, fails)
+
     launches = {k: sum(x[f"launches_{s}"].get(k, 0) for x in res
                        for s in "bcd") + a["launches"].get(k, 0)
+                + sum(x["f"]["launches"].get(k, 0) for x in res)
                 for k in _dist_counters()}
     out.update(wall_s=wall, rank_s=[x["rank_s"] for x in res],
                phase_s=time.perf_counter() - t_phase, launches=launches)
@@ -4125,7 +4466,10 @@ def main():
     torch.cuda.empty_cache()
     l4b = phase_particle(torch, all_counters)
     l5, rows["p2p_ulist"], bie_baseline, ops5 = phase_bie(torch,
-                                                          all_counters)
+                                                          all_counters, kept)
+    tables5 = tempfile.TemporaryDirectory()
+    save_tables(ops5, tables5.name)
+    kept["bie"]["tables"] = tables5.name
     torch.cuda.empty_cache()
     from sctl_tpu_torch.fmm.kifmm import unit_tables
     tables6b = build_in_background(unit_tables, "Stokes3D-FSxU", P, 3e-5)
@@ -4191,6 +4535,7 @@ def main():
     torch.cuda.empty_cache()
     l11, dist = phase_dist(torch, all_counters, smi, kept)
     del kept
+    tables5.cleanup()
     for name in ROUTES:
         main_rows[name]["launches"] += l10.get(name, 0) + l11.get(name, 0)
     for name, row in dist["11b"]["kernels"].items():
@@ -4201,6 +4546,12 @@ def main():
         case_max_rel_err=dist["11c"]["p2p_case_err"])
     main_rows["p2p_ulist"]["phase11"]["sharded_launches"] = \
         dist["11d"]["launches"]
+    f11 = dist["11f"]
+    main_rows["p2p_ulist"]["phase11f"] = dict(
+        f11["ulist"], launches=sum(x["p2p_ulist"] for x in f11["launches"]))
+    main_rows["p2p"]["phase11f"] = dict(
+        f11["p2p"], direct_max_rel_err=f11["direct_err"],
+        launches=sum(x["p2p"] for x in f11["launches"]))
     out = []
     for name, (src, tpu) in ROUTES.items():
         r, m = rows[name], main_rows[name]
@@ -4227,7 +4578,8 @@ def main():
                             "bound_tensor_core_ms",
                             "main_path_bound_cuda_core_ms",
                             "main_path_bound_tensor_core_ms", "levels",
-                            "phase7", "phase11", "rounding_spread",
+                            "phase7", "phase11", "phase11f",
+                            "rounding_spread",
                             "rounding_spread_6c", "f64")}))
     # each float64 build: its case at the run's widths, its main path
     # (8d, the halo stencil 8e), its launches over phase 8

@@ -1,5 +1,5 @@
-"""Boundary integral operator u = int K(x, y) sigma(y) dS(y) on one
-device (counterpart of sctl_tpu/bie/boundary_integral.py:51-706).
+"""Boundary integral operator u = int K(x, y) sigma(y) dS(y)
+(counterpart of sctl_tpu/bie/boundary_integral.py:51-719).
 
   ElementListBase     the geometry protocol an element list implements.
   BoundaryIntegralOp  setup: concatenate the element lists, collect the
@@ -16,8 +16,17 @@ device (counterpart of sctl_tpu/bie/boundary_integral.py:51-706).
                       as one batched product and scatter.
 
 Device tensors in and out: `compute_potential_tensor` is the
-counterpart of `compute_potential_jnp`.  The distributed setup and
-apply of the JAX package are not ported.
+counterpart of `compute_potential_jnp`.
+
+Over the ranks of a `comm.Comm` (`comm=` at construction or in
+`setup`): the near pairs come from the distributed search
+(`dist.build_near_list`, its capacities grown as the JAX package grows
+them), each rank assembles the near operators of its block of the pairs
+and the blocks are all-gathered, so that every rank holds the
+single-process op's pairs, operators and `compute_potential`;
+`sharded_apply(comm)` is the sharded application (`dist.ShardedBIEApply`:
+element-aligned blocks, the far field through `AdaptiveFMMDist` or each
+rank's direct sum, the near corrections on the element owner).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import profile
+from ..comm.verbs import allgatherv
 from ..config import resolve_device
 from ..ops.direct import direct_eval_blocked
 from ..ops.kernels import KernelSpec
@@ -116,13 +126,16 @@ class BoundaryIntegralOp:
     not read the device) and `near_cache` (an .npz path: the near pairs
     and the corrected near operators, in the JAX package's layout, read
     when its key matches the geometry and written after a host-path
-    assembly).
+    assembly).  comm: a `comm.Comm` whose ranks share the setup (see
+    `setup`).
     """
 
     def __init__(self, kernel: KernelSpec, trg_normal_dot_prod=False,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 comm=None, device=None,
+                 dtype: torch.dtype = torch.float32):
         from ..fmm.fmm import DIRECT_CUTOFF
         self.kernel = kernel
+        self.comm = comm
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(f"BoundaryIntegralOp dtype {dtype}")
@@ -180,12 +193,20 @@ class BoundaryIntegralOp:
         return np.asarray(v).reshape(len(w), -1) / w[:, None]
 
     # -- setup ------------------------------------------------------------
-    def setup(self):
+    def setup(self, comm=None):
         """Far field, near pairs, near operators (or `near_cache`) and
         the apply tables.  Host seconds of each stage (the device fenced
-        after each) go to `setup_times`."""
+        after each) go to `setup_times`.
+
+        comm (default the constructor's): with two or more ranks the
+        near pairs come from the distributed search
+        (`_build_near_list_dist`), each rank assembles the operators of
+        its block of the pairs, and the blocks are all-gathered; the
+        self-communicator, or none, takes the host search."""
         if self._setup_done:
             return self
+        comm = comm if comm is not None else self.comm
+        dist = comm is not None and not comm.is_self and comm.size() > 1
         import time
         from ..fmm.adaptive import AdaptiveFMM
         from ..fmm.fmm import _TREE_L2T
@@ -239,6 +260,14 @@ class BoundaryIntegralOp:
         if self.near_cache is not None and self._load_near_cache(
                 self.near_cache):
             tick("near_cache")
+        elif dist:
+            self._build_near_list_dist(comm)
+            tick("near_list")
+            self._build_near_matrices_dist(comm)
+            tick("near_assembly")
+            if (self.near_cache is not None and self._near_mats is not None
+                    and comm.rank() == 0):
+                self._save_near_cache(self.near_cache)
         else:
             self._build_near_list()
             tick("near_list")
@@ -366,6 +395,94 @@ class BoundaryIntegralOp:
         te = np.unique(np.stack([np.concatenate(out_t),
                                  np.concatenate(out_e)], 1), axis=0)
         self.near_pairs = [(int(a), int(b)) for a, b in te]
+
+    def _build_near_list_dist(self, comm, _cap_scale: float = 1.0):
+        """The near pairs by the distributed search over comm's ranks
+        (sctl_tpu/bie/boundary_integral.py:277-358): rank r's blocks of
+        the targets and far nodes go to `dist.build_near_list`, on the
+        op's device; a capacity that a rank's `need` exceeds grows to
+        max(2 cap, need + need / 8), at most 8 rounds
+        (`_near_caps_grown` counts them); the ranks' pairs, grouped by
+        target block and sorted, are all-gathered.  _cap_scale: the
+        initial capacities' factor (below 1 exercises the growth)."""
+        from .dist import build_near_list
+        ndev, r = comm.size(), comm.rank()
+        dev = self.device
+        nt, nf = len(self.Xt_eff), len(self.Xf)
+        Ct, Cf = max(1, -(-nt // ndev)), max(1, -(-nf // ndev))
+        elem_of_f = np.repeat(np.arange(len(self.far_cnt)), self.far_cnt)
+
+        def block(a, C, dt):
+            lo, hi = min(len(a), r * C), min(len(a), (r + 1) * C)
+            out = torch.zeros((C,) + a.shape[1:], dtype=dt, device=dev)
+            out[:hi - lo] = torch.as_tensor(a[lo:hi], dtype=dt, device=dev)
+            return out, hi - lo
+
+        f64, i64 = torch.float64, torch.int64
+        Xt, tcnt = block(self.Xt_eff, Ct, f64)
+        tg, _ = block(np.arange(nt), Ct, i64)
+        Xf, fcnt = block(self.Xf, Cf, f64)
+        df, _ = block(self.df, Cf, f64)
+        fe, _ = block(elem_of_f, Cf, i64)
+        # the JAX package's initial capacities (about 40 near elements a
+        # target; the bench torus has about 9)
+        caps = {"cap_route_t": ndev * Ct,
+                "cap_route_f": -(-27 * nf // ndev) + Cf,
+                "cap_join": 128 * ndev * Cf,
+                "cap_out": 64 * max(Ct, 64)}
+        if _cap_scale != 1.0:
+            caps = {k: max(8, int(v * _cap_scale)) for k, v in caps.items()}
+        self._near_caps_grown = 0
+        for _ in range(8):
+            pt, pe, need = build_near_list(comm, Ct, Xt, tcnt, tg, Xf, df,
+                                           fe, fcnt, **caps)
+            need = comm.allreduce(need.to(dev), "max").cpu().numpy()
+            grown = False
+            for i, k in enumerate(("cap_route_t", "cap_route_f",
+                                   "cap_join", "cap_out")):
+                if int(need[i]) > caps[k]:
+                    caps[k] = max(2 * caps[k],
+                                  int(need[i]) + (int(need[i]) >> 3))
+                    grown = True
+            self._near_caps_grown += int(grown)
+            if not grown:
+                break
+        else:
+            raise RuntimeError(
+                "distributed near search did not converge on capacities "
+                f"after 8 doublings: need={need.tolist()} caps={caps}")
+        te = allgatherv(comm, torch.stack([pt, pe], 1)).cpu().numpy()
+        self.near_pairs = [(int(a), int(b)) for a, b in te]
+
+    def _build_near_matrices_dist(self, comm):
+        """The near operators of rank r's block of the pairs (contiguous,
+        ceil(P / ranks) a rank), by the engine `_build_near_matrices`
+        picks, all-gathered into the single-process op's order."""
+        ndev, r = comm.size(), comm.rank()
+        pairs = self.near_pairs
+        P = len(pairs)
+        Cp = max(1, -(-P // ndev))
+        self.near_pairs = pairs[min(P, r * Cp):min(P, (r + 1) * Cp)]
+        self._build_near_matrices()
+        self.near_pairs = pairs
+        n_fb = comm.allreduce(torch.tensor(
+            [int(self._near_fallback_count)], device=self.device))
+        self._near_fallback_count = int(n_fb[0])
+        if self._near_mats_dev is not None:
+            self._near_mats_dev = allgatherv(comm, self._near_mats_dev, Cp)
+            return
+        # host path: ragged (n_e k0, k1) float64 blocks, padded to the
+        # widest for the gather
+        k1 = self.kernel.kdim1
+        rows = np.array([self.node_cnt[e] * self.kernel.kdim0
+                         for _, e in pairs], np.int64)
+        R = int(rows.max()) if P else 1
+        blob = np.zeros((len(self._near_mats), R, k1))
+        for i, m in enumerate(self._near_mats):
+            blob[i, :m.shape[0]] = m.reshape(-1, k1)
+        g = allgatherv(comm, torch.as_tensor(blob, device=self.device),
+                       Cp).cpu().numpy()
+        self._near_mats = [g[i, :rows[i]] for i in range(P)]
 
     def _device_near_ok(self) -> bool:
         """The near engine: `use_device_near` if set, else the device
@@ -519,6 +636,14 @@ class BoundaryIntegralOp:
                                       dev["near_mats"]))
         _mark(marks, "near")
         return U
+
+    def sharded_apply(self, comm):
+        """The distributed application over comm's ranks
+        (sctl_tpu/bie/boundary_integral.py:710-719): a
+        `dist.ShardedBIEApply` with `pack`, `apply` and `unpack`; its
+        setup runs `setup(comm=comm)`."""
+        from .dist import ShardedBIEApply
+        return ShardedBIEApply(self, comm)
 
     def compute_potential(self, sigma) -> np.ndarray:
         """numpy sigma -> numpy (Nt, k1) potential, timed in the profile

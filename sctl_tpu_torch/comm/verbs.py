@@ -123,6 +123,23 @@ def alltoallv(comm: Comm, data, send_cnt, recv_capacity: int):
     return tree_map(one, data), torch.tensor(recv_cnt, device=dev)
 
 
+def allgatherv(comm: Comm, rows: torch.Tensor,
+               cap: Optional[int] = None) -> torch.Tensor:
+    """Ragged all-gather (reference: Allgatherv, comm.txx:~350): each
+    rank's (n_r, ...) rows -> their concatenation in rank order, on
+    every rank.  The counts are all-gathered, then the rows, padded to
+    `cap` rows (default the largest n_r), in one all-gather."""
+    if comm.is_self or comm.size() == 1:
+        return rows
+    n = torch.tensor([rows.shape[0]], device=rows.device)
+    cnt = comm._all_gather(n).reshape(-1).tolist()
+    cap = max(cnt) if cap is None else cap
+    pad = rows.new_zeros((cap,) + rows.shape[1:])
+    pad[:rows.shape[0]] = rows
+    g = comm._all_gather(pad)
+    return torch.cat([g[q, :c] for q, c in enumerate(cnt)])
+
+
 def alltoallv_ring(comm: Comm, data, send_cnt, recv_capacity: int):
     """Ragged all-to-all with O(C) staging: p - 1 ring steps rotate each
     rank's whole buffer, every rank taking the segment addressed to it

@@ -479,46 +479,85 @@ class AdaptiveFMM:
         M2M, V, X, L2L, L2T, W, U.  With `shard` a comm, this rank runs
         its index block of each leaf and node stage (`_block`) and the
         partial results are all-reduced over the comm."""
-        nodes, L, ns = self.nodes, self.L, self.ns
         blk = (lambda m: slice(0, m)) if shard is None else (
             lambda m: _block(m, shard.size(), shard.rank()))
-        dt, dev = _FAR_DTYPE, self.device
-        fp_io, fp = fp, fp.to(dt)
-        xs_loc, ns_pad, xt_loc = self.xs_loc, self.ns_pad, self.xt_loc
-        ks2m, kl = self.ker_s2m, self.ker_l2t
-        n_leaf = self.n_leaf
+        fp_io, fp = fp, fp.to(_FAR_DTYPE)
+        xs, ns, xt = self.xs_loc, self.ns_pad, self.xt_loc
+        leaves = {}
+        for lv, rows in self.leaf_rows.items():
+            b = blk(len(rows))
+            leaves[lv] = (rows[b], self.leaf_nodes[lv][b])
+        part = lambda pairs: {lv: tuple(a[blk(len(p[0]))] for a in p)
+                              for lv, p in pairs.items()}
 
-        # ---- S2M ----
-        q_up = [torch.zeros((max(nodes.n[lv], 1), ns), dtype=dt,
-                            device=dev) for lv in range(L + 1)]
-        for lv, rows_all in self.leaf_rows.items():
-            b = blk(len(rows_all))
-            rows = rows_all[b]
-            xck = self.surf_out[lv].expand(len(rows), -1, -1)
-            u = _apply_groups(ks2m, xck, xs_loc[rows], fp[rows],
-                              ns_pad[rows] if ks2m.needs_normal else None)
-            u = u.reshape(len(rows), -1) * ks2m.scale_factor
-            q_up[lv].index_add_(0, self.leaf_nodes[lv][b],
-                                u @ self.uc2e[lv].T)
+        q_up = self._s2m(fp, xs, ns, leaves)
         if shard is not None:
             q_up = _allreduce_list(shard, q_up)
         _mark(marks, "S2M")
+        self._m2m(q_up)
+        _mark(marks, "M2M")
+        q_dn = self._vlist(q_up)
+        _mark(marks, "V")
+        # sharded: the X contributions summed apart, so that the
+        # all-reduce leaves V's part single
+        q_x = q_dn if shard is None else [torch.zeros_like(q) for q in q_dn]
+        self._xlist(q_x, fp, xs, ns, part(self.xpairs))
+        if shard is not None and self.xpairs:
+            for q, qx in zip(q_dn, _allreduce_list(shard, q_x)):
+                q += qx
+        _mark(marks, "X")
+        self._l2l(q_dn)
+        _mark(marks, "L2L")
+        u_out = torch.zeros((self.n_leaf, self.cap_t, self.ker_l2t.kdim1),
+                            dtype=_FAR_DTYPE, device=self.device)
+        self._l2t(u_out, q_dn, xt, leaves)
+        _mark(marks, "L2T")
+        self._wlist(u_out, q_up, xt, part(self.wpairs))
+        _mark(marks, "W")
 
-        # ---- M2M ----
-        for lv in range(L, 1, -1):
+        # ---- U list: the CUDA kernel over the compacted lists ----
+        b = blk(self.n_leaf)
+        u_near = self._ulist(fp_io, b)
+        u_out[b] += u_near.to(_FAR_DTYPE) * self.ker_s2t.scale_factor
+        if shard is not None:
+            u_out = shard.allreduce(u_out)
+        _mark(marks, "U")
+        return u_out.to(self.dtype)
+
+    # -- the stages, on the leaf tables they are given (the whole tree's,
+    # a rank's block of them, or a rank's own leaves in AdaptiveFMMDist);
+    # every array float64 -------------------------------------------------
+    def _s2m(self, fp, xs, ns, leaves: dict) -> list:
+        """Leaf densities -> per-level upward equivalents.  leaves: level
+        -> (rows of fp / xs / ns, node index at that level)."""
+        ks2m = self.ker_s2m
+        q_up = [torch.zeros((max(n, 1), self.ns), dtype=_FAR_DTYPE,
+                            device=self.device) for n in self.nodes.n]
+        for lv, (rows, nodes) in leaves.items():
+            xck = self.surf_out[lv].expand(len(rows), -1, -1)
+            u = _apply_groups(ks2m, xck, xs[rows], fp[rows],
+                              ns[rows] if ks2m.needs_normal else None)
+            u = u.reshape(len(rows), -1) * ks2m.scale_factor
+            q_up[lv].index_add_(0, nodes, u @ self.uc2e[lv].T)
+        return q_up
+
+    def _m2m(self, q_up: list) -> None:
+        for lv in range(self.L, 1, -1):
             for c, rows, par in self.oct_groups[lv]:
                 q_up[lv - 1].index_add_(0, par,
                                         q_up[lv][rows] @ self.m2m[lv - 1][c])
-        _mark(marks, "M2M")
 
-        # ---- V list: batched over offsets, compressed family ----
+    def _vlist(self, q_up: list) -> list:
+        """Upward -> downward equivalents through the V list: per level
+        the 316 offsets batched, the compressed M2L family."""
+        dt, ns = _FAR_DTYPE, self.ns
         q_dn = [torch.zeros_like(q) for q in q_up]
         r = self.cb_t.shape[0]
         for lv, (tpad, spad) in self.vtab.items():
             acc = q_up[lv].new_zeros((q_up[lv].shape[0] + 1, r))
             qs = q_up[lv] / self.m2l_s[lv]
             P = tpad.shape[1]
-            step = max(1, _v_budget(dev) // max(1, P * ns))
+            step = max(1, _v_budget(self.device) // max(1, P * ns))
             for o0 in range(0, 316, step):
                 o = slice(o0, o0 + step)
                 tp, sp = tpad[o], spad[o]
@@ -527,64 +566,44 @@ class AdaptiveFMM:
                 acc.index_add_(0, torch.where(tp >= 0, tp, acc.shape[0] - 1)
                                .reshape(-1), contrib.reshape(-1, r))
             q_dn[lv] += (acc[:-1] @ self.cb_t) * self.m2l_s[lv]
-        _mark(marks, "V")
+        return q_dn
 
-        # ---- X list: leaf points -> node down-check -> dc2e (sharded:
-        # summed apart, so that the all-reduce leaves V's part single) ----
-        q_x = q_dn if shard is None else [torch.zeros_like(q) for q in q_dn]
-        for lv, (xn_all, xl_all, off_all) in self.xpairs.items():
-            b = blk(len(xn_all))
-            xn, xl, off = xn_all[b], xl_all[b], off_all[b]
+    def _xlist(self, q_dn: list, fp, xs, ns, xpairs: dict) -> None:
+        """Leaf points -> node down-check -> dc2e, added to q_dn.
+        xpairs: level -> (node, source row of fp / xs / ns, offset from
+        the leaf's frame to the node's)."""
+        ks2m = self.ker_s2m
+        for lv, (xn, xl, off) in xpairs.items():
             xck = self.surf_in[lv].expand(len(xn), -1, -1)
-            u = _apply_groups(ks2m, xck, xs_loc[xl] + off[:, None, :],
-                              fp[xl],
-                              ns_pad[xl] if ks2m.needs_normal else None)
+            u = _apply_groups(ks2m, xck, xs[xl] + off[:, None, :], fp[xl],
+                              ns[xl] if ks2m.needs_normal else None)
             u = u.reshape(len(xn), -1) * ks2m.scale_factor
-            q_x[lv].index_add_(0, xn, u @ self.dc2e[lv].T)
-        if shard is not None and self.xpairs:
-            for q, qx in zip(q_dn, _allreduce_list(shard, q_x)):
-                q += qx
-        _mark(marks, "X")
+            q_dn[lv].index_add_(0, xn, u @ self.dc2e[lv].T)
 
-        # ---- L2L ----
-        for lv in range(2, L + 1):
+    def _l2l(self, q_dn: list) -> None:
+        for lv in range(2, self.L + 1):
             for c, rows, par in self.oct_groups[lv]:
                 q_dn[lv].index_add_(0, rows,
                                     q_dn[lv - 1][par] @ self.l2l[lv - 1][c])
-        _mark(marks, "L2L")
 
-        # ---- L2T ----
-        k0l = kl.kdim0
-        u_out = torch.zeros((n_leaf, self.cap_t, kl.kdim1), dtype=dt,
-                            device=dev)
-        for lv, rows_all in self.leaf_rows.items():
-            b = blk(len(rows_all))
-            rows = rows_all[b]
+    def _l2t(self, u_out, q_dn: list, xt, leaves: dict) -> None:
+        """Downward equivalents -> the leaves' targets, added to u_out."""
+        kl = self.ker_l2t
+        for lv, (rows, nodes) in leaves.items():
             xeq = self.surf_out[lv].expand(len(rows), -1, -1)
-            qd = q_dn[lv][self.leaf_nodes[lv][b]].reshape(len(rows), -1,
-                                                          k0l)
-            u_out.index_add_(0, rows, _apply_groups(kl, xt_loc[rows], xeq,
-                                                    qd) * kl.scale_factor)
-        _mark(marks, "L2T")
-
-        # ---- W list: finer-node multipoles -> leaf targets ----
-        for lv, (tl_all, sn_all, off_all) in self.wpairs.items():
-            b = blk(len(tl_all))
-            tl, sn, off = tl_all[b], sn_all[b], off_all[b]
-            xe = self.surf_in[lv][None] + off[:, None, :]
-            q = q_up[lv][sn].reshape(len(sn), -1, k0l)
-            u_out.index_add_(0, tl, _apply_groups(kl, xt_loc[tl], xe, q)
+            qd = q_dn[lv][nodes].reshape(len(rows), -1, kl.kdim0)
+            u_out.index_add_(0, rows, _apply_groups(kl, xt[rows], xeq, qd)
                              * kl.scale_factor)
-        _mark(marks, "W")
 
-        # ---- U list: the CUDA kernel over the compacted lists ----
-        b = blk(n_leaf)
-        u_near = self._ulist(fp_io, b)
-        u_out[b] += u_near.to(dt) * self.ker_s2t.scale_factor
-        if shard is not None:
-            u_out = shard.allreduce(u_out)
-        _mark(marks, "U")
-        return u_out.to(self.dtype)
+    def _wlist(self, u_out, q_up: list, xt, wpairs: dict) -> None:
+        """Finer-node multipoles -> leaf targets, added to u_out.
+        wpairs: level -> (target row of u_out / xt, node, offset)."""
+        kl = self.ker_l2t
+        for lv, (tl, sn, off) in wpairs.items():
+            xe = self.surf_in[lv][None] + off[:, None, :]
+            q = q_up[lv][sn].reshape(len(sn), -1, kl.kdim0)
+            u_out.index_add_(0, tl, _apply_groups(kl, xt[tl], xe, q)
+                             * kl.scale_factor)
 
     def ulist_args(self, fp: torch.Tensor, leaves: slice = slice(None)):
         """Leaf-slot densities -> the U-list kernel's arguments for the

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..comm.comm import Comm
+from ..comm.verbs import allgatherv
 from ..config import resolve_device
 from ..ops.kernels import KernelSpec, Laplace3D_FxU
 from ..ops.p2p import box_ranges, p2p_ulist
@@ -285,18 +286,10 @@ class KIFMMDist:
         k1), numpy, on every rank (the slabs' results all-gathered)."""
         k0, k1 = self.ker_s2t.kdim0, self.ker_l2t.kdim1
         f = np.asarray(f, np.float64).reshape(-1, k0)
-        u = self.eval_tensor(torch.as_tensor(f[self.src_index]))
-        if self.comm.is_self:
-            parts = [u.cpu().numpy()]
-        else:
-            m = max(len(ix) for ix in self.trg_index_all)
-            g = self.comm._all_gather(F.pad(u, (0, 0, 0, m - u.shape[0])))
-            g = g.cpu().numpy()
-            parts = [g[q, :len(ix)] for q, ix in
-                     enumerate(self.trg_index_all)]
+        u = allgatherv(self.comm,
+                       self.eval_tensor(torch.as_tensor(f[self.src_index])))
         out = np.empty((len(self.trg_tree.perm), k1))
-        for ix, part in zip(self.trg_index_all, parts):
-            out[ix] = part
+        out[np.concatenate(self.trg_index_all)] = u.cpu().numpy()
         return out
 
     def _ranks(self, lvl: int):

@@ -126,11 +126,20 @@ def build_skeleton(skeys, n_local, comm: Comm, max_pts: int,
     return _pad_leaves(torch.cat(keys), torch.cat(lvls), leaf_cap)
 
 
+class LeafCapacityError(ValueError):
+    """More leaves than a DistPtTree's leaf_cap: `n_leaf` is the count
+    (the same on every rank), so that a caller can grow the capacity."""
+
+    def __init__(self, n_leaf: int, leaf_cap: int):
+        super().__init__(f"DistPtTree: {n_leaf} leaves exceed leaf_cap "
+                         f"{leaf_cap}")
+        self.n_leaf = n_leaf
+
+
 def _pad_leaves(lk, ll, leaf_cap: int):
     n = lk.shape[0]
     if n > leaf_cap:
-        raise ValueError(f"DistPtTree: {n} leaves exceed leaf_cap "
-                         f"{leaf_cap}")
+        raise LeafCapacityError(n, leaf_cap)
     order = torch.argsort(lk)
     out_k = torch.full((leaf_cap,), NOKEY, dtype=torch.int64,
                        device=lk.device)

@@ -177,6 +177,17 @@ def test_verbs_semantics(ranks, inputs):
                                       inputs["ss_data"][r, :CAP // 2])
 
 
+def test_allgatherv(ranks, inputs):
+    """The ragged all-gather: every rank holds every rank's valid rows,
+    in rank order, whatever the padding."""
+    want = np.concatenate([inputs["route_data"][r, :inputs["route_cnt"][r]]
+                           for r in range(P)])
+    for r in range(P):
+        for case in ("allgatherv", "allgatherv_cap"):
+            np.testing.assert_array_equal(ranks[r][case], want,
+                                          err_msg=f"rank {r} {case}")
+
+
 def test_self_comm_matches_jax(inputs):
     """The self-communicator against the JAX Comm() with no axis."""
     d = inputs

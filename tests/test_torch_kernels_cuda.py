@@ -31,7 +31,9 @@ ParticleFMM on the card against the CPU.  The spectral layer (spherical
 harmonic transforms at p = 32, the FFT facade, the Stokes potentials on
 the sphere, SDC) on the card against the CPU in float64 at 1e-12 of
 the maximum (KL 1e-11), and the Stokes potentials at p = 16 against
-direct sums through the float64 p2p.
+direct sums through the float64 p2p.  The distributed layer: one NCCL
+rank against the self-communicator, and the U-list blocks of a 4-rank
+AdaptiveFMMDist, whose sources include other ranks' leaves.
 
 They need an NVIDIA card and skip elsewhere; the card is looked for in
 a fixture, never at import.  This file imports no JAX, so it runs on
@@ -1650,3 +1652,19 @@ def test_comm_nccl_one_rank_matches_self(cuda_device):
     assert out["kifmm_equal"] and out["ring_equal"]
     assert all(out["launches"][k] > 0 for k in
                ("surface_pair", "l2t_surface", "p2p_ulist", "p2p"))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_dist_ulist_ghost_block_matches_plain(cuda_device, dtype):
+    """p2p_ulist on each rank's U-list block of a 4-rank AdaptiveFMMDist
+    (Stokes3D-DxU, four gloo ranks sharing the card): its own target
+    leaves, with source leaves of other ranks among them (the ghosts),
+    the densities read through the [own; ghost] index, against its plain
+    version (1e-5 in float32, 1e-12 in float64)."""
+    import chip_smoke
+    from sctl_tpu_torch.comm import run_ranks
+    out = run_ranks(chip_smoke._rank_ulist_ghosts, 4, dtype, backend="gloo",
+                    device=cuda_device, timeout=300)
+    assert max(crg for _, crg in out) > 0
+    for err, _ in out:
+        assert err < (1e-5 if dtype == "f32" else 1e-12)

@@ -127,6 +127,9 @@ def comm_cases(comm, d):
                                capacity=4 * CAP)
     out["scatter_idx"], out["scatter_fwd"] = idx, fwd
     out["scatter_fwd_n"], out["scatter_rev"] = fcnt, rev
+    own = t(d["route_data"][r][:d["route_cnt"][r]])
+    out["allgatherv"] = V.allgatherv(comm, own)
+    out["allgatherv_cap"] = V.allgatherv(comm, own, CAP)
 
     # row-sharded GMRES (tests/test_gmres.py:78-95's system)
     N = d["gmres_A"].shape[0]
@@ -304,4 +307,150 @@ def kifmm_cases(comm, d):
     out["ring_dl"] = fmm.eval_direct_ring(
         Laplace3D_DxU, blk(d["ring_xt"]), blk(d["ring_xs"]), blk(d["ring_f"]),
         ns=blk(d["ring_nrm"]))
+    return out
+
+
+def adaptive_inputs() -> dict:
+    """The inputs of `adaptive_cases` (tests/test_fmm.py:270-307): 3,000
+    points on the unit sphere, their normals the points; "tables" (set
+    by the caller) the Laplace unit tables at p = 6 as numpy arrays."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    x = rng.normal(size=(n, 3))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return {"xs": x, "f": rng.normal(size=(n, 1)), "tables": None}
+
+
+def adaptive_cases(comm, d):
+    from sctl_tpu_torch.fmm import AdaptiveFMMDist, operators_from_numpy
+    from sctl_tpu_torch.ops import Laplace3D_DxU, Laplace3D_FxU
+    xs, f = d["xs"], d["f"]
+    kw = dict(p=6, max_pts=64, device="cpu", dtype=F64,
+              operators=operators_from_numpy(d["tables"], "cpu", F64))
+    fm = AdaptiveFMMDist(Laplace3D_FxU, comm, **kw).setup(xs, xs)
+    af = fm._afmm
+    out = {"sl": fm.eval(f),
+           "local": fm.eval_tensor(torch.as_tensor(f[fm.src_index])),
+           "trg_index": fm.trg_index, "Crg": fm.Crg, "Cb": fm.Cb,
+           "block": (fm.lo, fm.hi), "n_leaf": fm.n_leaf,
+           "leaves": (af.tree.leaf_keys, af.tree.leaf_levels),
+           "rows": [a.shape[0] for a in (fm.xs_own, fm.ns_own, fm.xt_own,
+                                         fm.pad_idx)],
+           "freed": [getattr(af, k) is None for k in (
+               "xs_loc", "ns_pad", "xt_loc", "ul_xs", "wpairs", "xpairs")],
+           "w_rows": torch.cat([w[0] for w in fm.wpairs.values()]),
+           "w_pairs": sum(len(w[0]) for w in fm.wpairs.values()),
+           "x_rows": torch.cat([x[1] for x in fm.xpairs.values()]),
+           "x_pairs": sum(len(x[0]) for x in fm.xpairs.values()),
+           "ulist_sources": fm.ul_xs.shape[1]}
+    dl = AdaptiveFMMDist(Laplace3D_DxU, comm, **kw).setup(xs, xs, n_src=xs)
+    out["dl"] = dl.eval(f)
+    out["dl_Crg"] = dl.Crg
+    return out
+
+
+def sphere1():
+    from sctl_tpu_torch.bie import sphere_patches
+    return sphere_patches(n_per_face=1, q=4)
+
+
+def sphere2():
+    from sctl_tpu_torch.bie import sphere_patches
+    return sphere_patches(n_per_face=2, q=4)
+
+
+BIE_TOL2 = 1e-6        # the sphere_patches(2) cases' quadrature tolerance
+
+
+def bie_inputs() -> dict:
+    """The inputs of `bie_cases` (tests/test_bie.py:247-450, the
+    spheres at q = 4 where the JAX tests take q = 6: the host near
+    path's time grows with q): densities,
+    the Laplace point source of the second-kind solve, the Stokes
+    torus's density; "tables" (set by the caller) the far FMMs' unit
+    tables as numpy arrays, by translation kernel name."""
+    rng = np.random.default_rng(1)
+    return {"sigma1": rng.normal(size=6 * 16),
+            "sigma2": np.random.default_rng(2).normal(size=24 * 16),
+            "sigma7": np.random.default_rng(7).normal(size=24 * 16),
+            "src": np.array([[1.7, 0.8, 1.2]]),
+            "sigma_st": np.random.default_rng(3).normal(size=3 * 18 * 16),
+            "tables": {}}
+
+
+def _bie_op(ker, lst, tol, d, comm=None, cutoff=None, p=6, host=True):
+    """A float64 CPU BoundaryIntegralOp on the tables of d["tables"]."""
+    from sctl_tpu_torch.bie import BoundaryIntegralOp
+    from sctl_tpu_torch.fmm import operators_from_numpy
+    from sctl_tpu_torch.fmm.fmm import _TREE_L2T
+    from sctl_tpu_torch.fmm.kifmm import kernel_roles
+    op = BoundaryIntegralOp(ker, comm=comm, device="cpu", dtype=F64)
+    op.set_accuracy(tol)
+    op.add_elem_list(lst)
+    op.use_device_near = not host
+    if cutoff is not None:
+        op.far_fmm_cutoff = cutoff
+        op.far_fmm_p = p
+        trans = kernel_roles(ker, _TREE_L2T[ker.name])[0]
+        op.far_fmm_operators = operators_from_numpy(
+            d["tables"][trans.name], "cpu", F64, trans)
+    return op
+
+
+def bie_cases(comm, d):
+    from sctl_tpu_torch.bie import torus_patches
+    from sctl_tpu_torch.linalg import gmres_device
+    from sctl_tpu_torch.ops import (Laplace3D_DxU, Laplace3D_FxU,
+                                    Stokes3D_DxU, direct_eval_blocked)
+    out = {}
+    t = torch.as_tensor
+
+    # the direct regime (tests/test_bie.py:247-297): the host-search op,
+    # its sharded apply and a sharded second-kind solve
+    op = _bie_op(Laplace3D_DxU, sphere1(), 1e-7, d)
+    op.setup()
+    sh = op.sharded_apply(comm)
+    out["direct_fmm"] = sh._fmm is not None
+    out["direct_sh"] = sh.unpack(sh.apply(sh.pack(d["sigma1"])))
+    out["direct_1"] = op.compute_potential(d["sigma1"])
+    X = op.X
+    bc = direct_eval_blocked(Laplace3D_FxU, t(X), t(d["src"]),
+                             torch.ones((1, 1), dtype=F64))[:, 0]
+    A_sh = lambda s: sh.apply(s).reshape(-1) - 0.5 * s
+    x_sh, it_sh, _ = gmres_device(A_sh, sh.pack(bc), tol=1e-8, max_iter=60,
+                                  comm=comm)
+    A_1 = lambda s: op.compute_potential_tensor(s).reshape(-1) - 0.5 * s
+    x_1, it_1, _ = gmres_device(A_1, bc, tol=1e-8, max_iter=60)
+    out.update(x_sh=sh.unpack(x_sh.reshape(-1, 1))[:, 0], it_sh=int(it_sh),
+               x_1=x_1, it_1=int(it_1), n_own=sh.n_own)
+
+    # the FMM regime (:300-325) on the host-search op, and setup(comm=)
+    # as the production path (:396-450): the distributed search, the
+    # assembly shared by blocks and all-gathered; the sharded apply on
+    # the latter; then its search again from capacities cut to 1/64
+    op2 = _bie_op(Laplace3D_DxU, sphere2(), BIE_TOL2, d, cutoff=1000)
+    op2.setup()
+    out["host_pairs"] = np.asarray(op2.near_pairs)
+    out["fmm_1"] = op2.compute_potential(d["sigma2"])
+    out["host_u"] = op2.compute_potential(d["sigma7"])
+    op3 = _bie_op(Laplace3D_DxU, sphere2(), BIE_TOL2, d, comm=comm,
+                  cutoff=1000)
+    op3.setup()
+    out["dist_pairs"] = np.asarray(op3.near_pairs)
+    out["dist_u"] = op3.compute_potential(d["sigma7"])
+    sh2 = op3.sharded_apply(comm)
+    out["fmm_sh"] = sh2.unpack(sh2.apply(sh2.pack(d["sigma2"])))
+    out["fmm_Crg"] = sh2._fmm.Crg
+    op3._build_near_list_dist(comm, _cap_scale=1.0 / 64)
+    out["grown"] = op3._near_caps_grown
+    out["grown_pairs"] = np.asarray(op3.near_pairs)
+
+    # Stokes3D_DxU on the 6 x 3 torus, the FMM regime, set up over the
+    # ranks with the device near engine (on the CPU)
+    op4 = _bie_op(Stokes3D_DxU, torus_patches(nu=6, nv=3, q=4, R=2.0, r=0.5),
+                  1e-4, d, comm=comm, cutoff=100, p=4, host=False)
+    sh4 = op4.sharded_apply(comm)
+    out["stokes_sh"] = sh4.unpack(sh4.apply(sh4.pack(d["sigma_st"])))
+    out["stokes_1"] = op4.compute_potential(d["sigma_st"])
+    out["stokes_Crg"] = sh4._fmm.Crg
     return out
